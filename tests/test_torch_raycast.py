@@ -1,0 +1,116 @@
+"""Kernel 2 (raycast + G-buffer): the port's plain version against the
+JAX package's jnp oracle raycast_ref and its Pallas kernel (interpret
+mode), on the same packed tables.  Hit and material ids exact; columns
+1e-5 against the oracle, and against the Pallas kernel the bounds
+tests/test_raycast_pallas.py holds that kernel to (t 1e-5, the
+interpolated columns 1e-4: its one-hot attribute fetch rounds apart
+from the oracle's)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vct_tpu.core import camera as jcam
+from vct_tpu.ops import raycast_pallas as JRP
+from vct_tpu.render import gbuffer as jgbuf
+from vct_tpu.scene.atrium import atrium
+from vct_tpu.scene.cornell import cornell_box
+from vct_tpu_torch.ops import raycast as RP
+from vct_tpu_torch.render import gbuffer as GB
+
+torch.set_num_threads(1)    # all torch math on the main thread: PERF.md §7 item 4
+
+SCENES = {
+    "cornell": (lambda: cornell_box(size=100.0),
+                dict(position=(3.0, 2.0, 40.0)), 32, 16),
+    "atrium": (atrium, dict(position=(48.0, -10.0, 0.0), yaw=180.0), 64, 32),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(SCENES))
+def setup(request):
+    make, cam, w, h = SCENES[request.param]
+    scene = make()
+    jds = jgbuf.DeviceScene.from_scene(scene)
+    _, d = jcam.primary_rays(jcam.Camera(**cam), w, h)
+    d = np.array(d).reshape(-1, 3)
+    o = np.asarray(cam["position"], np.float32)
+    rng = np.random.default_rng(0)
+    m = len(scene.materials)
+    mats = (rng.random((m, 4), np.float32), rng.random((m, 3), np.float32),
+            rng.random(m).astype(np.float32) * 40)
+    isect, attrs, t = JRP.pack_tables(jds, jnp.asarray(o),
+                                      *map(jnp.asarray, mats))
+    return scene, d, o, mats, np.asarray(isect), np.asarray(attrs), t
+
+
+def _port(d, o, isect, attrs, t):
+    """Port raycast on the JAX tables, converted to the port's row layout."""
+    return RP.raycast_gbuf24(torch.as_tensor(d), torch.as_tensor(o),
+                             torch.as_tensor(isect.T[:t].copy()),
+                             torch.as_tensor(attrs[:t].copy())).numpy()
+
+
+def _check(out, ref, tol=1e-5):
+    hit = ref[:, 19] > 0.5
+    np.testing.assert_array_equal(out[:, 19], ref[:, 19])
+    np.testing.assert_array_equal(out[hit, 17], ref[hit, 17])
+    assert hit.any()
+    np.testing.assert_allclose(out[:, 18], ref[:, 18], atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(out, ref, atol=tol, rtol=tol)
+
+
+def test_matches_raycast_ref(setup):
+    _, d, o, _, isect, attrs, t = setup
+    ref = np.asarray(JRP.raycast_ref(jnp.asarray(d), jnp.asarray(o),
+                                     jnp.asarray(isect), jnp.asarray(attrs)))
+    _check(_port(d, o, isect, attrs, t), ref)
+
+
+def test_matches_pallas_interpret(setup):
+    _, d, o, _, isect, attrs, t = setup
+    ref = np.asarray(JRP.raycast_gbuf24(jnp.asarray(d), jnp.asarray(o),
+                                        jnp.asarray(isect),
+                                        jnp.asarray(attrs), interpret=True))
+    _check(_port(d, o, isect, attrs, t), ref, tol=1e-4)
+
+
+def test_own_tables_match(setup):
+    """The port's own pack_tables + raycast against the JAX pipeline.
+    Cornell's tables are bit-equal; the atrium's differ by an ulp in some
+    entries (tests/test_torch_host.py), which may flip a grazing hit: at
+    most 0.5% of rays, and agreeing rays stay within 1e-4."""
+    scene, d, o, mats, isect, attrs, t = setup
+    ds = GB.DeviceScene.from_scene(scene)
+    pi, pa = RP.pack_tables(ds, torch.as_tensor(o),
+                            *(torch.as_tensor(m) for m in mats))
+    out = RP.raycast_gbuf24(torch.as_tensor(d), torch.as_tensor(o),
+                            pi, pa).numpy()
+    ref = np.asarray(JRP.raycast_ref(jnp.asarray(d), jnp.asarray(o),
+                                     jnp.asarray(isect), jnp.asarray(attrs)))
+    same = (out[:, 19] == ref[:, 19]) & (out[:, 17] == ref[:, 17])
+    assert same.mean() >= 0.995
+    np.testing.assert_allclose(out[same], ref[same], atol=1e-4, rtol=1e-4)
+    if scene.num_triangles == 40:
+        _check(out, ref)
+
+
+def test_miss_rows():
+    """Rays that hit nothing: position = origin, everything else zero."""
+    scene = cornell_box(size=100.0)
+    ds = GB.DeviceScene.from_scene(scene)
+    o = torch.tensor([0.0, 0.0, 500.0])          # outside, looking away
+    d = torch.tensor([[0.0, 0.0, 1.0], [0.6, 0.0, 0.8]])
+    out = RP.raycast_gbuf24(d, o, *RP.pack_tables(ds, o)).numpy()
+    np.testing.assert_array_equal(out[:, 0:3], np.tile(o.numpy(), (2, 1)))
+    np.testing.assert_array_equal(out[:, 3:], 0.0)
+
+
+def test_chunking_is_exact(setup):
+    _, d, o, _, isect, attrs, t = setup
+    args = (torch.as_tensor(d), torch.as_tensor(o),
+            torch.as_tensor(isect.T[:t].copy()),
+            torch.as_tensor(attrs[:t].copy()))
+    np.testing.assert_array_equal(RP.raycast_plain(*args, chunk=100).numpy(),
+                                  RP.raycast_plain(*args).numpy())

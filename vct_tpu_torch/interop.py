@@ -1,0 +1,78 @@
+"""Carry scene data and voxel state from the JAX package into the port.
+
+Each function takes the JAX package's dataclass with numpy leaves (for
+example `jax.tree_util.tree_map(np.asarray, x)`) and returns the port's
+dataclass on `device`, so both packages can shade the same voxel state.
+This module imports no jax: it reads attributes and numpy arrays only.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vct_tpu_torch.render import fast as F
+from vct_tpu_torch.render import renderer as R
+from vct_tpu_torch.render.gbuffer import DeviceScene
+from vct_tpu_torch.ops import tap as TP
+
+
+def tensor(x, device="cpu") -> torch.Tensor:
+    """numpy (including ml_dtypes bfloat16) -> torch, dtype kept."""
+    a = np.array(x, copy=True, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def device_scene(ds, device="cpu") -> DeviceScene:
+    return DeviceScene(**{f: tensor(getattr(ds, f), device)
+                          for f in DeviceScene.__dataclass_fields__})
+
+
+def material_table(m, device="cpu") -> R.MaterialTable:
+    atlas = None
+    if m.atlas is not None:
+        atlas = {k: tensor(getattr(m.atlas, k), device)
+                 for k in ("albedo", "specular", "height")}
+    return R.MaterialTable(albedo=tensor(m.albedo, device),
+                           specular=tensor(m.specular, device),
+                           emissive=tensor(m.emissive, device),
+                           shininess=tensor(m.shininess, device),
+                           atlas=atlas)
+
+
+def samples(s, device="cpu") -> R.SamplesDevice:
+    return R.SamplesDevice(positions=tensor(s.positions, device),
+                           normals=tensor(s.normals, device),
+                           uvs=tensor(s.uvs, device),
+                           material_ids=tensor(s.material_ids, device))
+
+
+def voxel_state(v, device="cpu") -> R.VoxelState:
+    def opt(x):
+        return None if x is None else tensor(x, device)
+
+    return R.VoxelState(
+        radiance_mips=tuple(tensor(m, device) for m in v.radiance_mips),
+        unlit_mips=tuple(tensor(m, device) for m in v.unlit_mips),
+        light_volume=opt(v.light_volume),
+        diffuse_field=opt(v.diffuse_field),
+        specular_field=opt(v.specular_field))
+
+
+def frame_tables(t, cfield: int, device="cpu") -> F.FrameTables:
+    """The JAX package's packed FrameTables -> the port's layout.
+
+    tap_pallas.pack_light_mips pads each (D, D, D) light level to
+    (D, max(D, 32), pad128(D)) and pack_field_mips each (D, D, D, C) field
+    level to (D, D, max(D, 32), pad128(C)); this cuts the padding off and
+    re-packs the levels back to back.  cfield is the logical channel
+    count (4 * basis, doubled with the specular field)."""
+    light = [tensor(m, device)[:, :m.shape[0], :m.shape[0]]
+             for m in t.light_mips]
+    field = [tensor(m, device)[:, :, :m.shape[0], :cfield]
+             for m in t.field_mips]
+    return F.FrameTables(light_mips=TP.pack_mips(light),
+                         field_mips=TP.pack_mips(field))

@@ -1,0 +1,132 @@
+"""Build and load the port's CUDA kernels at first use.
+
+Every `ops/csrc/*.cu` file compiles, in one nvcc call, into a shared
+library with a plain C interface under `vct_tpu_torch/_build/`, named by a
+hash of the sources and flags, and is loaded with ctypes.  Each launcher
+takes device pointers and the CUDA stream as integers, launches on that
+stream without synchronizing, and returns `cudaGetLastError()`; `check`
+turns a nonzero status into an exception.
+
+Nothing here runs at import: a CPU-only installation imports every module
+of the package and never needs nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# launcher name -> argument types (every launcher returns its cudaError_t)
+SIGNATURES = {
+    # src, dst, h, c, max_alpha, stream
+    "vct_mip_downsample": (_P, _P, _I, _I, _I, _P),
+    # dirs, origin, isect, attrs, n, t, out, stream
+    "vct_raycast": (_P, _P, _P, _P, _I, _I, _P, _P),
+    # gbuf, ntiles, gcols, ld0, nl, fd0, nf, half_ws, voxel, voxel_off,
+    # scal8, stream
+    "vct_prepass": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P),
+    # gbuf, ntiles, gcols, scal8, bumpn, campos, light, ld0, field, fd0,
+    # cfield, consts, nb, ncones, sq_diffuse, sq_specular, half_ws, voxel,
+    # voxel_off, out, stream
+    "vct_tap": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _I,
+                _I, _I, _F, _F, _F, _P, _P),
+}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def build() -> Path:
+    """Compile ops/csrc into one shared library (a no-op when the library
+    for these sources and flags exists).  nvcc's report, with ptxas's
+    per-kernel registers and spills, is kept beside it as `.log`."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    out = BUILD_DIR / f"libvct_kernels_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{res.stdout}\n{res.stderr}")
+    out.with_suffix(".log").write_text(res.stdout + res.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for name, args in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(args)
+        fn.restype = ctypes.c_int
+    lib.vct_error_string.argtypes = [ctypes.c_int]
+    lib.vct_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise if a launcher reported a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if status != 0:
+        msg = library().vct_error_string(status).decode()
+        raise RuntimeError(f"{name}: CUDA error {status}: {msg}")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def uses_kernel(*tensors: torch.Tensor) -> bool:
+    """The dispatch rule of every op: CUDA tensors launch the kernel, CPU
+    tensors take the plain PyTorch version; anything else is refused, as
+    are operands on different devices."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"operands must all be on CUDA or all on the CPU, "
+                     f"got {sorted(kinds)}")
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise ValueError(what)
