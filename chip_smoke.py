@@ -7,15 +7,23 @@ Run from the repository root, on a machine with one CUDA card and nvcc:
 
 Phases, each reported on its own lines:
   (a) the card (nvidia-smi name and power limit) and the kernel build;
-  (c) the main path at full size: preset("sponza256") (256^3 grid, bf16
-      dense march, 128^3 x 208-channel fields, 1920x1080) on the Cornell
-      box, through prepare_scene -> build_voxel_state ->
-      build_frame_tables -> render_camera_pass, with every kernel's launch
-      count read around that one run; then build/frame timings, a
-      determinism check (two builds, bit-identical radiance), and a small
-      32^3 render on the card against the plain PyTorch path on the CPU;
+  (c) the two paths at full width, preset("sponza256") (256^3 grid, bf16
+      dense march, 128^3 x 208-channel fields, 1920x1080), each through
+      prepare_scene -> build_voxel_state -> build_frame_tables ->
+      render_camera_pass with every kernel's launch count set to 0 just
+      before and read just after:
+        1. the Cornell box (40 triangles, no textures): mip, raycast,
+           prepass and tap;
+        2. the textured atrium (1,122 triangles, 8 materials, a 256^2
+           atlas) from the bench camera: those four plus the material
+           half of the prepass, the material fetch and the alpha re-cast
+           through the streamed raycast;
+      then per path: timings, a small render on the card against the
+      plain PyTorch path on the CPU, and for Cornell a determinism check;
   (b) each kernel against its plain PyTorch version on the card, at the
-      shapes the main path gives it, with its time beside the plain one;
+      shapes the atrium path gives it, with its time beside the plain
+      one, the least time the card could take (bound), and, where one
+      PyTorch call computes the same function, that call's time;
   (d) the result: a JSON line of kernels, then {"ok": true, ...} last.
 Any failure raises: the script exits non-zero and prints no result line.
 It exits non-zero at once when CUDA is unavailable.
@@ -34,10 +42,19 @@ import numpy as np
 import torch
 
 DEVICE = "cuda"
-DIM = None              # None: the preset's 256^3 grid
 WIDTH, HEIGHT = 1920, 1080
-BUILD_REPS, FRAME_REPS, KERNEL_REPS = 3, 5, 10
+BUILD_REPS, FRAME_REPS, KERNEL_REPS, PLAIN_REPS = 3, 5, 10, 3
 SEED = 0
+CORNELL_CAMERA = dict(position=(3.0, 2.0, 40.0))
+ATRIUM_CAMERA = dict(position=(48.0, -10.0, 0.0), yaw=180.0)  # bench.py:122
+
+# H100 SXM peaks (NVIDIA data sheet) for the bound: HBM bytes/s and dense
+# float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float operations of one ray-triangle test (raycast_common.cuh hit_test):
+# 3 dot3s (9 mul + 6 add), 1 div, 6 mul + 1 add for the sign tests, 1 mul
+OPS_PER_HIT_TEST = 24
 
 
 def fail(msg: str):
@@ -46,6 +63,10 @@ def fail(msg: str):
 
 def say(*parts):
     print(*parts, flush=True)
+
+
+def sync():
+    torch.cuda.synchronize()
 
 
 def elapsed_ms(fn, reps: int) -> list:
@@ -58,13 +79,18 @@ def elapsed_ms(fn, reps: int) -> list:
         start.record()
         fn()
         stop.record()
-        torch.cuda.synchronize()
+        sync()
         out.append(start.elapsed_time(stop))
     return out
 
 
-def sync():
-    torch.cuda.synchronize()
+def host_ms(fn) -> float:
+    """Host-clock time of fn() ending in a synchronize, in ms."""
+    sync()
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def card_line() -> str:
@@ -78,7 +104,7 @@ def card_line() -> str:
 
 
 def slice_config(dim, width, height, compute=None):
-    from vct_tpu.config import preset
+    from vct_tpu_torch.config import preset
     cfg = preset("sponza256")
     grid = cfg.grid
     if dim is not None:
@@ -93,21 +119,45 @@ def slice_config(dim, width, height, compute=None):
         render=dataclasses.replace(cfg.render, width=width, height=height))
 
 
+def bound(nbytes: float, ops: float):
+    """(least ms, what bounds it): bytes over HBM rate or float32 ops over
+    the card's peak, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def unique_count(keys: torch.Tensor) -> int:
+    return int(torch.unique(keys.reshape(-1)).numel())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from vct_tpu.scene.cornell import cornell_box
     from vct_tpu_torch.core import camera as CAM
-    from vct_tpu_torch.ops import _build, mip, prepass, raycast, tap
+    from vct_tpu_torch.ops import _build, material, mip, prepass, raycast, tap
     from vct_tpu_torch.render import fast as F
     from vct_tpu_torch.render import renderer as R
+    from vct_tpu_torch.scene import textures as TX
+    from vct_tpu_torch.scene.atrium import atrium
+    from vct_tpu_torch.scene.cornell import cornell_box
 
-    kernels = {"mip": mip, "raycast": raycast, "prepass": prepass,
-               "tap": tap}
+    counters = {"mip": (mip, "LAUNCHES"), "raycast": (raycast, "LAUNCHES"),
+                "prepass": (prepass, "LAUNCHES"), "tap": (tap, "LAUNCHES"),
+                "material": (material, "LAUNCHES"),
+                "raycast_stream": (raycast, "STREAM_LAUNCHES")}
+
+    def reset_counts():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def read_counts():
+        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
 
     # ---- (a) the card and the build ------------------------------------
-    say(card_line())          # nvidia-smi: name, power limit
+    card = card_line()
+    say(card)                 # nvidia-smi: name, power limit
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -117,168 +167,375 @@ def main() -> int:
     log = lib_path.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if line.startswith("==") or "registers" in line or "spill" in line:
                 say("  ptxas:", line.strip())
 
-    # ---- (c) the main path, once, with launch counts around it ----------
     dev = torch.device(DEVICE)
-    cfg = slice_config(DIM, WIDTH, HEIGHT)
-    scene = cornell_box(size=100.0)
-    camera = CAM.Camera(position=(3.0, 2.0, 40.0))
-    for mod in kernels.values():
-        mod.LAUNCHES = 0
-    t0 = time.perf_counter()
-    ds, mats, samples = R.prepare_scene(cfg, scene, device=dev)
-    voxels = R.build_voxel_state(cfg, samples, mats)
-    tables = F.build_frame_tables(cfg, voxels, mats)
-    origins, dirs = CAM.primary_rays(camera, cfg.render.width,
-                                     cfg.render.height, device=dev)
-    cam = torch.as_tensor(camera.position, dtype=torch.float32, device=dev)
-    img = R.render_camera_pass(cfg, ds, voxels, mats, origins, dirs, cam,
-                               frame_tables=tables)
-    sync()
-    first_s = time.perf_counter() - t0
-    launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
-    say(f"main path: sponza256 on the Cornell box ({ds.v0.shape[0]} "
-        f"triangles, {samples.positions.shape[0]} surface samples), grid "
-        f"{cfg.grid.dim}^3 {cfg.grid.compute}, fields "
-        f"{tuple(voxels.diffuse_field.shape)} x2, "
-        f"{cfg.render.width}x{cfg.render.height}; first run {first_s:.2f} s")
-    say("launches in the main path:", json.dumps(launches))
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched by the main path")
+    cfg = slice_config(None, WIDTH, HEIGHT)
+    hp, wp = -(-HEIGHT // F.TSY) * F.TSY, -(-WIDTH // 64) * 64
 
-    if tuple(img.shape) != (cfg.render.height, cfg.render.width, 3):
-        fail(f"image shape {tuple(img.shape)}")
-    if not bool(torch.isfinite(img).all()):
-        fail("image has non-finite values")
-    hw = cfg.render.height, cfg.render.width
-    hp, wp = -(-hw[0] // F.TSY) * F.TSY, -(-hw[1] // 64) * 64
-    d_tiled = F._tile_order(F._pad_edge(dirs, hp, wp), hp, wp).contiguous()
-    origin = origins.reshape(-1, 3)[0].contiguous()
-    isect, attrs = raycast.pack_tables(ds, origin, mats.albedo,
-                                       mats.specular, mats.shininess)
-    gbuf = raycast.raycast_gbuf24(d_tiled, origin, isect, attrs)
-    hit_frac = float((F._untile(gbuf[:, 19], hp, wp)[:hw[0], :hw[1]]
+    def run_path(scene, camera):
+        """The main path once, counts set to 0 just before, read after."""
+        reset_counts()
+        t0 = time.perf_counter()
+        ds, mats, samples = R.prepare_scene(cfg, scene, device=dev)
+        voxels = R.build_voxel_state(cfg, samples, mats)
+        tables = F.build_frame_tables(cfg, voxels, mats)
+        origins, dirs = CAM.primary_rays(camera, WIDTH, HEIGHT, device=dev)
+        cam = torch.as_tensor(camera.position, dtype=torch.float32,
+                              device=dev)
+        img = R.render_camera_pass(cfg, ds, voxels, mats, origins, dirs, cam,
+                                   frame_tables=tables)
+        sync()
+        first_s = time.perf_counter() - t0
+        return (read_counts(), first_s,
+                dict(ds=ds, mats=mats, samples=samples, voxels=voxels,
+                     tables=tables, origins=origins, dirs=dirs, cam=cam,
+                     img=img))
+
+    def check_image(img, what):
+        if tuple(img.shape) != (HEIGHT, WIDTH, 3):
+            fail(f"{what}: image shape {tuple(img.shape)}")
+        if not bool(torch.isfinite(img).all()):
+            fail(f"{what}: image has non-finite values")
+
+    def primary_gbuf(p):
+        d = F._tile_order(F._pad_edge(p["dirs"], hp, wp), hp, wp).contiguous()
+        origin = p["origins"].reshape(-1, 3)[0].contiguous()
+        m = p["mats"]
+        isect, attrs = raycast.pack_tables(p["ds"], origin, m.albedo,
+                                           m.specular, m.shininess)
+        return d, origin, isect, attrs
+
+    def timings(p, what):
+        ms = {
+            "build_voxel_state": elapsed_ms(lambda: R.build_voxel_state(
+                cfg, p["samples"], p["mats"]), BUILD_REPS),
+            "build_frame_tables": elapsed_ms(lambda: F.build_frame_tables(
+                cfg, p["voxels"], p["mats"]), BUILD_REPS),
+            "render_frame": elapsed_ms(lambda: F.render_frame(
+                cfg, p["ds"], p["tables"], p["mats"], p["origins"],
+                p["dirs"], p["cam"]), FRAME_REPS),
+        }
+        for k, v in ms.items():
+            say(f"{what} {k} ms: median {statistics.median(v):.3f} over {v}")
+        return ms
+
+    def small_check(scene, camera, w, h, what):
+        small = slice_config(32, w, h, compute="float32")
+        imgs = []
+        for d in (dev, torch.device("cpu")):
+            s_ds, s_mats, s_samples = R.prepare_scene(small, scene, device=d)
+            s_vox = R.build_voxel_state(small, s_samples, s_mats)
+            s_o, s_d = CAM.primary_rays(camera, w, h, device=d)
+            imgs.append(R.render_camera_pass(
+                small, s_ds, s_vox, s_mats, s_o, s_d,
+                torch.as_tensor(camera.position, dtype=torch.float32,
+                                device=d)).cpu())
+        err = (imgs[0] - imgs[1]).abs()
+        say(f"{what} small input (32^3, {w}x{h}) card vs CPU plain: mean err "
+            f"{float(err.mean()):.3e}, max {float(err.max()):.3e} "
+            f"(bound 1e-3)")
+        if float(err.max()) > 1e-3:
+            fail(f"{what}: the card's small render disagrees with the CPU "
+                 "plain path")
+
+    # ---- (c1) the Cornell box ------------------------------------------
+    cornell = cornell_box(size=100.0)
+    camera = CAM.Camera(**CORNELL_CAMERA)
+    launches, first_s, p = run_path(cornell, camera)
+    say(f"main path 1: sponza256 on the Cornell box ({p['ds'].v0.shape[0]} "
+        f"triangles, {p['samples'].positions.shape[0]} surface samples), "
+        f"grid {cfg.grid.dim}^3 {cfg.grid.compute}, fields "
+        f"{tuple(p['voxels'].diffuse_field.shape)} x2, {WIDTH}x{HEIGHT}; "
+        f"first run {first_s:.2f} s")
+    say("launches in main path 1 (Cornell):", json.dumps(launches))
+    for name in ("mip", "raycast", "prepass", "tap"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the Cornell path")
+    check_image(p["img"], "Cornell")
+    g = raycast.raycast_gbuf24(*primary_gbuf(p))
+    hit_frac = float((F._untile(g[:, 19], hp, wp)[:HEIGHT, :WIDTH]
                       > 0.5).float().mean())
-    say(f"image: finite, mean {float(img.mean()):.6f}, hit fraction "
-        f"{hit_frac:.6f}")
+    say(f"Cornell image: finite, mean {float(p['img'].mean()):.6f}, hit "
+        f"fraction {hit_frac:.6f}")
     if hit_frac < 0.9:
         fail(f"only {hit_frac:.3f} of the pixels hit the box")
-
-    build_ms = elapsed_ms(lambda: R.build_voxel_state(cfg, samples, mats),
-                          BUILD_REPS)
-    tables_ms = elapsed_ms(lambda: F.build_frame_tables(cfg, voxels, mats),
-                           BUILD_REPS)
-    frame_ms = elapsed_ms(lambda: F.render_frame(
-        cfg, ds, tables, mats, origins, dirs, cam), FRAME_REPS)
-    say(f"build_voxel_state ms: median {statistics.median(build_ms):.3f} "
-        f"over {build_ms}")
-    say(f"build_frame_tables ms: median {statistics.median(tables_ms):.3f} "
-        f"over {tables_ms}")
-    say(f"render_frame ms ({cfg.render.width}x{cfg.render.height}): median "
-        f"{statistics.median(frame_ms):.3f} over {frame_ms}")
-
-    again = R.build_voxel_state(cfg, samples, mats)
+    timings(p, "Cornell")
+    again = R.build_voxel_state(cfg, p["samples"], p["mats"])
     for name in ("radiance_mips", "unlit_mips"):
-        if not torch.equal(getattr(again, name)[0], getattr(voxels, name)[0]):
+        if not torch.equal(getattr(again, name)[0],
+                           getattr(p["voxels"], name)[0]):
             fail(f"two builds differ in {name}[0] (splat not deterministic)")
     say("determinism: two builds give bit-identical radiance_mips[0] and "
         "unlit_mips[0]")
-    del again
+    del again, p, g
+    small_check(cornell, camera, 64, 48, "Cornell")
 
-    # small input: the card's path against the plain path on the CPU
-    small = slice_config(32, 64, 48, compute="float32")
-    imgs = []
-    for d in (dev, torch.device("cpu")):
-        s_ds, s_mats, s_samples = R.prepare_scene(small, scene, device=d)
-        s_vox = R.build_voxel_state(small, s_samples, s_mats)
-        s_o, s_d = CAM.primary_rays(camera, 64, 48, device=d)
-        imgs.append(R.render_camera_pass(
-            small, s_ds, s_vox, s_mats, s_o, s_d,
-            torch.as_tensor(camera.position, dtype=torch.float32,
-                            device=d)).cpu())
-    err = (imgs[0] - imgs[1]).abs()
-    say(f"small input (32^3, 64x48) card vs CPU plain: mean err "
-        f"{float(err.mean()):.3e}, max {float(err.max()):.3e} (bound 1e-3)")
-    if float(err.max()) > 1e-3:
-        fail("the card's small render disagrees with the CPU plain path")
+    # ---- (c2) the textured atrium: the slice's main path -----------------
+    scene = atrium()
+    camera = CAM.Camera(**ATRIUM_CAMERA)
+    prep_ms = [host_ms(lambda: R.prepare_scene(cfg, scene, device=dev))
+               for _ in range(BUILD_REPS)]
+    launches, first_s, p = run_path(scene, camera)
+    mats = p["mats"]
+    say(f"main path 2: sponza256 on the atrium ({p['ds'].v0.shape[0]} "
+        f"triangles, {mats.albedo.shape[0]} materials, atlas "
+        f"{tuple(mats.atlas.albedo.shape)}, "
+        f"{p['samples'].positions.shape[0]} surface samples), "
+        f"{WIDTH}x{HEIGHT}; first run {first_s:.2f} s")
+    say("launches in main path 2 (atrium):", json.dumps(launches))
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched by the atrium path")
+    check_image(p["img"], "atrium")
+    say(f"atrium image: finite, mean {float(p['img'].mean()):.6f}")
+    say(f"atrium prepare_scene ms (host clock): median "
+        f"{statistics.median(prep_ms):.3f} over {prep_ms}")
+    atrium_ms = timings(p, "atrium")
 
-    # ---- (b) each kernel against its plain version ----------------------
+    # the alpha re-cast's first pass at 1080p, as alpha_resolve sees it
+    d_t, origin, isect, attrs = primary_gbuf(p)
+    g0 = raycast.raycast_gbuf24(d_t, origin, isect, attrs)
+    thresh = cfg.render.alpha_threshold
+    maskable = (mats.atlas.albedo[..., 3] < thresh).flatten(1).any(dim=1)
+    cand = (g0[:, 19] > 0.5) & maskable[g0[:, 17].long()]
+    cidx = torch.nonzero(cand)[:, 0]
+    alpha = TX.sample_atlas(mats.atlas.albedo, g0[cidx, 17].long(),
+                            g0[cidx, 15:17])[:, 3]
+    n_cand, n_masked = int(cidx.numel()), int((alpha < thresh).sum())
+    budget = -(-min(cfg.render.alpha_mask_budget, g0.shape[0])
+               // raycast.TILE) * raycast.TILE
+    say(f"alpha re-cast at {WIDTH}x{HEIGHT}: {n_cand} candidate pixels "
+        f"(hit pixels of maskable materials), {n_masked} masked and "
+        f"re-cast, budget {budget}, streamed-raycast launches "
+        f"{launches['raycast_stream']}")
+    if n_cand == 0:
+        fail("no alpha candidates from the bench camera")
+
+    small_check(scene, camera, 96, 64, "atrium")
+
+    # ---- (b) each kernel against its plain version -----------------------
     report = []
 
-    def kernel_row(name, source, replaces, err, tol, ms, plain_ms):
+    def kernel_row(name, source, replaces, err, tol, ms, plain_ms, nbytes,
+                   ops, library_ms=None):
+        bound_ms, bound_by = bound(nbytes, ops)
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": err, "ms": statistics.median(ms),
+               "plain_ms": statistics.median(plain_ms),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": (None if library_ms is None
+                              else statistics.median(library_ms))}
         say(f"kernel {name}: max_abs_err {err:.3e} (tolerance {tol:g}), "
-            f"{statistics.median(ms):.4f} ms vs plain "
-            f"{statistics.median(plain_ms):.4f} ms")
+            f"{row['ms']:.4f} ms vs plain {row['plain_ms']:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {nbytes:.4g} B, {ops:.4g} ops)"
+            + ("" if library_ms is None
+               else f", library {row['library_ms']:.4f} ms"))
         if not err <= tol:
             fail(f"kernel {name} disagrees with its plain version")
-        report.append({"name": name, "route": "cuda", "source": source,
-                       "replaces": replaces, "launches": launches[name],
-                       "max_abs_err": err, "ms": statistics.median(ms),
-                       "plain_ms": statistics.median(plain_ms)})
+        report.append(row)
 
+    def maxerr(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    # mip: the 256^3 x 4 albedo/occupancy grid of the build
     rng = np.random.default_rng(SEED)
     d0 = cfg.grid.dim
     grid = torch.as_tensor(rng.random((d0, d0, d0, 4), dtype=np.float32),
                            device=dev)
-    err = 0.0
-    for mode in ("mean", "max"):
-        err = max(err, float((mip.downsample2x_cuda(grid, mode)
-                              - mip.downsample2x_plain(grid, mode)).abs().max()))
+    err = max(maxerr(mip.downsample2x_cuda(grid, m),
+                     mip.downsample2x_plain(grid, m))
+              for m in ("mean", "max"))
+    cf = grid.permute(3, 0, 1, 2)[None]         # channels-first view
+    lib = torch.nn.functional.avg_pool3d
+    err = max(err, maxerr(lib(cf, 2)[0].permute(1, 2, 3, 0),
+                          mip.downsample2x_plain(grid, "mean")))
     kernel_row("mip", "vct_tpu_torch/ops/csrc/mip.cu",
                "vct_tpu/ops/mip_pallas.py:145", err, 1e-6,
                elapsed_ms(lambda: mip.downsample2x_cuda(grid), KERNEL_REPS),
-               elapsed_ms(lambda: mip.downsample2x_plain(grid), KERNEL_REPS))
-    del grid
+               elapsed_ms(lambda: mip.downsample2x_plain(grid), KERNEL_REPS),
+               grid.numel() * 4 * (1 + 1 / 8), grid.numel() / 8 * 8,
+               elapsed_ms(lambda: lib(cf, 2), KERNEL_REPS))
+    del grid, cf
 
-    g_plain = raycast.raycast_plain(d_tiled, origin, isect, attrs)
-    if not (torch.equal(gbuf[:, 19], g_plain[:, 19])
-            and torch.equal(gbuf[:, 17], g_plain[:, 17])):
+    # raycast: the atrium's primary rays, whole table
+    n_rays, n_tris = d_t.shape[0], isect.shape[0]
+    g_plain = raycast.raycast_plain(d_t, origin, isect, attrs)
+    if not (torch.equal(g0[:, 19], g_plain[:, 19])
+            and torch.equal(g0[:, 17], g_plain[:, 17])):
         fail("raycast hit or material ids differ from the plain version")
     kernel_row("raycast", "vct_tpu_torch/ops/csrc/raycast.cu",
-               "vct_tpu/ops/raycast_pallas.py:342",
-               float((gbuf - g_plain).abs().max()), 1e-4,
-               elapsed_ms(lambda: raycast.raycast_cuda(
-                   d_tiled, origin, isect, attrs), KERNEL_REPS),
-               elapsed_ms(lambda: raycast.raycast_plain(
-                   d_tiled, origin, isect, attrs), 3))
+               "vct_tpu/ops/raycast_pallas.py:342", maxerr(g0, g_plain), 1e-4,
+               elapsed_ms(lambda: raycast.raycast_cuda(d_t, origin, isect,
+                                                       attrs), KERNEL_REPS),
+               elapsed_ms(lambda: raycast.raycast_plain(d_t, origin, isect,
+                                                        attrs), PLAIN_REPS),
+               n_rays * (12 + 128) + n_tris * 4 * (16 + 48),
+               n_rays * n_tris * OPS_PER_HIT_TEST)
     del g_plain
 
+    # the frame's G-buffer after the alpha re-cast, as _shade gets it
+    g = F.alpha_resolve(cfg, p["ds"], mats, g0, d_t, origin)
+    pages = p["tables"].atlas_pages
+    res = material.pages_resolution(pages)
+    atlas = prepass.AtlasShape(pages.shape[0], res, res.bit_length())
+    tables = p["tables"]
     pkw = dict(light_dims=tuple(m.shape[0] for m in tables.light_mips),
                field_dims=tuple(m.shape[0] for m in tables.field_mips),
                voxel=cfg.grid.voxel_world_size,
                world_size=cfg.grid.world_size,
-               shadow_offset=cfg.shadow.normal_offset)
-    scal = prepass.prepass_cuda(gbuf, **pkw)
+               shadow_offset=cfg.shadow.normal_offset, atlas=atlas)
+    outs = prepass.prepass_cuda(g, **pkw)
+    plains = prepass.prepass_plain(g, **pkw)
+    for a, b, what in zip(outs, plains, ("scal8", "mscal", "mlists",
+                                         "mslots")):
+        if not torch.equal(a, b):
+            fail(f"prepass {what} differs from the plain version")
+    ntiles = g.shape[0] // tap.TILE
     kernel_row("prepass", "vct_tpu_torch/ops/csrc/prepass.cu",
                "vct_tpu/ops/prepass_pallas.py:315",
-               float((scal - prepass.prepass_plain(gbuf, **pkw)).abs().max()),
-               0.0,
-               elapsed_ms(lambda: prepass.prepass_cuda(gbuf, **pkw),
+               max(maxerr(a, b) for a, b in zip(outs, plains)), 0.0,
+               elapsed_ms(lambda: prepass.prepass_cuda(g, **pkw),
                           KERNEL_REPS),
-               elapsed_ms(lambda: prepass.prepass_plain(gbuf, **pkw), 3))
+               elapsed_ms(lambda: prepass.prepass_plain(g, **pkw),
+                          PLAIN_REPS),
+               g.shape[0] * (13 * 4 + 4) + ntiles * 4 * (8 + 5 + 128), 0.0)
+    scal, mscal, mlists, mslots = outs
 
+    # material: the frame's pixels, entries and atlas pages
+    m_k = material.material_cuda(g, mslots, mscal, mlists, pages, res)
+    m_p = material.material_plain(g, mslots, mscal, mlists, pages, res)
+    # texels this frame's fetches touch: 4 corners of 3 taps per pixel
+    mt, lvl, cnt = material._entries(mscal, mlists, mslots, tap.TILE)
+    lvl = lvl.long()
+    rl = torch.clamp_min(torch.full_like(lvl, res) >> lvl, 1)
+    v0 = pages.shape[2] // material.C8
+    texels = []
+    for du, dv in ((0, 0), (1, 0), (0, -1)):     # main, +u, -v (in texels)
+        tu = g[:, 15] * rl + du * rl / res - 0.5
+        tv = (1.0 - g[:, 16]) * rl + dv * rl / res - 0.5
+        i0 = torch.remainder(torch.floor(tu).long(), rl)
+        j0 = torch.remainder(torch.floor(tv).long(), rl)
+        for a in (0, 1):
+            for b in (0, 1):
+                texels.append(((mt * pages.shape[1] + lvl * v0 + j0 + a) * v0
+                               + i0 + b)[cnt > 0])
+    n_texels = unique_count(torch.cat(texels))
+    del texels
+    kernel_row("material", "vct_tpu_torch/ops/csrc/material.cu",
+               "vct_tpu/ops/material_pallas.py:400", maxerr(m_k, m_p), 1e-5,
+               elapsed_ms(lambda: material.material_cuda(
+                   g, mslots, mscal, mlists, pages, res), KERNEL_REPS),
+               elapsed_ms(lambda: material.material_plain(
+                   g, mslots, mscal, mlists, pages, res), PLAIN_REPS),
+               g.shape[0] * (2 * 4 + 4 + material.NOUT * 4)
+               + ntiles * 4 * (5 + 128) + n_texels * 16,
+               g.shape[0] * 3 * (4 * 8 * 3 + 8))
+
+    # streamed raycast: every alpha candidate, padded to the budget, with
+    # tmin just past its first hit, in alpha_resolve's direction order
+    sidx = torch.zeros(budget, dtype=torch.long, device=dev)
+    nc = min(n_cand, budget)
+    sidx[:nc] = cidx[:nc]
+    valid = torch.arange(budget, device=dev) < nc
+    ds_ = d_t[sidx]
+    qd = torch.clamp((ds_ + 1.0) * 15.999, 0.0, 31.0).to(torch.int32)
+    key = (qd[:, 0] << 10) | (qd[:, 1] << 5) | qd[:, 2]
+    order = torch.argsort(torch.where(valid, key, 2 ** 30), stable=True)
+    sidx, valid, ds_ = sidx[order], valid[order], ds_[order].contiguous()
+    tmin = torch.where(valid, g0[sidx, 18] * (1.0 + 1e-5) + 1e-4, 3.0e38)
+    s_isect, s_attrs, spheres = raycast.pack_tables_stream(
+        p["ds"], origin, mats.albedo, mats.specular, mats.shininess)
+    lists, counts = raycast.select_chunks(
+        ds_.reshape(-1, raycast.TILE, 3), spheres)
+    miss = raycast.miss_distance(ds_, spheres)
+    sargs = (ds_, origin, s_isect, s_attrs, lists, counts, tmin, miss)
+    gs_k = raycast.raycast_stream_cuda(*sargs)
+    gs_p = raycast.raycast_stream_plain(*sargs)
+    if not (torch.equal(gs_k[:, 19], gs_p[:, 19])
+            and torch.equal(gs_k[:, 17], gs_p[:, 17])):
+        fail("streamed raycast hit or material ids differ from the plain "
+             "version")
+    n_behind = int((gs_k[:, 19] > 0.5).sum())
+    # the triangles this data needs tested: per tile, the first listed
+    # chunk and every later one whose near bound is below the tile's
+    # final farthest best t (the kernel's stop cannot skip those)
+    best = torch.where(gs_p[:, 19] > 0.5, gs_p[:, 18], miss)
+    tmax = best.reshape(-1, raycast.TILE).amax(dim=1)
+    near = (lists >> 16).float()
+    pos = torch.arange(lists.shape[1], device=dev)
+    needed = (pos[None, :] < counts[:, None]) & (
+        (pos[None, :] == 0) | (near < tmax[:, None]))
+    tests = int(needed.sum()) * raycast.CHUNK * raycast.TILE
+    say(f"streamed raycast input: {nc} candidates in {budget} rays, "
+        f"{n_behind} hit a surface behind their first hit; lists hold "
+        f"{int(counts.sum())} chunks, {int(needed.sum())} needed")
+    kernel_row("raycast_stream", "vct_tpu_torch/ops/csrc/raycast_stream.cu",
+               "vct_tpu/ops/raycast_pallas.py:769", maxerr(gs_k, gs_p), 1e-4,
+               elapsed_ms(lambda: raycast.raycast_stream_cuda(*sargs),
+                          KERNEL_REPS),
+               elapsed_ms(lambda: raycast.raycast_stream_plain(*sargs),
+                          PLAIN_REPS),
+               budget * (12 + 4 + 4 + 128) + lists.numel() * 4
+               + s_isect.shape[0] * 4 * (16 + 48),
+               tests * OPS_PER_HIT_TEST)
+
+    # tap: the frame's pixels at their prepass levels
     nb = cfg.cones.field_basis
-    bumpn = torch.cat([gbuf[:, 3:6], torch.zeros_like(gbuf[:, :1])],
+    voxel = cfg.grid.voxel_world_size
+    bumpn = torch.cat([g[:, 3:6], torch.zeros_like(g[:, :1])],
                       dim=1).contiguous()
-    tkw = dict(cfield=8 * nb, nb=nb, world_size=cfg.grid.world_size,
-               voxel=cfg.grid.voxel_world_size,
-               shadow_offset=cfg.shadow.normal_offset,
+    cfield = 8 * nb
+    tkw = dict(cfield=cfield, nb=nb, world_size=cfg.grid.world_size,
+               voxel=voxel, shadow_offset=cfg.shadow.normal_offset,
                power_diffuse=int(cfg.cones.basis_power_diffuse),
                power_specular=int(cfg.cones.basis_power_specular),
                cones_static=F._cones_static(cfg))
-    targs = (gbuf, scal, bumpn, cam, tables.light_mips, tables.field_mips)
-    t_err = float((tap.tap_cuda(*targs, **tkw)
-                   - tap.tap_plain(*targs, **tkw)).abs().max())
+    targs = (g, scal, bumpn, p["cam"], tables.light_mips, tables.field_mips)
+    t_err = maxerr(tap.tap_cuda(*targs, **tkw), tap.tap_plain(*targs, **tkw))
+    # table cells this frame's taps touch: 8 trilinear corners per pixel at
+    # its tile's level, light (1 bf16) and field (cfield bf16)
+    hitpx = g[:, 19] > 0.5
+    cells = {}
+    for which, col, off, mips, lev in (
+            ("light", 6, voxel * cfg.shadow.normal_offset, tables.light_mips,
+             scal[:, 0]),
+            ("field", 3, voxel, tables.field_mips, scal[:, 4])):
+        uvw = (g[:, 0:3] + g[:, col:col + 3] * off) / (
+            cfg.grid.world_size * 0.5) * 0.5 + 0.5
+        lv = lev.long().repeat_interleave(tap.TILE)
+        keys, base = [], 0
+        for li, m in enumerate(mips):
+            dl = m.shape[0]
+            sel = hitpx & (lv == li)
+            t = uvw[sel] * dl - 0.5
+            i0 = torch.clamp(torch.floor(t).long(), 0, dl - 1)
+            i1 = torch.clamp(i0 + 1, 0, dl - 1)
+            for k in range(8):
+                ix = [i1[:, a] if k >> (2 - a) & 1 else i0[:, a]
+                      for a in range(3)]
+                keys.append(base + (ix[0] * dl + ix[1]) * dl + ix[2])
+            base += dl ** 3
+        cells[which] = unique_count(torch.cat(keys))
+    n_px = g.shape[0]
+    ncones = len(tkw["cones_static"][1])
     kernel_row("tap", "vct_tpu_torch/ops/csrc/tap.cu",
                "vct_tpu/ops/tap_pallas.py:534", t_err, 1e-4,
                elapsed_ms(lambda: tap.tap_cuda(*targs, **tkw), KERNEL_REPS),
-               elapsed_ms(lambda: tap.tap_plain(*targs, **tkw), 3))
+               elapsed_ms(lambda: tap.tap_plain(*targs, **tkw), PLAIN_REPS),
+               n_px * (16 * 4 + 16 + tap.NOUT * 4) + ntiles * 32
+               + cells["light"] * 2 + cells["field"] * cfield * 2,
+               n_px * (16 * (cfield + 1) + 10 * nb * (ncones + 1)
+                       + 2 * cfield))
+    say(f"tap table cells touched: light {cells['light']}, field "
+        f"{cells['field']}")
 
     say(f"peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    say(f"atrium frame ms median {statistics.median(atrium_ms['render_frame']):.3f} "
+        f"on {card}")
 
     # ---- (d) the result ------------------------------------------------
     print(json.dumps({"kernels": report}))

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from vct_tpu.config import preset
+from vct_tpu.config import preset as jpreset
 from vct_tpu.core import camera as jcam
 from vct_tpu.core import cones as jcones
 from vct_tpu.core import dense as jdense
@@ -20,8 +20,9 @@ from vct_tpu.ops import raycast_pallas as JRP
 from vct_tpu.render import gbuffer as jgbuf
 from vct_tpu.render import shading as jshading
 from vct_tpu.render import voxelize as jvox
-from vct_tpu.scene.atrium import atrium
-from vct_tpu.scene.cornell import cornell_box
+from vct_tpu.scene.atrium import atrium as jatrium
+from vct_tpu.scene.cornell import cornell_box as jcornell_box
+from vct_tpu_torch.config import preset
 from vct_tpu_torch.core import camera as CAM
 from vct_tpu_torch.core import cones as C
 from vct_tpu_torch.core import dense as D
@@ -31,6 +32,8 @@ from vct_tpu_torch.ops import raycast as RP
 from vct_tpu_torch.render import gbuffer as GB
 from vct_tpu_torch.render import shading as S
 from vct_tpu_torch.render import voxelize as V
+from vct_tpu_torch.scene.atrium import atrium
+from vct_tpu_torch.scene.cornell import cornell_box
 
 torch.set_num_threads(1)    # all torch math on the main thread: PERF.md §7 item 4
 
@@ -96,34 +99,38 @@ def test_morton_order_equal(seed):
     (dict(position=(1.0, 2.0, 3.0), yaw=-30.0, pitch=20.0, zoom=60.0), 16, 16),
 ])
 def test_primary_rays_equal(cam, w, h):
-    o, d = CAM.primary_rays(CAM.Camera(**cam), w, h)
+    o, d = CAM.primary_rays(CAM.Camera(**cam), w, h, device="cpu")
     jo, jd = jcam.primary_rays(jcam.Camera(**cam), w, h)
     np.testing.assert_array_equal(o.numpy(), np.asarray(jo))
     np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
 
 
-@pytest.mark.parametrize("make", [lambda: cornell_box(size=100.0), atrium],
-                         ids=["cornell", "atrium"])
-def test_device_scene_equal(make):
-    scene = make()
-    ds = GB.DeviceScene.from_scene(scene)
-    jds = jgbuf.DeviceScene.from_scene(scene)
+SCENES = {"cornell": (lambda: cornell_box(size=100.0),
+                      lambda: jcornell_box(size=100.0)),
+          "atrium": (atrium, jatrium)}
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_device_scene_equal(name):
+    make, jmake = SCENES[name]
+    ds = GB.DeviceScene.from_scene(make(), device="cpu")
+    jds = jgbuf.DeviceScene.from_scene(jmake())
     for f in dataclasses.fields(jds):
         np.testing.assert_array_equal(getattr(ds, f.name).numpy(),
                                       np.asarray(getattr(jds, f.name)),
                                       err_msg=f.name)
 
 
-@pytest.mark.parametrize("make", [lambda: cornell_box(size=100.0), atrium],
-                         ids=["cornell", "atrium"])
-def test_pack_tables_match(make):
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_pack_tables_match(name):
     """Triangle rows equal the JAX tables' columns.  Cornell's are exact;
     on the atrium XLA's CPU compiler fuses some cross-product
     multiply-subtracts (one rounding instead of two), so an entry may
     differ by an ulp of its products: 1e-6 of the row's largest entry."""
+    make, jmake = SCENES[name]
     scene = make()
-    ds = GB.DeviceScene.from_scene(scene)
-    jds = jgbuf.DeviceScene.from_scene(scene)
+    ds = GB.DeviceScene.from_scene(scene, device="cpu")
+    jds = jgbuf.DeviceScene.from_scene(jmake())
     rng = np.random.default_rng(1)
     m = len(scene.materials)
     alb, spec = rng.random((m, 4), np.float32), rng.random((m, 3), np.float32)
@@ -143,12 +150,21 @@ def test_pack_tables_match(make):
 
 @pytest.mark.parametrize("backend", ["auto", "python"])
 def test_surface_samples_equal(backend):
-    scene = cornell_box(size=100.0)
-    a = V.generate_surface_samples(scene, 150.0 / 32, 2.0, backend=backend)
-    b = jvox.generate_surface_samples(scene, 150.0 / 32, 2.0,
-                                      backend=backend)
-    for f in ("positions", "normals", "uvs", "material_ids", "tri_ids"):
-        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    """The port's numpy generator against the JAX package's numpy path
+    (equal as they stand) and its native generator, where that library
+    builds: the native one emits triangle by triangle, the numpy one by
+    subdivision level, so the two are equal once stably sorted by
+    triangle (tests/test_native.py)."""
+    a = V.generate_surface_samples(cornell_box(size=100.0), 150.0 / 32, 2.0)
+    b = jvox.generate_surface_samples(jcornell_box(size=100.0), 150.0 / 32,
+                                      2.0, backend=backend)
+    fields = ("positions", "normals", "uvs", "material_ids", "tri_ids")
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if backend == "auto":
+            x = x[np.argsort(a.tri_ids, kind="stable")]
+            y = y[np.argsort(b.tri_ids, kind="stable")]
+        np.testing.assert_array_equal(x, y, err_msg=f)
 
 
 @pytest.mark.parametrize("mode", ["mean", "max"])
@@ -209,9 +225,12 @@ def test_anisotropic_mips_refused():
                                   M.march_schedule(0.3, 1.0, 2.0), 2.0)
 
 
+def _dim16(cfg):
+    return dataclasses.replace(cfg, grid=dataclasses.replace(cfg.grid, dim=16))
+
+
 def test_light_corner_tap_matches():
-    cfg = preset("sponza256")
-    cfg = dataclasses.replace(cfg, grid=dataclasses.replace(cfg.grid, dim=16))
+    cfg, jcfg = _dim16(preset("sponza256")), _dim16(jpreset("sponza256"))
     rng = np.random.default_rng(5)
     vol = rng.random((16, 16, 16, 1), np.float32)
     pos = rng.uniform(-70, 70, (500, 3)).astype(np.float32)
@@ -222,7 +241,7 @@ def test_light_corner_tap_matches():
     np.testing.assert_allclose(
         S.shadow_volume_tap_packed(cfg, packed, 16, t(pos), t(nrm)).numpy(),
         np.asarray(jshading.shadow_volume_tap_packed(
-            cfg, jpacked, 16, jnp.asarray(pos), jnp.asarray(nrm))),
+            jcfg, jpacked, 16, jnp.asarray(pos), jnp.asarray(nrm))),
         atol=1e-6, rtol=0)
 
 
@@ -240,7 +259,7 @@ def test_shading_helpers_match():
                 ind_spec_rgb=r(3), ind_spec_occ=r(), shininess=r(hi=40))
     light = np.array([0.0, 0.97014, 0.24254], np.float32)
     a = S.combine(cfg, light_dir=t(light), **{k: t(v) for k, v in args.items()})
-    b = jshading.combine(cfg, light_dir=jnp.asarray(light),
+    b = jshading.combine(jpreset("sponza256"), light_dir=jnp.asarray(light),
                          **{k: jnp.asarray(v) for k, v in args.items()})
     np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, rtol=1e-5)
     nrm, eye = r(3, lo=-1), r(3, lo=-1)
@@ -267,5 +286,5 @@ def test_config_derived_equal(fn):
         return dataclasses.asdict(x) if dataclasses.is_dataclass(x) else x
 
     for name in ("sponza256", "cornell64_full"):
-        cfg = preset(name)
-        assert plain(getattr(S, fn)(cfg)) == plain(getattr(jshading, fn)(cfg))
+        assert (plain(getattr(S, fn)(preset(name)))
+                == plain(getattr(jshading, fn)(jpreset(name))))

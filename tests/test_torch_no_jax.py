@@ -1,7 +1,10 @@
-"""The port stands without JAX: a fresh interpreter in which `import jax`
-fails imports every module of vct_tpu_torch and renders the tiny slice
-(sponza256 cut to a 32^3 grid, float32 compute, 64x48, the Cornell box)
-on the CPU.  Also the ops' device rule, which needs no card to check."""
+"""The port stands alone: a fresh interpreter in which `import jax` and
+`import vct_tpu` (the JAX package) fail imports every module of
+vct_tpu_torch and renders the tiny slices on the CPU from the port's own
+config and scenes (sponza256 cut to a 32^3 grid, float32 compute: the
+Cornell box at 64x48 and the textured atrium at 96x64).  No source of the
+port or of chip_smoke.py imports either.  Also the ops' device rule and
+the entry points' default device, which need no card to check."""
 
 import pathlib
 import subprocess
@@ -11,7 +14,13 @@ import textwrap
 import pytest
 import torch
 
-from vct_tpu_torch.ops import _build, mip, prepass, raycast, tap
+from vct_tpu_torch.config import preset
+from vct_tpu_torch.core import camera as CAM
+from vct_tpu_torch.ops import _build, material, mip, prepass, raycast, tap
+from vct_tpu_torch.render import gbuffer as GB
+from vct_tpu_torch.render import renderer as R
+from vct_tpu_torch.render import voxelize as V
+from vct_tpu_torch.scene.cornell import cornell_box
 
 torch.set_num_threads(1)    # all torch math on the main thread: PERF.md §7 item 4
 
@@ -20,13 +29,15 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 SCRIPT = textwrap.dedent("""
     import dataclasses, importlib, pkgutil, sys
 
-    class NoJax:
+    BLOCKED = ("jax", "jaxlib", "vct_tpu")
+
+    class Blocked:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib"):
-                raise ImportError(f"jax is blocked: {name}")
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked: {name}")
             return None
 
-    sys.meta_path.insert(0, NoJax())
+    sys.meta_path.insert(0, Blocked())
 
     import torch
     torch.set_num_threads(1)
@@ -34,26 +45,33 @@ SCRIPT = textwrap.dedent("""
     for m in pkgutil.walk_packages(vct_tpu_torch.__path__, "vct_tpu_torch."):
         importlib.import_module(m.name)
 
-    from vct_tpu.config import preset
-    from vct_tpu.scene.cornell import cornell_box
+    from vct_tpu_torch.config import preset
     from vct_tpu_torch.core import camera as CAM
     from vct_tpu_torch.render import renderer as R
+    from vct_tpu_torch.scene.atrium import atrium
+    from vct_tpu_torch.scene.cornell import cornell_box
 
-    cfg = preset("sponza256")
-    cfg = dataclasses.replace(
-        cfg, grid=dataclasses.replace(cfg.grid, dim=32, compute="float32"),
-        cones=dataclasses.replace(cfg.cones, field_dim=32),
-        render=dataclasses.replace(cfg.render, width=64, height=48))
-    ds, mats, samples = R.prepare_scene(cfg, cornell_box(size=100.0))
-    voxels = R.build_voxel_state(cfg, samples, mats)
-    cam = CAM.Camera(position=(3.0, 2.0, 40.0))
-    origins, dirs = CAM.primary_rays(cam, 64, 48)
-    img = R.render_camera_pass(cfg, ds, voxels, mats, origins, dirs,
-                               torch.tensor(cam.position))
-    assert img.shape == (48, 64, 3) and bool(torch.isfinite(img).all())
-    assert float(img.mean()) > 0.01
-    assert not any(k.split(".")[0] in ("jax", "jaxlib") for k in sys.modules)
-    print("rendered", tuple(img.shape), float(img.mean()))
+    cpu = torch.device("cpu")
+    for scene, cam, w, h in (
+            (cornell_box(size=100.0), CAM.Camera(position=(3.0, 2.0, 40.0)),
+             64, 48),
+            (atrium(), CAM.Camera(position=(48.0, -10.0, 0.0), yaw=180.0),
+             96, 64)):
+        cfg = preset("sponza256")
+        cfg = dataclasses.replace(
+            cfg, grid=dataclasses.replace(cfg.grid, dim=32, compute="float32"),
+            cones=dataclasses.replace(cfg.cones, field_dim=32),
+            render=dataclasses.replace(cfg.render, width=w, height=h))
+        ds, mats, samples = R.prepare_scene(cfg, scene, device=cpu)
+        voxels = R.build_voxel_state(cfg, samples, mats)
+        origins, dirs = CAM.primary_rays(cam, w, h, device=cpu)
+        img = R.render_camera_pass(cfg, ds, voxels, mats, origins, dirs,
+                                   torch.tensor(cam.position))
+        assert img.shape == (h, w, 3) and bool(torch.isfinite(img).all())
+        assert float(img.mean()) > 0.01
+        print("rendered", tuple(img.shape), mats.atlas is not None,
+              float(img.mean()))
+    assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
 """)
 
 
@@ -61,16 +79,66 @@ def test_imports_and_renders_without_jax():
     res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
-    assert "rendered (48, 64, 3)" in res.stdout
+    assert "rendered (48, 64, 3) False" in res.stdout
+    assert "rendered (64, 96, 3) True" in res.stdout
+
+
+def _sources():
+    return sorted((ROOT / "vct_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def _imports(blocked):
+    for path in _sources():
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if (words[:1] in (["import"], ["from"])
+                    and words[1].split(".")[0] in blocked):
+                yield f"{path}: {line}"
 
 
 def test_no_jax_import_in_sources():
-    for path in (ROOT / "vct_tpu_torch").rglob("*.py"):
-        for line in path.read_text().splitlines():
-            words = line.split()
-            assert not (words[:1] in (["import"], ["from"])
-                        and words[1].split(".")[0] in ("jax", "jaxlib")), \
-                f"{path}: {line}"
+    assert list(_imports(("jax", "jaxlib"))) == []
+
+
+def test_no_jax_package_import_in_sources():
+    """The port keeps its own copies of the JAX package's host modules
+    (config, scenes): `vct_tpu` itself is never imported, even where a
+    module of it does not import jax."""
+    assert list(_imports(("vct_tpu",))) == []
+
+
+def _scene():
+    return cornell_box(size=100.0)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: CAM.primary_rays(CAM.Camera(), 4, 4)[1],
+    lambda: R.light_direction(preset("sponza256")),
+    lambda: R.MaterialTable.from_scene(_scene()).albedo,
+    lambda: GB.DeviceScene.from_scene(_scene()).v0,
+    lambda: R.SamplesDevice.from_samples(V.generate_surface_samples(
+        _scene(), 150.0 / 8)).positions,
+    lambda: R.prepare_scene(preset("cornell64"), _scene())[0].v0,
+], ids=["primary_rays", "light_direction", "material_table",
+        "device_scene", "samples", "prepare_scene"])
+def test_entry_points_default_to_the_card(call):
+    """Named no device, an entry point puts its tensors on the card; on a
+    machine without CUDA it raises rather than run on the CPU."""
+    if torch.cuda.is_available():
+        assert call().is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()
+
+
+def test_entry_point_defaults_name_cuda():
+    import inspect
+    for fn in (R.prepare_scene, R.MaterialTable.from_scene,
+               R.SamplesDevice.from_samples, R.light_direction,
+               GB.DeviceScene.from_scene, CAM.primary_rays):
+        assert inspect.signature(fn).parameters["device"].default == \
+            "cuda", fn.__qualname__
 
 
 def test_no_native_build_at_import():
@@ -85,7 +153,10 @@ def test_no_native_build_at_import():
     lambda t: prepass.prepass_tiles(t, light_dims=(16,), field_dims=(8,),
                                     voxel=1.0, world_size=16.0,
                                     shadow_offset=1.0),
-], ids=["mip", "raycast", "prepass"])
+    lambda t: material.material_tiles(t, t, t, t, t, resolution=16),
+    lambda t: raycast.raycast_stream(t[0, 0], t[0, 0, 0], t, t, t, t[0, 0],
+                                     t),
+], ids=["mip", "raycast", "prepass", "material", "raycast_stream"])
 def test_wrappers_refuse_other_devices(call):
     """CPU tensors take the plain version, CUDA tensors the kernel, and
     anything else is refused rather than sent down either path."""

@@ -1,7 +1,8 @@
 """Kernel 3 (prepass): the port's per-tile light/field level selection
-must EQUAL the JAX package's Pallas prepass (interpret mode,
-has_atlas=False) and its XLA oracles select_light_bricks /
-select_field_bricks, as tests/test_prepass_pallas.py requires."""
+and its material half must EQUAL the JAX package's Pallas prepass
+(interpret mode, has_atlas False and True) and its XLA oracles
+select_light_bricks / select_field_bricks / select_material_bricks, as
+tests/test_prepass_pallas.py requires."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,6 +10,7 @@ import pytest
 import torch
 
 from vct_tpu.core import grid as jgrid
+from vct_tpu.ops import material_pallas as JMP
 from vct_tpu.ops import prepass_pallas as JPP
 from vct_tpu.ops import tap_pallas as JTP
 from vct_tpu_torch.ops import prepass as PP
@@ -100,5 +102,63 @@ def test_all_miss_tiles_take_coarsest():
 
 
 def test_atlas_half_refused():
-    with pytest.raises(NotImplementedError):
-        PP.prepass_tiles(torch.as_tensor(_gbuf(1)), has_atlas=True, **KW)
+    """The material half needs the atlas's shape: a material count, a
+    power-of-two resolution and its level count."""
+    with pytest.raises(TypeError):
+        PP.prepass_tiles(torch.as_tensor(_gbuf(1)), atlas=(3, 64), **KW)
+
+
+def _atlas_gbuf(ntiles, seed=0, miss_frac=0.1, mm=5):
+    """tests/test_prepass_pallas.py's _gbuf: tile-coherent positions, uv
+    boxes of 0.3 around per-tile bases in [-2, 2], materials 0..mm-1."""
+    rng = np.random.default_rng(seed)
+    n = ntiles * TILE
+    g = np.zeros((n, 32), np.float32)
+    base = rng.uniform(-60, 60, (ntiles, 1, 3))
+    g[:, 0:3] = (base + rng.uniform(-2, 2, (ntiles, TILE, 3))).reshape(n, 3)
+    nrm = rng.normal(size=(n, 3))
+    g[:, 3:6] = nrm / np.linalg.norm(nrm, axis=1, keepdims=True)
+    geo = rng.normal(size=(n, 3))
+    g[:, 6:9] = geo / np.linalg.norm(geo, axis=1, keepdims=True)
+    ub = rng.uniform(-2, 2, (ntiles, 1, 2))
+    g[:, 15:17] = (ub + rng.uniform(0, 0.3, (ntiles, TILE, 2))).reshape(n, 2)
+    g[:, 17] = rng.integers(0, mm, n)
+    g[:, 19] = (rng.uniform(size=n) >= miss_frac).astype(np.float32)
+    return g
+
+
+ATLAS_CASES = [(0, 0.1, 5, 64), (1, 0.0, 8, 256), (2, 0.5, 30, 16),
+               (3, 1.0, 3, 64)]
+
+
+@pytest.mark.parametrize("seed,miss,mm,res", ATLAS_CASES)
+def test_atlas_matches_pallas_prepass(seed, miss, mm, res):
+    """All four outputs equal the Pallas kernel's; the last case is all
+    miss, the third has more materials than slots can hold per tile."""
+    g = _atlas_gbuf(6, seed, miss, mm)
+    nlev = res.bit_length()
+    ref = JPP.prepass_tiles(
+        jnp.asarray(g), num_materials=mm, resolution=res, atlas_levels=nlev,
+        has_atlas=True, interpret=True, tile=TILE, **KW)
+    out = PP.prepass_tiles(torch.as_tensor(g), atlas=(mm, res, nlev), **KW)
+    assert len(out) == 4
+    for a, b in zip(out, ref):
+        assert a.dtype == torch.int32
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b)[:a.shape[0]])
+    if miss == 1.0:
+        assert out[1].abs().max() == 0 and out[3].abs().max() == 0
+
+
+def test_atlas_matches_select_material_bricks():
+    g = _atlas_gbuf(5, seed=7)
+    tiled = g.reshape(5, TILE, -1)
+    scal, lists, slots = JMP.select_material_bricks(
+        jnp.asarray(tiled[..., 17].astype(np.int32)),
+        jnp.asarray(tiled[..., 15:17]), jnp.asarray(tiled[..., 19] > 0.5),
+        num_materials=5, resolution=64, num_levels=7)
+    _, mscal, mlists, mslots = PP.prepass_tiles(torch.as_tensor(g),
+                                                atlas=(5, 64, 7), **KW)
+    np.testing.assert_array_equal(mscal.numpy(), np.asarray(scal))
+    np.testing.assert_array_equal(mlists.numpy(), np.asarray(lists)[:5])
+    np.testing.assert_array_equal(mslots.numpy().reshape(5, TILE),
+                                  np.asarray(slots))

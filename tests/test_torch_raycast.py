@@ -14,25 +14,29 @@ import torch
 from vct_tpu.core import camera as jcam
 from vct_tpu.ops import raycast_pallas as JRP
 from vct_tpu.render import gbuffer as jgbuf
-from vct_tpu.scene.atrium import atrium
-from vct_tpu.scene.cornell import cornell_box
+from vct_tpu.scene.atrium import atrium as jatrium
+from vct_tpu.scene.cornell import cornell_box as jcornell_box
 from vct_tpu_torch.ops import raycast as RP
 from vct_tpu_torch.render import gbuffer as GB
+from vct_tpu_torch.scene.atrium import atrium
+from vct_tpu_torch.scene.cornell import cornell_box
 
 torch.set_num_threads(1)    # all torch math on the main thread: PERF.md §7 item 4
 
 SCENES = {
     "cornell": (lambda: cornell_box(size=100.0),
+                lambda: jcornell_box(size=100.0),
                 dict(position=(3.0, 2.0, 40.0)), 32, 16),
-    "atrium": (atrium, dict(position=(48.0, -10.0, 0.0), yaw=180.0), 64, 32),
+    "atrium": (atrium, jatrium,
+               dict(position=(48.0, -10.0, 0.0), yaw=180.0), 64, 32),
 }
 
 
 @pytest.fixture(scope="module", params=sorted(SCENES))
 def setup(request):
-    make, cam, w, h = SCENES[request.param]
+    make, jmake, cam, w, h = SCENES[request.param]
     scene = make()
-    jds = jgbuf.DeviceScene.from_scene(scene)
+    jds = jgbuf.DeviceScene.from_scene(jmake())
     _, d = jcam.primary_rays(jcam.Camera(**cam), w, h)
     d = np.array(d).reshape(-1, 3)
     o = np.asarray(cam["position"], np.float32)
@@ -82,7 +86,7 @@ def test_own_tables_match(setup):
     entries (tests/test_torch_host.py), which may flip a grazing hit: at
     most 0.5% of rays, and agreeing rays stay within 1e-4."""
     scene, d, o, mats, isect, attrs, t = setup
-    ds = GB.DeviceScene.from_scene(scene)
+    ds = GB.DeviceScene.from_scene(scene, device="cpu")
     pi, pa = RP.pack_tables(ds, torch.as_tensor(o),
                             *(torch.as_tensor(m) for m in mats))
     out = RP.raycast_gbuf24(torch.as_tensor(d), torch.as_tensor(o),
@@ -98,8 +102,7 @@ def test_own_tables_match(setup):
 
 def test_miss_rows():
     """Rays that hit nothing: position = origin, everything else zero."""
-    scene = cornell_box(size=100.0)
-    ds = GB.DeviceScene.from_scene(scene)
+    ds = GB.DeviceScene.from_scene(cornell_box(size=100.0), device="cpu")
     o = torch.tensor([0.0, 0.0, 500.0])          # outside, looking away
     d = torch.tensor([[0.0, 0.0, 1.0], [0.6, 0.0, 0.8]])
     out = RP.raycast_gbuf24(d, o, *RP.pack_tables(ds, o)).numpy()

@@ -22,22 +22,27 @@ import numpy as np
 import pytest
 import torch
 
-from vct_tpu.config import preset
+from vct_tpu.config import preset as jpreset
 from vct_tpu.core import camera as jcam
 from vct_tpu.render import fast as JF
 from vct_tpu.render import renderer as JR
-from vct_tpu.scene.cornell import cornell_box
+from vct_tpu.scene.cornell import cornell_box as jcornell_box
 from vct_tpu_torch import interop
+from vct_tpu_torch.config import preset
 from vct_tpu_torch.core import camera as CAM
 from vct_tpu_torch.ops import raycast as RP
 from vct_tpu_torch.render import fast as F
 from vct_tpu_torch.render import renderer as R
+from vct_tpu_torch.scene.cornell import cornell_box
 
 torch.set_num_threads(1)    # all torch math on the main thread: PERF.md §7 item 4
 
 
-def _cfg(dim, w, h, spec=True):
-    cfg = preset("sponza256")
+CPU = torch.device("cpu")
+
+
+def _cfg(dim, w, h, spec=True, make_preset=preset):
+    cfg = make_preset("sponza256")
     return dataclasses.replace(
         cfg,
         grid=dataclasses.replace(cfg.grid, dim=dim, compute="float32"),
@@ -52,9 +57,8 @@ CAMERA = dict(position=(3.0, 2.0, 40.0))
 
 @pytest.fixture(scope="module")
 def jax_run():
-    cfg = _cfg(32, 64, 48)
-    scene = cornell_box(size=100.0)
-    ds, mats, samples = JR.prepare_scene(cfg, scene)
+    cfg = _cfg(32, 64, 48, make_preset=jpreset)
+    ds, mats, samples = JR.prepare_scene(cfg, jcornell_box(size=100.0))
     voxels = JR.build_voxel_state_staged(cfg, samples, mats)
     origins, dirs = jcam.primary_rays(jcam.Camera(**CAMERA), 64, 48)
     cam = jnp.asarray(CAMERA["position"], jnp.float32)
@@ -64,15 +68,17 @@ def jax_run():
     ref = np.asarray(JR.render_rays(cfg, ds, voxels, mats, origins, dirs,
                                     cam, chunk_size=1024))
     host = jax.tree_util.tree_map(np.asarray, (voxels, tables, mats))
-    return cfg, scene, host, fast, ref
+    return _cfg(32, 64, 48), None, host, fast, ref
 
 
 @pytest.fixture(scope="module")
 def port_run(jax_run):
-    cfg, scene, *_ = jax_run
-    ds, mats, samples = R.prepare_scene(cfg, scene)
+    cfg = jax_run[0]
+    ds, mats, samples = R.prepare_scene(cfg, cornell_box(size=100.0),
+                                        device=CPU)
     voxels = R.build_voxel_state(cfg, samples, mats)
-    origins, dirs = CAM.primary_rays(CAM.Camera(**CAMERA), 64, 48)
+    origins, dirs = CAM.primary_rays(CAM.Camera(**CAMERA), 64, 48,
+                                     device=CPU)
     cam = torch.tensor(CAMERA["position"], dtype=torch.float32)
     return ds, mats, samples, voxels, origins, dirs, cam
 
@@ -101,7 +107,7 @@ def test_voxel_state_matches(jax_run, port_run, name):
 def test_frame_on_converted_state_matches_jax_fast_path(jax_run, port_run):
     cfg, _, (jv, _, _), fast, _ = jax_run
     ds, mats, _, _, origins, dirs, cam = port_run
-    voxels = interop.voxel_state(jv)
+    voxels = interop.voxel_state(jv, device=CPU)
     out = F.render_frame(cfg, ds, F.build_frame_tables(cfg, voxels, mats),
                          mats, origins, dirs, cam).numpy()
     assert out.shape == fast.shape and np.isfinite(out).all()
@@ -116,8 +122,10 @@ def test_interop_tables_match_own_tables(jax_run, port_run):
     rounded to bf16, so within one bf16 rounding step (2^-8 relative)."""
     cfg, _, (jv, jt, _), _, _ = jax_run
     mats = port_run[1]
-    own = F.build_frame_tables(cfg, interop.voxel_state(jv), mats)
-    conv = interop.frame_tables(jt, cfield=8 * cfg.cones.field_basis)
+    own = F.build_frame_tables(cfg, interop.voxel_state(jv, device=CPU),
+                               mats)
+    conv = interop.frame_tables(jt, cfield=8 * cfg.cones.field_basis,
+                                device=CPU)
     for a, b in zip(own.light_mips + own.field_mips,
                     conv.light_mips + conv.field_mips):
         assert a.shape == b.shape
@@ -173,8 +181,10 @@ def test_off_slice_inputs_raise(jax_run, port_run):
     assert big.v0.shape[0] > RP.MAX_TRIANGLES
     with pytest.raises(NotImplementedError, match="binned raycast"):
         F.render_frame(cfg, big, tables, mats, origins, dirs, cam)
-    textured = dataclasses.replace(mats, atlas={"albedo": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="material"):
+    # a textured material table against frame tables built without its
+    # atlas pages (textured scenes themselves render: test_torch_atrium.py)
+    textured = dataclasses.replace(mats, atlas=object())
+    with pytest.raises(ValueError, match="atlas"):
         F.render_frame(cfg, ds, tables, textured, origins, dirs, cam)
     percone = dataclasses.replace(cfg, cones=dataclasses.replace(
         cfg.cones, specular_mode="percone"))

@@ -69,9 +69,11 @@ def setup(request):
     jfield = JTP.pack_field_mips(jgrid.build_mips(field, num_levels=2))
     g, bumpn = _gbuf(4, rng)
     tables = interop.frame_tables(
-        dataclasses.make_dataclass("T", ["light_mips", "field_mips"])(
-            [np.asarray(m) for m in jlight], [np.asarray(m) for m in jfield]),
-        cfield)
+        dataclasses.make_dataclass(
+            "T", ["light_mips", "field_mips", "atlas_pages"])(
+            [np.asarray(m) for m in jlight], [np.asarray(m) for m in jfield],
+            None),
+        cfield, device="cpu")
     scal = PP.prepass_tiles(
         torch.as_tensor(g), light_dims=(LDIM, LDIM // 2),
         field_dims=(FDIM, FDIM // 2), voxel=VOXEL, world_size=WS,

@@ -1,16 +1,18 @@
 """vct_tpu_torch — the PyTorch/CUDA port of vct_tpu's voxel cone tracer.
 
-The JAX package `vct_tpu` stays the reference.  This package reuses its
-jax-free host modules as they are (`vct_tpu.config`, `vct_tpu.scene.*`,
-`vct_tpu.utils.image`, `vct_tpu.native`) and re-implements the rest in
-PyTorch, with hand-written CUDA kernels for the Pallas kernels on the
-ported path (`ops/csrc/`).  It never imports jax.
+The JAX package `vct_tpu` stays the reference.  This package imports
+nothing of it: it keeps its own copies of the host modules it needs
+(`config`, `scene.mesh`, `scene.cornell`, `scene.atrium`, tested equal
+to the JAX ones) and re-implements the rest in PyTorch, with hand-written
+CUDA kernels for the Pallas kernels on the ported path (`ops/csrc/`).
 
 Ported so far: the voxel build (`render.renderer.build_voxel_state`) and
-the fast frame path (`render.fast`) for untextured scenes of at most 2048
-triangles.  Every function takes tensors on one device; on CUDA tensors
-the `ops` wrappers launch their kernels, on CPU tensors they run the
-plain PyTorch versions beside them.
+the fast frame path (`render.fast`) for scenes of at most 2048 triangles,
+textured ones included (texture atlas, material fetch, alpha re-cast).
+Entry points put their tensors on the card unless given
+`device="cpu"`; every function then works on the device its tensors are
+on: on CUDA tensors the `ops` wrappers launch their kernels, on CPU
+tensors they run the plain PyTorch versions beside them.
 """
 
 import torch

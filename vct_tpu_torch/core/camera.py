@@ -75,7 +75,7 @@ class Camera:
 
 
 def primary_rays(cam: Camera, width: int, height: int,
-                 device="cpu", dtype=torch.float32
+                 device="cuda", dtype=torch.float32
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-pixel (origin, direction) through pixel centers.
 

@@ -15,9 +15,10 @@ from vct_tpu_torch.render import fast as F
 from vct_tpu_torch.render import renderer as R
 from vct_tpu_torch.render.gbuffer import DeviceScene
 from vct_tpu_torch.ops import tap as TP
+from vct_tpu_torch.scene.textures import TextureAtlas
 
 
-def tensor(x, device="cpu") -> torch.Tensor:
+def tensor(x, device="cuda") -> torch.Tensor:
     """numpy (including ml_dtypes bfloat16) -> torch, dtype kept."""
     a = np.array(x, copy=True, order="C")
     if a.dtype.name == "bfloat16":
@@ -26,16 +27,16 @@ def tensor(x, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def device_scene(ds, device="cpu") -> DeviceScene:
+def device_scene(ds, device="cuda") -> DeviceScene:
     return DeviceScene(**{f: tensor(getattr(ds, f), device)
                           for f in DeviceScene.__dataclass_fields__})
 
 
-def material_table(m, device="cpu") -> R.MaterialTable:
+def material_table(m, device="cuda") -> R.MaterialTable:
     atlas = None
     if m.atlas is not None:
-        atlas = {k: tensor(getattr(m.atlas, k), device)
-                 for k in ("albedo", "specular", "height")}
+        atlas = TextureAtlas(**{k: tensor(getattr(m.atlas, k), device)
+                                for k in ("albedo", "specular", "height")})
     return R.MaterialTable(albedo=tensor(m.albedo, device),
                            specular=tensor(m.specular, device),
                            emissive=tensor(m.emissive, device),
@@ -43,14 +44,14 @@ def material_table(m, device="cpu") -> R.MaterialTable:
                            atlas=atlas)
 
 
-def samples(s, device="cpu") -> R.SamplesDevice:
+def samples(s, device="cuda") -> R.SamplesDevice:
     return R.SamplesDevice(positions=tensor(s.positions, device),
                            normals=tensor(s.normals, device),
                            uvs=tensor(s.uvs, device),
                            material_ids=tensor(s.material_ids, device))
 
 
-def voxel_state(v, device="cpu") -> R.VoxelState:
+def voxel_state(v, device="cuda") -> R.VoxelState:
     def opt(x):
         return None if x is None else tensor(x, device)
 
@@ -62,17 +63,19 @@ def voxel_state(v, device="cpu") -> R.VoxelState:
         specular_field=opt(v.specular_field))
 
 
-def frame_tables(t, cfield: int, device="cpu") -> F.FrameTables:
+def frame_tables(t, cfield: int, device="cuda") -> F.FrameTables:
     """The JAX package's packed FrameTables -> the port's layout.
 
     tap_pallas.pack_light_mips pads each (D, D, D) light level to
     (D, max(D, 32), pad128(D)) and pack_field_mips each (D, D, D, C) field
     level to (D, D, max(D, 32), pad128(C)); this cuts the padding off and
     re-packs the levels back to back.  cfield is the logical channel
-    count (4 * basis, doubled with the specular field)."""
+    count (4 * basis, doubled with the specular field).  The atlas mip
+    pages share the port's layout and carry over as they are."""
     light = [tensor(m, device)[:, :m.shape[0], :m.shape[0]]
              for m in t.light_mips]
     field = [tensor(m, device)[:, :, :m.shape[0], :cfield]
              for m in t.field_mips]
+    pages = None if t.atlas_pages is None else tensor(t.atlas_pages, device)
     return F.FrameTables(light_mips=TP.pack_mips(light),
-                         field_mips=TP.pack_mips(field))
+                         field_mips=TP.pack_mips(field), atlas_pages=pages)

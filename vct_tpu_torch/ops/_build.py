@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels at first use.
 
-Every `ops/csrc/*.cu` file compiles, in one nvcc call, into a shared
-library with a plain C interface under `vct_tpu_torch/_build/`, named by a
-hash of the sources and flags, and is loaded with ctypes.  Each launcher
+Every `ops/csrc/*.cu` file compiles on its own nvcc process, all started
+together, and the objects link into one shared library with a plain C
+interface under `vct_tpu_torch/_build/`, named by a hash of the sources
+and flags, which is loaded with ctypes.  Each launcher
 takes device pointers and the CUDA stream as integers, launches on that
 stream without synchronizing, and returns `cudaGetLastError()`; `check`
 turns a nonzero status into an exception.
@@ -27,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -38,8 +39,15 @@ SIGNATURES = {
     # dirs, origin, isect, attrs, n, t, out, stream
     "vct_raycast": (_P, _P, _P, _P, _I, _I, _P, _P),
     # gbuf, ntiles, gcols, ld0, nl, fd0, nf, half_ws, voxel, voxel_off,
-    # scal8, stream
-    "vct_prepass": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P),
+    # scal8, nm, res, nlev, mscal, mlists, mslots, stream
+    "vct_prepass": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _I, _I, _I,
+                    _P, _P, _P, _P),
+    # gbuf, n, gcols, slots, mscal, mlists, pages, num_materials,
+    # rows_per_mat, res, out, stream
+    "vct_material": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    # dirs, origin, isect, attrs, lists, ncol, counts, tmin, miss, nrt,
+    # out, stream
+    "vct_raycast_stream": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P),
     # gbuf, ntiles, gcols, scal8, bumpn, campos, light, ld0, field, fd0,
     # cfield, consts, nb, ncones, sq_diffuse, sq_specular, half_ws, voxel,
     # voxel_off, out, stream
@@ -66,8 +74,8 @@ def sources() -> list:
 
 def build() -> Path:
     """Compile ops/csrc into one shared library (a no-op when the library
-    for these sources and flags exists).  nvcc's report, with ptxas's
-    per-kernel registers and spills, is kept beside it as `.log`."""
+    for these sources and flags exists).  nvcc's reports, with ptxas's
+    per-kernel registers and spills, are kept beside it as `.log`."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sources():
         h.update(p.name.encode())
@@ -76,17 +84,27 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}\n{res.stderr}")
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cus = sorted(CSRC.glob("*.cu"))
+        objs = [Path(tmp) / f"{cu.stem}.o" for cu in cus]
+        procs = [subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for cu, o in zip(cus, objs)]
+        logs = [f"== {cu.name}\n{pr.communicate()[0]}"
+                for cu, pr in zip(cus, procs)]
+        failed = [cu.name for cu, pr in zip(cus, procs) if pr.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        lib = Path(tmp) / out.name
+        res = subprocess.run(
+            [nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(lib),
+             *map(str, objs)], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+        out.with_suffix(".log").write_text("\n".join(logs))
+        os.replace(lib, out)
     return out
 
 

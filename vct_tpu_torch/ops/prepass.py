@@ -1,16 +1,23 @@
-"""Per-tile light/field level selection (kernel 3; replaces
-vct_tpu/ops/prepass_pallas.py prepass_tiles for scenes without a texture
-atlas).
+"""Per-tile brick selection (kernel 3; replaces
+vct_tpu/ops/prepass_pallas.py prepass_tiles, both halves).
+
+For each 256-pixel image tile of the tile-major G-buffer:
+  * the light/field half: the light and field mip level + brick origin
+    that the tap kernel samples (scal8);
+  * the material half, for scenes with a texture atlas: per material
+    present in the tile, the finest atlas mip level whose uv footprint
+    fits a 32x32-texel brick with its 16-aligned texel bases (mscal,
+    mlists), and each pixel's slot among the tile's materials (mslots) —
+    what the material kernel (ops/material.py) reads.
 
 `prepass_tiles` launches `csrc/prepass.cu` for CUDA tensors and runs the
-plain version (ops/tap.py select_light_bricks / select_field_bricks) for
-CPU tensors; both give the same integers.  The per-material atlas half of
-the JAX kernel (has_atlas=True) is not ported yet and raises.
+plain version for CPU tensors; both give the same integers as the JAX
+kernel, whose order of float operations they follow.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,15 +28,31 @@ from vct_tpu_torch.ops import tap as T
 
 Tensor = torch.Tensor
 
+NSLOT = 24        # max distinct materials per tile
+NSCAL = 5         # mscal row: count, then slot 0's (material, level, bv, bu)
+NWORDS = 128      # mlists row: slots 1.. as 4 words each, 4*(NSLOT-1) = 92
+THRESH = 14       # max per-axis texel footprint that fits a brick
+BCLIP = float(2 ** 22)    # texel bases clip here, exact in float32
+MAX_MATERIALS = 64        # the kernel's per-tile material table
+
 LAUNCHES = 0
+
+
+class AtlasShape(NamedTuple):
+    """What the material half needs to know of the atlas pages."""
+
+    num_materials: int
+    resolution: int       # level-0 texels per side
+    levels: int           # mip levels, log2(resolution) + 1
 
 
 def _halving(dims: Sequence[int]) -> bool:
     return all(d == dims[0] >> i for i, d in enumerate(dims))
 
 
-def prepass_plain(gbuf: Tensor, *, light_dims, field_dims, voxel: float,
-                  world_size: float, shadow_offset: float) -> Tensor:
+def _light_field_plain(gbuf: Tensor, *, light_dims, field_dims,
+                       voxel: float, world_size: float,
+                       shadow_offset: float) -> Tensor:
     tile = T.TILE
     ntiles = gbuf.shape[0] // tile
     pos, nrm, geo = gbuf[:, 0:3], gbuf[:, 3:6], gbuf[:, 6:9]
@@ -44,8 +67,91 @@ def prepass_plain(gbuf: Tensor, *, light_dims, field_dims, voxel: float,
                      dim=1).to(torch.int32)
 
 
+def _material_plain(gbuf: Tensor, atlas: AtlasShape):
+    """The material half (prepass_pallas._one_tile, has_atlas=True)."""
+    tile = T.TILE
+    n = gbuf.shape[0]
+    ntiles = n // tile
+    mm = atlas.num_materials
+    dev = gbuf.device
+    g = gbuf.reshape(ntiles, tile, gbuf.shape[1])
+    hit = g[..., 19] > 0.5
+    mat = g[..., 17].to(torch.int32)
+    u = g[..., 15]
+    q = 1.0 - g[..., 16]
+    ids = torch.arange(mm, dtype=torch.int32, device=dev)
+    onehot = (mat[..., None] == ids) & hit[..., None]     # (ntiles, tile, M)
+    big = 3e38
+
+    def mreduce(x, init, op):
+        return op(torch.where(onehot, x[..., None], init), dim=1)
+
+    umin = mreduce(u, big, torch.amin)                    # (ntiles, M)
+    umax = mreduce(u, -big, torch.amax)
+    qmin = mreduce(q, big, torch.amin)
+    qmax = mreduce(q, -big, torch.amax)
+    present = onehot.any(dim=1)
+
+    # coarse to fine, the finest level that fits wins; the coarsest
+    # (1x1) level always fits
+    lvl = torch.full((ntiles, mm), float(atlas.levels - 1), device=dev)
+    bv = torch.zeros((ntiles, mm), device=dev)
+    bu = torch.zeros((ntiles, mm), device=dev)
+    for lv in range(atlas.levels - 1, -1, -1):
+        rl = max(atlas.resolution >> lv, 1)
+        d = 2.0 ** -lv
+        base_u = torch.floor(umin * rl - 0.5)
+        hi_u = torch.floor(umax * rl - 0.5 + d)
+        base_v = torch.floor(qmin * rl - 0.5 - d)
+        hi_v = torch.floor(qmax * rl - 0.5)
+        if lv == atlas.levels - 1:
+            fits = torch.ones_like(present)
+        else:
+            fits = ((hi_u - base_u <= THRESH) & (hi_v - base_v <= THRESH))
+        bva = T.ALIGN * torch.floor(torch.clamp(base_v, -BCLIP, BCLIP)
+                                    / T.ALIGN)
+        bua = T.ALIGN * torch.floor(torch.clamp(base_u, -BCLIP, BCLIP)
+                                    / T.ALIGN)
+        lvl = torch.where(fits, float(lv), lvl)
+        bv = torch.where(fits, bva, bv)
+        bu = torch.where(fits, bua, bu)
+
+    # slots: the present materials in ascending id order
+    pres_i = present.to(torch.int32)
+    slot_of = torch.cumsum(pres_i, dim=1) - pres_i        # smaller present ids
+    count = pres_i.sum(dim=1)
+    entry = torch.stack([ids.to(torch.float32).expand(ntiles, mm), lvl, bv,
+                         bu], dim=-1).to(torch.int32)     # (ntiles, M, 4)
+    target = torch.where(present & (slot_of < NSLOT), slot_of, NSLOT)
+    entries = torch.zeros((ntiles, NSLOT + 1, 4), dtype=torch.int32,
+                          device=dev)
+    entries.scatter_(1, target.long()[..., None].expand(-1, -1, 4), entry)
+    mscal = torch.cat([torch.clamp_max(count, NSLOT)[:, None].to(torch.int32),
+                       entries[:, 0]], dim=1)
+    mlists = torch.zeros((ntiles, NWORDS), dtype=torch.int32, device=dev)
+    mlists[:, :4 * (NSLOT - 1)] = entries[:, 1:NSLOT].reshape(ntiles, -1)
+
+    # each pixel's slot: the number of present materials with a smaller id
+    below = ((ids < mat[..., None]) & present[:, None, :]).sum(dim=-1)
+    mslots = torch.clamp(torch.where(hit, below, 0), 0, NSLOT - 1)
+    return mscal, mlists, mslots.reshape(n, 1).to(torch.int32)
+
+
+def prepass_plain(gbuf: Tensor, *, light_dims, field_dims, voxel: float,
+                  world_size: float, shadow_offset: float,
+                  atlas: Optional[AtlasShape] = None):
+    scal8 = _light_field_plain(gbuf, light_dims=light_dims,
+                               field_dims=field_dims, voxel=voxel,
+                               world_size=world_size,
+                               shadow_offset=shadow_offset)
+    if atlas is None:
+        return scal8
+    return (scal8,) + _material_plain(gbuf, atlas)
+
+
 def prepass_cuda(gbuf: Tensor, *, light_dims, field_dims, voxel: float,
-                 world_size: float, shadow_offset: float) -> Tensor:
+                 world_size: float, shadow_offset: float,
+                 atlas: Optional[AtlasShape] = None):
     global LAUNCHES
     n, gcols = gbuf.shape
     _build.require(gbuf.is_cuda and gbuf.dtype == torch.float32
@@ -57,33 +163,50 @@ def prepass_cuda(gbuf: Tensor, *, light_dims, field_dims, voxel: float,
     _build.require(_halving(light_dims) and _halving(field_dims),
                    "prepass kernel: level dims must halve level to level")
     ntiles = n // T.TILE
-    out = torch.empty((ntiles, 8), dtype=torch.int32, device=gbuf.device)
+    dev = gbuf.device
+    scal8 = torch.empty((ntiles, 8), dtype=torch.int32, device=dev)
+    nm = res = nlev = 0
+    mscal = mlists = mslots = None
+    if atlas is not None:
+        nm, res, nlev = atlas
+        _build.require(0 < nm <= MAX_MATERIALS,
+                       f"prepass kernel: 1..{MAX_MATERIALS} materials, "
+                       f"got {nm}")
+        mscal = torch.empty((ntiles, NSCAL), dtype=torch.int32, device=dev)
+        mlists = torch.empty((ntiles, NWORDS), dtype=torch.int32, device=dev)
+        mslots = torch.empty((n, 1), dtype=torch.int32, device=dev)
 
     def f32(x):     # Python constants rounded to float32 once
         return float(np.float32(x))
 
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     status = _build.library().vct_prepass(
         gbuf.data_ptr(), ntiles, gcols, light_dims[0], len(light_dims),
         field_dims[0], len(field_dims), f32(world_size * 0.5), f32(voxel),
-        f32(voxel * shadow_offset), out.data_ptr(), _build.stream())
+        f32(voxel * shadow_offset), scal8.data_ptr(), nm, res, nlev,
+        ptr(mscal), ptr(mlists), ptr(mslots), _build.stream())
     _build.check(status, "vct_prepass")
     LAUNCHES += 1
-    return out
+    if atlas is None:
+        return scal8
+    return scal8, mscal, mlists, mslots
 
 
 def prepass_tiles(gbuf: Tensor, *, light_dims, field_dims, voxel: float,
                   world_size: float, shadow_offset: float,
-                  has_atlas: bool = False) -> Tensor:
+                  atlas: Optional[AtlasShape] = None):
     """Tile-major G-buffer (ntiles*tile, >=20) -> scal8 (ntiles, 8) int32:
-    [light level, light origin xyz, field level, field origin xyz]."""
-    if has_atlas:
-        raise NotImplementedError(
-            "prepass for texture atlases (per-material entries and pixel "
-            "slots) is not ported: ROADMAP Queue 2, material half of "
-            "prepass_pallas")
+    [light level, light origin xyz, field level, field origin xyz].
+
+    With `atlas`, returns (scal8, mscal (ntiles, NSCAL), mlists (ntiles,
+    NWORDS), mslots (n, 1)), all int32: mscal = [count, slot-0 material,
+    level, bv, bu], mlists = slots 1.. as 4 words each from word 0."""
     kw = dict(light_dims=tuple(light_dims), field_dims=tuple(field_dims),
               voxel=voxel, world_size=world_size,
-              shadow_offset=shadow_offset)
+              shadow_offset=shadow_offset,
+              atlas=None if atlas is None else AtlasShape(*atlas))
     if _build.uses_kernel(gbuf):
         return prepass_cuda(gbuf, **kw)
     return prepass_plain(gbuf, **kw)

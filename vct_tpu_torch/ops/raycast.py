@@ -1,11 +1,18 @@
-"""Same-origin closest-hit raycast + G-buffer (kernel 2; replaces
-vct_tpu/ops/raycast_pallas.py raycast_gbuf24).
+"""Same-origin closest-hit raycasts + G-buffer (kernels 2 and 6; replace
+vct_tpu/ops/raycast_pallas.py raycast_gbuf24 and raycast_stream).
 
 `pack_tables` folds the shared camera origin into per-triangle constants
 (det = d.a, u*det = d.b, v*det = d.c, t*det = k); `raycast_gbuf24`
 launches `csrc/raycast.cu` for CUDA tensors and runs the plain version
 for CPU tensors.  Both take the first minimum by triangle index, and both
 round every multiply and add separately, as the reference does.
+
+The streamed raycast tests each 256-ray tile against only the
+128-triangle chunks whose bounding sphere touches the tile's direction
+cone (`pack_tables_stream`, `select_chunks`: plain PyTorch, as in the JAX
+package), front to back, with a per-ray minimum distance for the
+alpha-mask re-cast; `raycast_stream` launches `csrc/raycast_stream.cu`
+for CUDA tensors and runs the plain version for CPU tensors.
 
 G-buffer columns (NOUT = 32): 0:3 position, 3:6 shading normal, 6:9 geo
 normal, 9:12 tangent, 12:15 bitangent, 15:17 uv, 17 material id, 18 t,
@@ -30,8 +37,12 @@ MAX_TRIANGLES = 2048    # the whole-table path's limit (render/fast.py)
 EPS = 1e-7
 TMIN_EPS = 1e-4
 BIG = 3.0e38            # "no hit" sentinel
+TILE = 256              # rays per streamed list tile
+CHUNK = 128             # triangles per streamed chunk
+CULLED = 0x7FFFFFFF     # list word of a culled chunk: sorts after every kept one
 
 LAUNCHES = 0
+STREAM_LAUNCHES = 0
 
 
 def _cross(a: Tensor, b: Tensor) -> Tensor:
@@ -77,9 +88,10 @@ def pack_tables(ds: DeviceScene, origin: Tensor,
 
 
 def _finish_gbuf(d: Tensor, origin: Tensor, tbest: Tensor, u: Tensor,
-                 v: Tensor, arow: Tensor) -> Tensor:
-    """Barycentric G-buffer rows (raycast_pallas._finish_gbuf)."""
-    hit = tbest < BIG
+                 v: Tensor, arow: Tensor, miss_at=BIG) -> Tensor:
+    """Barycentric G-buffer rows (raycast_pallas._finish_gbuf); a ray hit
+    when tbest < miss_at."""
+    hit = tbest < miss_at
     ts = torch.where(hit, tbest, 0.0)
     w0 = 1.0 - u - v
 
@@ -162,3 +174,196 @@ def raycast_gbuf24(dirs: Tensor, origin: Tensor, isect: Tensor,
     if _build.uses_kernel(dirs, origin, isect, attrs):
         return raycast_cuda(dirs, origin, isect, attrs)
     return raycast_plain(dirs, origin, isect, attrs)
+
+
+# ---------------------------------------------------------------------------
+# the streamed raycast
+# ---------------------------------------------------------------------------
+
+def _norm_rows3(x: Tensor) -> Tensor:
+    return torch.sqrt(x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1]
+                      + x[:, 2] * x[:, 2])
+
+
+def pack_tables_stream(ds: DeviceScene, origin: Tensor,
+                       albedo: Optional[Tensor] = None,
+                       specular: Optional[Tensor] = None,
+                       shininess: Optional[Tensor] = None
+                       ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Streaming tables: isect (Tp, 16), attrs (Tp, 48) zero-padded to a
+    CHUNK multiple Tp, and spheres (nchunk, 4): per chunk the bounding
+    sphere of its real triangles' corners, (center - origin, radius),
+    radius -BIG for an all-padding chunk (raycast_pallas.pack_tables_stream)."""
+    isect, attrs = pack_tables(ds, origin, albedo, specular, shininess)
+    t = isect.shape[0]
+    tp = -(-t // CHUNK) * CHUNK
+    nchunk = tp // CHUNK
+    dev = isect.device
+
+    def pad(x):
+        return torch.cat([x, x.new_zeros((tp - t, x.shape[1]))])
+
+    verts = pad(torch.cat([ds.v0, ds.v0 + ds.e1, ds.v0 + ds.e2], dim=1))
+    real = (torch.arange(tp, device=dev) < t)[:, None]
+    vmin = torch.where(real, verts, BIG).reshape(nchunk, CHUNK * 3, 3).amin(1)
+    vmax = torch.where(real, verts, -BIG).reshape(nchunk, CHUNK * 3, 3).amax(1)
+    any_real = real.reshape(nchunk, CHUNK).any(dim=1)
+    center = torch.where(any_real[:, None], 0.5 * (vmin + vmax), 0.0)
+    radius = torch.where(any_real, _norm_rows3(
+        torch.where(any_real[:, None], vmax - center, 0.0)), -BIG)
+    spheres = torch.cat([center - origin[None, :], radius[:, None]], dim=1)
+    return pad(isect).contiguous(), pad(attrs).contiguous(), spheres
+
+
+def select_chunks(dirs: Tensor, spheres: Tensor) -> Tuple[Tensor, Tensor]:
+    """Per ray tile, the chunks whose sphere touches the tile's direction
+    cone, front to back: dirs (nrt, TILE, 3) unit, spheres (nchunk, 4) ->
+    lists (nrt, nchunk) int32 words (near << 16) | chunk id sorted
+    ascending, culled entries CULLED at the end, and counts (nrt,) int32
+    (raycast_pallas.select_chunks)."""
+    nrt = dirs.shape[0]
+    nchunk = spheres.shape[0]
+    axis = dirs.sum(dim=1)
+    axis = axis / torch.clamp_min(_norm_rows3(axis), 1e-12)[:, None]
+    min_dot = (dirs * axis[:, None, :]).sum(dim=2).amin(dim=1)
+    cos_a = torch.clamp(min_dot, 1e-4, 1.0)
+    sin_a = torch.sqrt(torch.clamp_min(1.0 - cos_a * cos_a, 0.0))
+    wide = min_dot <= 1e-4   # no bounding cone: keep every chunk
+    v = spheres[:, :3]
+    r = spheres[:, 3]
+    along = (axis[:, 0:1] * v[None, :, 0] + axis[:, 1:2] * v[None, :, 1]
+             + axis[:, 2:3] * v[None, :, 2])                 # (nrt, nchunk)
+    vv = (v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1] + v[:, 2] * v[:, 2])[None, :]
+    perp = torch.sqrt(torch.clamp_min(vv - along * along, 0.0))
+    dist = cos_a[:, None] * perp - sin_a[:, None] * along
+    keep = (dist <= r[None, :]) & (along >= -r[None, :]) | wide[:, None]
+    counts = keep.sum(dim=1).to(torch.int32)
+    near = torch.clamp_min(torch.sqrt(torch.clamp_min(vv, 0.0)) - r[None, :],
+                           0.0)
+    near_q = torch.clamp(torch.floor(near), 0, 32766).to(torch.int32)
+    ids = torch.arange(nchunk, dtype=torch.int32, device=dirs.device)
+    words = (ids[None, :] | (near_q << 16)).masked_fill(~keep, CULLED)
+    return torch.sort(words, dim=1).values.contiguous(), counts
+
+
+def miss_distance(dirs: Tensor, spheres: Tensor) -> Tensor:
+    """Per-ray miss sentinel of the streamed raycast (N,): the exit
+    distance of the scene box (the real chunks' spheres) times 1.001 plus
+    1e-2.  Every real hit is closer, and unlike BIG it lets the front-to-
+    back stop fire in tiles that hold sky rays."""
+    real = spheres[:, 3] >= 0.0
+    c3, r3 = spheres[:, :3], spheres[:, 3:4]
+    vmin = torch.where(real[:, None], c3 - r3, BIG).amin(dim=0)
+    vmax = torch.where(real[:, None], c3 + r3, -BIG).amax(dim=0)
+    dinv = 1.0 / torch.where(torch.abs(dirs) < 1e-12, 1e-12, dirs)
+    ta = vmin[None, :] * dinv
+    tb = vmax[None, :] * dinv
+    tfar = torch.clamp_min(torch.maximum(ta, tb).amin(dim=1), 0.0)
+    return tfar * 1.001 + 1e-2
+
+
+def raycast_stream_plain(dirs: Tensor, origin: Tensor, isect: Tensor,
+                         attrs: Tensor, lists: Tensor, counts: Tensor,
+                         tmin: Tensor, miss: Tensor,
+                         chunk: int = 16384) -> Tensor:
+    """Plain PyTorch version: every ray against every listed triangle of
+    its tile at once; the winner is the smallest t, ties to the earliest
+    (list position, triangle in chunk) -- the kernel's walk order."""
+    nrt = counts.shape[0]
+    tp = isect.shape[0]
+    nchunk = tp // CHUNK
+    dev = dirs.device
+    pos = torch.arange(lists.shape[1], device=dev)
+    listed = pos[None, :] < counts[:, None].long()
+    ids = torch.where(listed, (lists & 0xFFFF).long(), nchunk)
+    rank = torch.full((nrt, nchunk + 1), tp, dtype=torch.long, device=dev)
+    rank.scatter_(1, ids, pos[None, :].expand(nrt, -1).contiguous())
+    tri = torch.arange(tp, device=dev)
+    rank = rank[:, tri // CHUNK]
+    order = torch.where(rank < tp, rank * CHUNK + tri % CHUNK, tp * CHUNK)
+    out = []
+    for s in range(0, dirs.shape[0], chunk):
+        d = dirs[s:s + chunk]
+        key = order[torch.arange(s, s + d.shape[0], device=dev) // TILE]
+
+        def dot3(r0):
+            return (d[:, 0:1] * isect[None, :, r0]
+                    + d[:, 1:2] * isect[None, :, r0 + 1]
+                    + d[:, 2:3] * isect[None, :, r0 + 2])
+
+        det, ud, vd = dot3(0), dot3(3), dot3(6)
+        kk = isect[None, :, 9]
+        sgn = torch.sign(det)
+        ad = torch.abs(det)
+        sinv = sgn * (1.0 / torch.clamp_min(ad, EPS))
+        tval = kk * sinv
+        valid = ((ad > EPS) & (sgn * ud >= 0) & (sgn * vd >= 0)
+                 & (sgn * (ud + vd) <= ad) & (sgn * kk > TMIN_EPS * ad)
+                 & (tval > tmin[s:s + chunk, None]) & (key < tp * CHUNK))
+        tcand = torch.where(valid, tval, BIG)
+        tbest = tcand.min(dim=1, keepdim=True).values
+        win = torch.where(tcand == tbest, key, tp * CHUNK).argmin(dim=1,
+                                                                  keepdim=True)
+        hit = tbest < miss[s:s + chunk, None]
+        u = torch.where(hit, torch.gather(ud * sinv, 1, win), 0.0)
+        v = torch.where(hit, torch.gather(vd * sinv, 1, win), 0.0)
+        arow = torch.where(hit, attrs[win[:, 0]], 0.0)
+        out.append(_finish_gbuf(d, origin, tbest, u, v, arow,
+                                miss_at=miss[s:s + chunk, None]))
+    return torch.cat(out, dim=0)
+
+
+def raycast_stream_cuda(dirs: Tensor, origin: Tensor, isect: Tensor,
+                        attrs: Tensor, lists: Tensor, counts: Tensor,
+                        tmin: Tensor, miss: Tensor) -> Tensor:
+    global STREAM_LAUNCHES
+    n, tp, nrt = dirs.shape[0], isect.shape[0], counts.shape[0]
+    for x, dt, shape in ((dirs, torch.float32, (n, 3)),
+                         (origin, torch.float32, (3,)),
+                         (isect, torch.float32, (tp, NISECT)),
+                         (attrs, torch.float32, (tp, NATTR)),
+                         (lists, torch.int32, (nrt, lists.shape[1])),
+                         (counts, torch.int32, (nrt,)),
+                         (tmin, torch.float32, (n,)),
+                         (miss, torch.float32, (n,))):
+        _build.require(x.is_cuda and x.dtype == dt and x.is_contiguous()
+                       and tuple(x.shape) == shape,
+                       f"streamed raycast kernel: expected contiguous {dt} "
+                       f"CUDA {shape}, got {tuple(x.shape)} {x.dtype}")
+    _build.require(n == nrt * TILE and tp % CHUNK == 0
+                   and lists.shape[1] >= tp // CHUNK,
+                   "streamed raycast kernel: one list row per 256 rays and "
+                   "a CHUNK-padded table")
+    out = torch.empty((n, NOUT), dtype=torch.float32, device=dirs.device)
+    status = _build.library().vct_raycast_stream(
+        dirs.data_ptr(), origin.data_ptr(), isect.data_ptr(),
+        attrs.data_ptr(), lists.data_ptr(), lists.shape[1],
+        counts.data_ptr(), tmin.data_ptr(), miss.data_ptr(), nrt,
+        out.data_ptr(), _build.stream())
+    _build.check(status, "vct_raycast_stream")
+    STREAM_LAUNCHES += 1
+    return out
+
+
+def raycast_stream(dirs: Tensor, origin: Tensor, isect: Tensor,
+                   attrs: Tensor, lists: Tensor, counts: Tensor,
+                   spheres: Tensor, tmin: Optional[Tensor] = None) -> Tensor:
+    """Streamed closest-hit G-buffer: (N, 3) same-origin unit rays, N a
+    TILE multiple, tables from pack_tables_stream, lists from
+    select_chunks -> (N, NOUT), columns as raycast_gbuf24.
+
+    tmin: optional (N,) or (N, 1) per-ray minimum hit distance (the alpha-
+    mask re-cast continues rays past a masked hit); none by default."""
+    kernel = _build.uses_kernel(dirs, origin, isect, attrs, lists, counts,
+                                spheres)
+    n = dirs.shape[0]
+    if n % TILE:
+        raise ValueError(f"streamed raycast: {TILE}-ray tiles, got n={n}")
+    if tmin is None:
+        tmin = torch.full((n,), -1.0, dtype=torch.float32, device=dirs.device)
+    tmin = tmin.reshape(n).contiguous()
+    lists = lists[:counts.shape[0]]       # the JAX package pads 8-row groups
+    args = (dirs, origin, isect, attrs, lists, counts, tmin,
+            miss_distance(dirs, spheres))
+    return raycast_stream_cuda(*args) if kernel else \
+        raycast_stream_plain(*args)

@@ -1,15 +1,20 @@
 """The fast frame path (port of vct_tpu/render/fast.py:56-482).
 
-  1. ops/raycast.py — closest hit + G-buffer, whole triangle table
-  2. ops/prepass.py — per 16x16 tile: light and field mip level + brick
-  3. ops/tap.py     — shadow tap + basis-weighted diffuse/specular taps
-  4. shading.combine (VoxelConeTracing.fs:165-228), background, untile.
+  1. ops/raycast.py  — closest hit + G-buffer, whole triangle table
+  1b. alpha_resolve  — with a texture atlas: rays that hit a masked texel
+                       re-cast past it through the streamed raycast
+  2. ops/prepass.py  — per 16x16 tile: light and field mip level + brick,
+                       and with an atlas the per-material atlas entries
+  3. ops/material.py — with an atlas: albedo, specular and bump heights
+  4. ops/tap.py      — shadow tap + basis-weighted diffuse/specular taps
+  5. shading.combine (VoxelConeTracing.fs:165-228), background, untile.
 
-Ported for scenes of at most 2048 triangles without a texture atlas and
-field-mode specular.  The other branches of the JAX path raise
-NotImplementedError naming the ROADMAP item that ports them; nothing
-falls back silently.  PyTorch runs eagerly, so the JAX path's two-jit
-split (a TPU compile-arena workaround) has no counterpart.
+Ported for scenes of at most 2048 triangles and field-mode specular.  The
+other branches of the JAX path raise NotImplementedError naming the
+ROADMAP item that ports them; nothing falls back silently.  PyTorch runs
+eagerly, so the JAX path's two-jit split (a TPU compile-arena workaround)
+has no counterpart, and its lax.cond over the alpha re-cast becomes a
+host check of a flag: one device-to-host sync per pass.
 """
 
 from __future__ import annotations
@@ -20,9 +25,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from vct_tpu.config import VCTConfig
+from vct_tpu_torch.config import VCTConfig
 from vct_tpu_torch.core import cones as C
 from vct_tpu_torch.core import dense as D
+from vct_tpu_torch.ops import material as MT
 from vct_tpu_torch.ops import mip
 from vct_tpu_torch.ops import prepass as PP
 from vct_tpu_torch.ops import raycast as RP
@@ -31,6 +37,8 @@ from vct_tpu_torch.render import shading
 from vct_tpu_torch.render.gbuffer import DeviceScene
 from vct_tpu_torch.render.renderer import (MaterialTable, VoxelState,
                                            light_direction)
+from vct_tpu_torch.scene import textures as TX
+from vct_tpu_torch.stages import mark
 
 Tensor = torch.Tensor
 
@@ -44,6 +52,7 @@ class FrameTables:
 
     light_mips: Tuple[Tensor, ...]       # each (D, D, D) bf16, D = dim..16
     field_mips: Tuple[Tensor, ...]       # each (D, D, D, C) bf16, D = df..8
+    atlas_pages: Optional[Tensor] = None  # ops/material.py packed mip pages
 
 
 def supported(cfg: VCTConfig) -> bool:
@@ -57,16 +66,11 @@ def supported(cfg: VCTConfig) -> bool:
             and cfg.cones.diffuse_mode == "field" and spec_ok)
 
 
-def _refuse_off_slice(cfg: VCTConfig, mats: MaterialTable) -> None:
+def _refuse_off_slice(cfg: VCTConfig) -> None:
     if cfg.cones.trace_specular and cfg.cones.specular_mode == "percone":
         raise NotImplementedError(
             "specular_mode='percone' needs the exact specular march: "
             "ROADMAP Queue 2 item 8 (specmarch_pallas)")
-    if mats.atlas is not None:
-        raise NotImplementedError(
-            "texture atlases need the alpha re-cast and the material "
-            "kernel: ROADMAP Queue 2 items 4 and 6 (raycast_stream, "
-            "material_pallas)")
 
 
 def _mips_to(vol: Tensor, floor_dim: int) -> Tuple[Tensor, ...]:
@@ -76,11 +80,12 @@ def _mips_to(vol: Tensor, floor_dim: int) -> Tuple[Tensor, ...]:
 
 def build_frame_tables(cfg: VCTConfig, voxels: VoxelState,
                        mats: MaterialTable) -> FrameTables:
-    """Light-transmittance mips (down to the 16^3 light brick) and the
-    fused diffuse(+specular) field mips (down to the 8^3 field brick)."""
+    """Light-transmittance mips (down to the 16^3 light brick), the fused
+    diffuse(+specular) field mips (down to the 8^3 field brick) and, with
+    a texture atlas, its packed mip pages."""
     if not supported(cfg):
         raise ValueError("fast path needs volume shadows + field cones")
-    _refuse_off_slice(cfg, mats)
+    _refuse_off_slice(cfg)
     light = _mips_to(voxels.light_volume, TP.BRICK_L)
     fields = [voxels.diffuse_field]
     if cfg.cones.trace_specular:
@@ -89,9 +94,14 @@ def build_frame_tables(cfg: VCTConfig, voxels: VoxelState,
                              "built with the specular field")
         fields.append(voxels.specular_field)
     fused = torch.cat(fields, dim=-1) if len(fields) > 1 else fields[0]
+    pages = None
+    if mats.atlas is not None:
+        pages = MT.atlas_mip_pages(mats.atlas.albedo, mats.atlas.specular,
+                                   mats.atlas.height)
     return FrameTables(
         light_mips=TP.pack_mips([m[..., 0] for m in light]),
-        field_mips=TP.pack_mips(_mips_to(fused, TP.BRICK_F)))
+        field_mips=TP.pack_mips(_mips_to(fused, TP.BRICK_F)),
+        atlas_pages=pages)
 
 
 def _tile_order(img: Tensor, hp: int, wp: int) -> Tensor:
@@ -137,7 +147,11 @@ def render_frame(cfg: VCTConfig,
                  camera_position: Tensor,    # (3,)
                  light_dir: Optional[Tensor] = None) -> Tensor:
     """Full camera pass -> (H, W, 3) linear RGB."""
-    _refuse_off_slice(cfg, mats)
+    _refuse_off_slice(cfg)
+    if (mats.atlas is None) != (tables.atlas_pages is None):
+        raise ValueError("the material table and the frame tables disagree "
+                         "on the texture atlas: build the tables from "
+                         "these materials")
     if ds.v0.shape[0] > RP.MAX_TRIANGLES:
         raise NotImplementedError(
             f"{ds.v0.shape[0]} triangles exceed the whole-table raycast's "
@@ -152,8 +166,81 @@ def render_frame(cfg: VCTConfig,
     d = _tile_order(_pad_edge(dirs, hp, wp), hp, wp).contiguous()
     isect, attrs = RP.pack_tables(ds, origin, mats.albedo, mats.specular,
                                   mats.shininess)
+    mark("rays_and_tables")
     g = RP.raycast_gbuf24(d, origin, isect, attrs)
+    mark("raycast")
+    if mats.atlas is not None and cfg.render.alpha_mask_depth > 0:
+        g = alpha_resolve(cfg, ds, mats, g, d, origin)
+        mark("alpha_resolve")
     return _shade(cfg, tables, g, camera_position, light_dir, (h, w, hp, wp))
+
+
+def alpha_resolve(cfg: VCTConfig, ds: DeviceScene, mats: MaterialTable,
+                  g: Tensor, d: Tensor, origin: Tensor) -> Tensor:
+    """Alpha-mask see-through (fs:169-172 `discard`): hits whose sampled
+    albedo alpha is below the threshold re-cast past the masked surface,
+    so the geometry behind it shades (fast.alpha_resolve).
+
+    Per pass, up to cfg.render.alpha_mask_budget candidates (hit pixels of
+    materials with any masked texel) gather into a fixed-size subset in
+    image order, padded with pixel 0; the masked ones, sorted by direction
+    so each 256-ray tile keeps a tight cone, re-enter the streamed raycast
+    with tmin just past their hit, and only their rows are written back.
+    A second pass runs only when a re-cast ray landed on a maskable
+    material again, up to cfg.render.alpha_mask_depth passes.  Overflow
+    pixels and deeper stacks keep the background.  The flag that decides
+    a pass is read on the host: one sync per pass."""
+    thresh = cfg.render.alpha_threshold
+    n = g.shape[0]
+    dev = g.device
+    budget = min(cfg.render.alpha_mask_budget, n)
+    budget = -(-budget // RP.TILE) * RP.TILE
+    maskable = (mats.atlas.albedo[..., 3] < thresh).flatten(1).any(dim=1)
+    isect, attrs, spheres = RP.pack_tables_stream(
+        ds, origin, mats.albedo, mats.specular, mats.shininess)
+    slots = torch.arange(budget, device=dev)
+
+    def candidates(rows):
+        return (rows[:, 19] > 0.5) & maskable[rows[:, 17].long()]
+
+    flag = candidates(g).any()
+    for _ in range(cfg.render.alpha_mask_depth):
+        if not bool(flag):                    # host sync: the pass's flag
+            break
+        cand = candidates(g)
+        # nonzero(size=budget, fill_value=0) without a sync: the k-th
+        # candidate goes to slot k, slots past the count keep pixel 0
+        rank = torch.cumsum(cand.to(torch.int64), 0) - 1
+        dest = torch.where(cand & (rank < budget), rank, budget)
+        idx = torch.zeros(budget + 1, dtype=torch.int64, device=dev)
+        idx.scatter_(0, dest, torch.arange(n, device=dev))
+        idx = idx[:budget]
+        valid = slots < cand.sum()
+        rows = g[idx]
+        alpha = TX.sample_atlas(mats.atlas.albedo, rows[:, 17].long(),
+                                rows[:, 15:17])[:, 3]
+        masked = valid & (alpha < thresh)
+        # sort the subset by direction (stable) so each 256-ray tile has
+        # a tight bounding cone for the chunk culling
+        d_sub = d[idx]
+        qd = torch.clamp((d_sub + 1.0) * 15.999, 0.0, 31.0).to(torch.int32)
+        key = (qd[:, 0] << 10) | (qd[:, 1] << 5) | qd[:, 2]
+        order = torch.argsort(torch.where(masked, key, 2 ** 30), stable=True)
+        idx, masked, d_sub = idx[order], masked[order], d_sub[order]
+        tmin = torch.where(masked, rows[order, 18] * (1.0 + 1e-5) + 1e-4,
+                           3.0e38)
+        lists, counts = RP.select_chunks(
+            d_sub.reshape(budget // RP.TILE, RP.TILE, 3), spheres)
+        g_sub = RP.raycast_stream(d_sub.contiguous(), origin, isect, attrs,
+                                  lists, counts, spheres, tmin=tmin)
+        # write back only the masked rows; index n takes the padding
+        out = torch.cat([g, g.new_zeros((1, g.shape[1]))])
+        out[torch.where(masked, idx, n)] = g_sub
+        g = out[:n]
+        # another pass only when a re-cast ray landed on a maskable
+        # material again (a stacked mask)
+        flag = (masked & candidates(g_sub)).any()
+    return g
 
 
 def _shade(cfg: VCTConfig, tables: FrameTables, g: Tensor,
@@ -164,16 +251,36 @@ def _shade(cfg: VCTConfig, tables: FrameTables, g: Tensor,
     pos = g[:, 0:3]
     nrm = g[:, 3:6]
     hit = g[:, 19] > 0.5
+    pkw = dict(light_dims=tuple(m.shape[0] for m in tables.light_mips),
+               field_dims=tuple(m.shape[0] for m in tables.field_mips),
+               voxel=voxel, world_size=ws,
+               shadow_offset=cfg.shadow.normal_offset)
 
-    # per-tile light/field level + brick selection
-    scal = PP.prepass_tiles(
-        g, light_dims=tuple(m.shape[0] for m in tables.light_mips),
-        field_dims=tuple(m.shape[0] for m in tables.field_mips),
-        voxel=voxel, world_size=ws, shadow_offset=cfg.shadow.normal_offset)
-
-    albedo4 = g[:, 20:24]
-    spec = shading.spec_gray_fallback(g[:, 24:27])
-    shade_normal = nrm
+    if tables.atlas_pages is None:
+        # per-tile light/field level + brick selection; material constants
+        # ride the raycast's attribute rows
+        scal = PP.prepass_tiles(g, **pkw)
+        mark("prepass")
+        albedo4 = g[:, 20:24]
+        spec = g[:, 24:27]
+        shade_normal = nrm
+    else:
+        # the prepass adds per-material atlas entries and pixel slots; the
+        # material kernel fetches albedo, specular and the bump heights
+        pages = tables.atlas_pages
+        res = MT.pages_resolution(pages)
+        atlas = PP.AtlasShape(pages.shape[0], res, res.bit_length())
+        scal, mscal, mlists, mslots = PP.prepass_tiles(g, atlas=atlas, **pkw)
+        mark("prepass")
+        mout = MT.material_tiles(g, mslots, mscal, mlists, pages,
+                                 resolution=res)
+        mark("material")
+        albedo4 = mout[:, 0:4]
+        spec = mout[:, 4:7]
+        shade_normal = TX.bump_normal_from_heights(
+            mout[:, 7], mout[:, 8], mout[:, 9], g[:, 9:12], g[:, 12:15], nrm)
+        mark("bump_normal")
+    spec = shading.spec_gray_fallback(spec)
     eye = C.normalize(camera_position - pos)
     nb = cfg.cones.field_basis
 
@@ -188,6 +295,7 @@ def _shade(cfg: VCTConfig, tables: FrameTables, g: Tensor,
         power_diffuse=int(cfg.cones.basis_power_diffuse),
         power_specular=int(cfg.cones.basis_power_specular),
         cones_static=_cones_static(cfg))
+    mark("tap")
 
     rgb = shading.combine(
         cfg, albedo=albedo4[:, :3], spec_color=spec, normal=shade_normal,
@@ -199,4 +307,6 @@ def _shade(cfg: VCTConfig, tables: FrameTables, g: Tensor,
                          device=rgb.device)
     visible = hit & (albedo4[:, 3] >= cfg.render.alpha_threshold)
     rgb = torch.where(visible[:, None], rgb, bg)
-    return _untile(rgb, hp, wp)[:h, :w]
+    out = _untile(rgb, hp, wp)[:h, :w]
+    mark("combine")
+    return out

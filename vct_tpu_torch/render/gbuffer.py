@@ -12,7 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from vct_tpu.scene.mesh import Scene
+from vct_tpu_torch.scene.mesh import Scene
 
 Tensor = torch.Tensor
 
@@ -32,7 +32,7 @@ class DeviceScene:
     material: Tensor      # (T,) int32
 
     @staticmethod
-    def from_scene(scene: Scene, device="cpu", dtype=torch.float32
+    def from_scene(scene: Scene, device="cuda", dtype=torch.float32
                    ) -> "DeviceScene":
         tv = scene.triangle_vertices()
         idx = scene.indices

@@ -15,42 +15,39 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from vct_tpu.config import VCTConfig
-from vct_tpu.scene.mesh import Scene
+from vct_tpu_torch.config import VCTConfig
+from vct_tpu_torch.scene.mesh import Scene
 from vct_tpu_torch.ops import mip
 from vct_tpu_torch.render import shading
 from vct_tpu_torch.render.gbuffer import DeviceScene
 from vct_tpu_torch.render.voxelize import (SurfaceSamples,
                                            generate_surface_samples, splat)
+from vct_tpu_torch.scene import textures as TX
+from vct_tpu_torch.stages import mark
 
 Tensor = torch.Tensor
 
 
-def _has_textures(scene: Scene) -> bool:
-    return any(
-        m.albedo_texture is not None or m.specular_texture is not None
-        or m.height_texture is not None or m.mask_texture is not None
-        for m in scene.materials)
-
-
 @dataclasses.dataclass
 class MaterialTable:
-    """Per-material constants on the device.  `atlas` holds a texture
-    atlas only when one is carried over from the JAX package
-    (interop.material_table); no port path samples it yet."""
+    """Per-material constants on the device, plus the texture atlas
+    (scene/textures.py) when any material carries textures.  With an
+    atlas, albedo and specular fetches sample it per uv (DiffuseTexture /
+    SpecularTexture units, Mesh.h:89-111)."""
 
     albedo: Tensor      # (M, 4)
     specular: Tensor    # (M, 3)
     emissive: Tensor    # (M, 3)
     shininess: Tensor   # (M,) Phong exponent
-    atlas: Optional[object] = None
+    atlas: Optional[TX.TextureAtlas] = None
 
     @staticmethod
-    def from_scene(scene: Scene, device="cpu") -> "MaterialTable":
-        if _has_textures(scene):
-            raise NotImplementedError(
-                "textured materials are not ported: ROADMAP Queue 2, "
-                "material_pallas and the texture atlas")
+    def from_scene(scene: Scene, device="cuda",
+                   texture_resolution: int = 256) -> "MaterialTable":
+        atlas = None
+        if TX.has_textures(scene.materials):
+            atlas = TX.TextureAtlas.from_materials(
+                scene.materials, texture_resolution, device=device)
 
         def col(name):
             return torch.as_tensor(
@@ -59,7 +56,18 @@ class MaterialTable:
 
         return MaterialTable(albedo=col("albedo"), specular=col("specular"),
                              emissive=col("emissive"),
-                             shininess=col("shininess"))
+                             shininess=col("shininess"), atlas=atlas)
+
+    def sample_albedo(self, material_id: Tensor, uv: Tensor) -> Tensor:
+        """(..., 4) rgba at the given uv — texture(DiffuseTexture, tex)."""
+        if self.atlas is not None:
+            return TX.sample_atlas(self.atlas.albedo, material_id, uv)
+        return self.albedo[material_id.long()]
+
+    def sample_specular(self, material_id: Tensor, uv: Tensor) -> Tensor:
+        if self.atlas is not None:
+            return TX.sample_atlas(self.atlas.specular, material_id, uv)
+        return self.specular[material_id.long()]
 
 
 @dataclasses.dataclass
@@ -72,7 +80,7 @@ class SamplesDevice:
     material_ids: Tensor  # (S,) int32
 
     @staticmethod
-    def from_samples(s: SurfaceSamples, device="cpu") -> "SamplesDevice":
+    def from_samples(s: SurfaceSamples, device="cuda") -> "SamplesDevice":
         def put(x, dt=torch.float32):
             return torch.as_tensor(x, dtype=dt, device=device)
 
@@ -93,7 +101,7 @@ class VoxelState:
     specular_field: Optional[Tensor] = None    # (df, df, df, B*4)
 
 
-def prepare_scene(cfg: VCTConfig, scene: Scene, device="cpu"):
+def prepare_scene(cfg: VCTConfig, scene: Scene, device="cuda"):
     """Host-side prep: device geometry, material table, surface samples,
     all on `device`."""
     ds = DeviceScene.from_scene(scene, device=device)
@@ -103,7 +111,7 @@ def prepare_scene(cfg: VCTConfig, scene: Scene, device="cpu"):
     return ds, mats, SamplesDevice.from_samples(host, device=device)
 
 
-def light_direction(cfg: VCTConfig, device="cpu") -> Tensor:
+def light_direction(cfg: VCTConfig, device="cuda") -> Tensor:
     """L = normalize(LightDirection) — fs:181."""
     l = torch.as_tensor(cfg.light.direction, dtype=torch.float32,
                         device=device)
@@ -128,14 +136,9 @@ def build_voxel_state(cfg: VCTConfig, samples: SamplesDevice,
         raise NotImplementedError(
             "extra GI bounces need the per-sample cone gather: ROADMAP "
             "Queue 1 item 8 (per-cone oracle renderer)")
-    if mats.atlas is not None:
-        raise NotImplementedError(
-            "texture atlases are not ported: ROADMAP Queue 2, "
-            "material_pallas and the texture atlas")
     dim, ws = cfg.grid.dim, cfg.grid.world_size
-    ids = samples.material_ids.long()
-    albedo = mats.albedo[ids]
-    emissive = mats.emissive[ids]
+    albedo = mats.sample_albedo(samples.material_ids, samples.uvs)
+    emissive = mats.emissive[samples.material_ids.long()]
     weights = torch.ones(samples.positions.shape[0], dtype=albedo.dtype,
                          device=albedo.device)
     light_color = torch.as_tensor(cfg.light.color, dtype=torch.float32,
@@ -143,26 +146,33 @@ def build_voxel_state(cfg: VCTConfig, samples: SamplesDevice,
 
     unlit = splat(samples.positions, albedo[:, :3], weights, dim, ws,
                   mode=cfg.voxelize.mode)
+    mark("albedo_splat")
     # conservative (max-alpha) mips: shadow cones must not leak through
     # thin occluders diluted by mean reduction
     unlit_mips = mip.build_mips(unlit, cfg.grid.num_levels, alpha_mode="max")
+    mark("occupancy_mips")
 
     light_volume = shading.build_light_volume(cfg, unlit_mips)
+    mark("light_volume")
     shadow = shading.shadow_volume_tap_packed(
         cfg, shading.pack_light_corners(light_volume), dim,
         samples.positions, samples.normals)
     radiance = albedo[:, :3] * light_color * shadow[:, None] + emissive
     lit = splat(samples.positions, radiance, weights, dim, ws,
                 mode=cfg.voxelize.mode)
+    mark("shadow_and_radiance_splat")
     radiance_mips = mip.build_mips(lit, cfg.grid.num_levels)
+    mark("radiance_mips")
 
     diffuse_field = specular_field = None
     if cfg.cones.diffuse_mode == "field":
         diffuse_field = shading.build_cone_field(
             cfg, radiance_mips, shading.diffuse_schedule(cfg))
+        mark("diffuse_field")
     if cfg.cones.trace_specular and cfg.cones.specular_mode == "field":
         specular_field = shading.build_cone_field(
             cfg, radiance_mips, shading.specular_field_schedule(cfg))
+        mark("specular_field")
     return VoxelState(radiance_mips=radiance_mips, unlit_mips=unlit_mips,
                       light_volume=light_volume, diffuse_field=diffuse_field,
                       specular_field=specular_field)

@@ -8,7 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vct_tpu.config import VCTConfig
+from vct_tpu_torch.config import VCTConfig
 from vct_tpu_torch.core import cones as C
 from vct_tpu_torch.core import dense as D
 from vct_tpu_torch.core import grid as G

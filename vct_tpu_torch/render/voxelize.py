@@ -1,7 +1,8 @@
 """Deterministic scatter voxelization (port of vct_tpu/render/voxelize.py:36-174).
 
 Host (numpy, once per scene): stratified surface samples per triangle —
-the same code as the JAX package's, calling the native generator first.
+the JAX package's numpy path, which vct_tpu/native pins bit-identical to
+its C++ generator, so the port needs no native library.
 Device (torch): scatter-mean of sample values into the grid.  The scatter
 is a stable sort by cell followed by a segment reduction in sample order,
 never float atomics, so two builds give bit-identical grids.
@@ -14,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from vct_tpu.scene.mesh import Scene
+from vct_tpu_torch.scene.mesh import Scene
 from vct_tpu_torch.core.grid import world_to_uvw
 
 Tensor = torch.Tensor
@@ -40,25 +41,11 @@ def generate_surface_samples(
     voxel_world_size: float,
     samples_per_voxel_width: float = 2.0,
     max_samples_per_tri: int = 4096,
-    backend: str = "auto",
 ) -> SurfaceSamples:
-    """Stratified barycentric samples, ~density^2 per voxel-sized patch.
-
-    backend="auto" uses the native C++ generator (vct_tpu.native) when its
-    library is available, else the numpy path; "python" forces numpy."""
+    """Stratified barycentric samples, ~density^2 per voxel-sized patch."""
     tv = scene.triangle_vertices()                    # (T, 3, 3)
     fn = scene.face_normals()
     t_uv = scene.uvs[scene.indices]                   # (T, 3, 2)
-
-    if backend == "auto":
-        from vct_tpu import native
-        got = native.surface_samples(
-            tv, t_uv, fn, scene.tri_material, voxel_world_size,
-            samples_per_voxel_width, max_samples_per_tri)
-        if got is not None:
-            pos, nrm, uv, mat, tri = got
-            return SurfaceSamples(positions=pos, normals=nrm, uvs=uv,
-                                  material_ids=mat, tri_ids=tri)
 
     e1 = tv[:, 1] - tv[:, 0]
     e2 = tv[:, 2] - tv[:, 0]
