@@ -7,23 +7,29 @@ Run from the repository root, on a machine with one CUDA card and nvcc:
 
 Phases, each reported on its own lines:
   (a) the card (nvidia-smi name and power limit) and the kernel build;
-  (c) the two paths at full width, preset("sponza256") (256^3 grid, bf16
-      dense march, 128^3 x 208-channel fields, 1920x1080), each through
-      prepare_scene -> build_voxel_state -> build_frame_tables ->
+  (c) the three paths at full width, preset("sponza256") (256^3 grid,
+      bf16 dense march, 128^3 x 208-channel fields, 1920x1080), each
+      through prepare_scene -> build_voxel_state -> build_frame_tables ->
       render_camera_pass with every kernel's launch count set to 0 just
-      before and read just after:
+      before and read just after, and each naming the kernels it must and
+      must not launch:
         1. the Cornell box (40 triangles, no textures): mip, raycast,
            prepass and tap;
         2. the textured atrium (1,122 triangles, 8 materials, a 256^2
            atlas) from the bench camera: those four plus the material
            half of the prepass, the material fetch and the alpha re-cast
            through the streamed raycast;
+        3. bench.py's frame: the atrium subdivided 4 times (287,232
+           triangles) on the base atrium's samples, through the binned
+           raycast in place of the whole-table one;
       then per path: timings, a small render on the card against the
       plain PyTorch path on the CPU, and for Cornell a determinism check;
   (b) each kernel against its plain PyTorch version on the card, at the
-      shapes the atrium path gives it, with its time beside the plain
-      one, the least time the card could take (bound), and, where one
-      PyTorch call computes the same function, that call's time;
+      shapes the atrium paths give it (the binned raycast at 287,232
+      triangles, also against the whole-table kernel), with its time
+      beside the plain one, the least time the card could take (bound),
+      and, where one PyTorch call computes the same function, that
+      call's time;
   (d) the result: a JSON line of kernels, then {"ok": true, ...} last.
 Any failure raises: the script exits non-zero and prints no result line.
 It exits non-zero at once when CUDA is unavailable.
@@ -52,9 +58,10 @@ ATRIUM_CAMERA = dict(position=(48.0, -10.0, 0.0), yaw=180.0)  # bench.py:122
 # float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# float operations of one ray-triangle test (raycast_common.cuh hit_test):
-# 3 dot3s (9 mul + 6 add), 1 div, 6 mul + 1 add for the sign tests, 1 mul
-OPS_PER_HIT_TEST = 24
+# float operations every ray-triangle test does (raycast_common.cuh
+# hit_test): 3 dot3s (9 mul + 6 add) and the sign tests (5 mul + 1 add);
+# the division and the t, u, v multiplies run only for hits
+OPS_PER_HIT_TEST = 21
 
 
 def fail(msg: str):
@@ -136,17 +143,21 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from vct_tpu_torch.core import camera as CAM
-    from vct_tpu_torch.ops import _build, material, mip, prepass, raycast, tap
+    from vct_tpu_torch.ops import (_build, binrast, material, mip, prepass,
+                                   raycast, tap)
+    from vct_tpu_torch.profile_stages import stage_ms
     from vct_tpu_torch.render import fast as F
     from vct_tpu_torch.render import renderer as R
     from vct_tpu_torch.scene import textures as TX
     from vct_tpu_torch.scene.atrium import atrium
     from vct_tpu_torch.scene.cornell import cornell_box
+    from vct_tpu_torch.scene.mesh import subdivide_scene
 
     counters = {"mip": (mip, "LAUNCHES"), "raycast": (raycast, "LAUNCHES"),
                 "prepass": (prepass, "LAUNCHES"), "tap": (tap, "LAUNCHES"),
                 "material": (material, "LAUNCHES"),
-                "raycast_stream": (raycast, "STREAM_LAUNCHES")}
+                "raycast_stream": (raycast, "STREAM_LAUNCHES"),
+                "binrast": (binrast, "LAUNCHES")}
 
     def reset_counts():
         for mod, attr in counters.values():
@@ -174,11 +185,12 @@ def main() -> int:
     cfg = slice_config(None, WIDTH, HEIGHT)
     hp, wp = -(-HEIGHT // F.TSY) * F.TSY, -(-WIDTH // 64) * 64
 
-    def run_path(scene, camera):
+    def run_path(scene, camera, samples=None):
         """The main path once, counts set to 0 just before, read after."""
         reset_counts()
         t0 = time.perf_counter()
-        ds, mats, samples = R.prepare_scene(cfg, scene, device=dev)
+        ds, mats, samples = R.prepare_scene(cfg, scene, samples=samples,
+                                            device=dev)
         voxels = R.build_voxel_state(cfg, samples, mats)
         tables = F.build_frame_tables(cfg, voxels, mats)
         origins, dirs = CAM.primary_rays(camera, WIDTH, HEIGHT, device=dev)
@@ -192,6 +204,14 @@ def main() -> int:
                 dict(ds=ds, mats=mats, samples=samples, voxels=voxels,
                      tables=tables, origins=origins, dirs=dirs, cam=cam,
                      img=img))
+
+    def expect(launches, must, must_not, what):
+        for name in must:
+            if launches[name] <= 0:
+                fail(f"kernel {name} was not launched by the {what} path")
+        for name in must_not:
+            if launches[name] != 0:
+                fail(f"kernel {name} was launched by the {what} path")
 
     def check_image(img, what):
         if tuple(img.shape) != (HEIGHT, WIDTH, 3):
@@ -207,16 +227,55 @@ def main() -> int:
                                            m.specular, m.shininess)
         return d, origin, isect, attrs
 
-    def timings(p, what):
-        ms = {
-            "build_voxel_state": elapsed_ms(lambda: R.build_voxel_state(
-                cfg, p["samples"], p["mats"]), BUILD_REPS),
-            "build_frame_tables": elapsed_ms(lambda: F.build_frame_tables(
-                cfg, p["voxels"], p["mats"]), BUILD_REPS),
-            "render_frame": elapsed_ms(lambda: F.render_frame(
-                cfg, p["ds"], p["tables"], p["mats"], p["origins"],
-                p["dirs"], p["cam"]), FRAME_REPS),
-        }
+    def alpha_input(g0, mats):
+        """The alpha re-cast's first pass as alpha_resolve sees it:
+        candidates (hit pixels of maskable materials), how many are masked,
+        the budget, and the candidate pixels."""
+        thresh = cfg.render.alpha_threshold
+        maskable = (mats.atlas.albedo[..., 3] < thresh).flatten(1).any(dim=1)
+        cand = (g0[:, 19] > 0.5) & maskable[g0[:, 17].long()]
+        cidx = torch.nonzero(cand)[:, 0]
+        alpha = TX.sample_atlas(mats.atlas.albedo, g0[cidx, 17].long(),
+                                g0[cidx, 15:17])[:, 3]
+        budget = -(-min(cfg.render.alpha_mask_budget, g0.shape[0])
+                   // raycast.TILE) * raycast.TILE
+        return (int(cidx.numel()), int((alpha < thresh).sum()), budget,
+                cidx)
+
+    def stream_input(g0, cidx, budget, d_t, ds, origin, mats):
+        """Every alpha candidate, padded to the budget, with tmin just
+        past its first hit, in alpha_resolve's direction order: the
+        streamed raycast's arguments."""
+        nc = min(int(cidx.numel()), budget)
+        sidx = torch.zeros(budget, dtype=torch.long, device=dev)
+        sidx[:nc] = cidx[:nc]
+        valid = torch.arange(budget, device=dev) < nc
+        ds_ = d_t[sidx]
+        qd = torch.clamp((ds_ + 1.0) * 15.999, 0.0, 31.0).to(torch.int32)
+        key = (qd[:, 0] << 10) | (qd[:, 1] << 5) | qd[:, 2]
+        order = torch.argsort(torch.where(valid, key, 2 ** 30), stable=True)
+        sidx, valid = sidx[order], valid[order]
+        ds_ = ds_[order].contiguous()
+        tmin = torch.where(valid, g0[sidx, 18] * (1.0 + 1e-5) + 1e-4,
+                           3.0e38)
+        s_isect, s_attrs, spheres = raycast.pack_tables_stream(
+            ds, origin, mats.albedo, mats.specular, mats.shininess)
+        lists, counts = raycast.select_chunks(
+            ds_.reshape(-1, raycast.TILE, 3), spheres)
+        miss = raycast.miss_distance(ds_, spheres)
+        return nc, (ds_, origin, s_isect, s_attrs, lists, counts, tmin, miss)
+
+    def timings(p, what, builds=True):
+        ms = {}
+        if builds:
+            ms["build_voxel_state"] = elapsed_ms(lambda: R.build_voxel_state(
+                cfg, p["samples"], p["mats"]), BUILD_REPS)
+            ms["build_frame_tables"] = elapsed_ms(
+                lambda: F.build_frame_tables(cfg, p["voxels"], p["mats"]),
+                BUILD_REPS)
+        ms["render_frame"] = elapsed_ms(lambda: F.render_frame(
+            cfg, p["ds"], p["tables"], p["mats"], p["origins"], p["dirs"],
+            p["cam"]), FRAME_REPS)
         for k, v in ms.items():
             say(f"{what} {k} ms: median {statistics.median(v):.3f} over {v}")
         return ms
@@ -250,9 +309,8 @@ def main() -> int:
         f"{tuple(p['voxels'].diffuse_field.shape)} x2, {WIDTH}x{HEIGHT}; "
         f"first run {first_s:.2f} s")
     say("launches in main path 1 (Cornell):", json.dumps(launches))
-    for name in ("mip", "raycast", "prepass", "tap"):
-        if launches[name] <= 0:
-            fail(f"kernel {name} was not launched by the Cornell path")
+    expect(launches, ("mip", "raycast", "prepass", "tap"),
+           ("material", "raycast_stream", "binrast"), "Cornell")
     check_image(p["img"], "Cornell")
     g = raycast.raycast_gbuf24(*primary_gbuf(p))
     hit_frac = float((F._untile(g[:, 19], hp, wp)[:HEIGHT, :WIDTH]
@@ -285,9 +343,8 @@ def main() -> int:
         f"{p['samples'].positions.shape[0]} surface samples), "
         f"{WIDTH}x{HEIGHT}; first run {first_s:.2f} s")
     say("launches in main path 2 (atrium):", json.dumps(launches))
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched by the atrium path")
+    expect(launches, ("mip", "raycast", "prepass", "tap", "material",
+                      "raycast_stream"), ("binrast",), "atrium")
     check_image(p["img"], "atrium")
     say(f"atrium image: finite, mean {float(p['img'].mean()):.6f}")
     say(f"atrium prepare_scene ms (host clock): median "
@@ -297,15 +354,7 @@ def main() -> int:
     # the alpha re-cast's first pass at 1080p, as alpha_resolve sees it
     d_t, origin, isect, attrs = primary_gbuf(p)
     g0 = raycast.raycast_gbuf24(d_t, origin, isect, attrs)
-    thresh = cfg.render.alpha_threshold
-    maskable = (mats.atlas.albedo[..., 3] < thresh).flatten(1).any(dim=1)
-    cand = (g0[:, 19] > 0.5) & maskable[g0[:, 17].long()]
-    cidx = torch.nonzero(cand)[:, 0]
-    alpha = TX.sample_atlas(mats.atlas.albedo, g0[cidx, 17].long(),
-                            g0[cidx, 15:17])[:, 3]
-    n_cand, n_masked = int(cidx.numel()), int((alpha < thresh).sum())
-    budget = -(-min(cfg.render.alpha_mask_budget, g0.shape[0])
-               // raycast.TILE) * raycast.TILE
+    n_cand, n_masked, budget, cidx = alpha_input(g0, mats)
     say(f"alpha re-cast at {WIDTH}x{HEIGHT}: {n_cand} candidate pixels "
         f"(hit pixels of maskable materials), {n_masked} masked and "
         f"re-cast, budget {budget}, streamed-raycast launches "
@@ -317,12 +366,13 @@ def main() -> int:
 
     # ---- (b) each kernel against its plain version -----------------------
     report = []
+    row_launches = dict(launches)     # path 2's; binrast's from path 3
 
     def kernel_row(name, source, replaces, err, tol, ms, plain_ms, nbytes,
                    ops, library_ms=None):
         bound_ms, bound_by = bound(nbytes, ops)
         row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": launches[name],
+               "replaces": replaces, "launches": row_launches[name],
                "max_abs_err": err, "ms": statistics.median(ms),
                "plain_ms": statistics.median(plain_ms),
                "bound_ms": bound_ms, "bound_by": bound_by,
@@ -436,22 +486,8 @@ def main() -> int:
 
     # streamed raycast: every alpha candidate, padded to the budget, with
     # tmin just past its first hit, in alpha_resolve's direction order
-    sidx = torch.zeros(budget, dtype=torch.long, device=dev)
-    nc = min(n_cand, budget)
-    sidx[:nc] = cidx[:nc]
-    valid = torch.arange(budget, device=dev) < nc
-    ds_ = d_t[sidx]
-    qd = torch.clamp((ds_ + 1.0) * 15.999, 0.0, 31.0).to(torch.int32)
-    key = (qd[:, 0] << 10) | (qd[:, 1] << 5) | qd[:, 2]
-    order = torch.argsort(torch.where(valid, key, 2 ** 30), stable=True)
-    sidx, valid, ds_ = sidx[order], valid[order], ds_[order].contiguous()
-    tmin = torch.where(valid, g0[sidx, 18] * (1.0 + 1e-5) + 1e-4, 3.0e38)
-    s_isect, s_attrs, spheres = raycast.pack_tables_stream(
-        p["ds"], origin, mats.albedo, mats.specular, mats.shininess)
-    lists, counts = raycast.select_chunks(
-        ds_.reshape(-1, raycast.TILE, 3), spheres)
-    miss = raycast.miss_distance(ds_, spheres)
-    sargs = (ds_, origin, s_isect, s_attrs, lists, counts, tmin, miss)
+    nc, sargs = stream_input(g0, cidx, budget, d_t, p["ds"], origin, mats)
+    _, _, s_isect, _, lists, counts, _, miss = sargs
     gs_k = raycast.raycast_stream_cuda(*sargs)
     gs_p = raycast.raycast_stream_plain(*sargs)
     if not (torch.equal(gs_k[:, 19], gs_p[:, 19])
@@ -531,11 +567,148 @@ def main() -> int:
                        + 2 * cfield))
     say(f"tap table cells touched: light {cells['light']}, field "
         f"{cells['field']}")
-
-    say(f"peak device memory: "
+    say(f"peak device memory (paths 1-2 and their kernels): "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    say(f"atrium frame ms median {statistics.median(atrium_ms['render_frame']):.3f} "
-        f"on {card}")
+    del g, g0, gs_k, gs_p, outs, plains, m_k, m_p, targs, sargs
+
+    # ---- (c3) bench.py's frame: the atrium subdivided 4 times -----------
+    # the same surfaces in 287,232 triangles, on the base atrium's samples
+    # (bench.py:182-184): the voxel state must come out bit-identical
+    scene_hi = subdivide_scene(scene, 4)
+    launches3, first_s, p3 = run_path(scene_hi, camera,
+                                      samples=p["samples"])
+    ds_hi = p3["ds"]
+    say(f"main path 3: sponza256 on the atrium subdivided 4 times "
+        f"({ds_hi.v0.shape[0]} triangles) on the base atrium's "
+        f"{p['samples'].positions.shape[0]} samples, {WIDTH}x{HEIGHT}; "
+        f"first run {first_s:.2f} s")
+    say("launches in main path 3 (atrium x4):", json.dumps(launches3))
+    check_image(p3["img"], "atrium x4")
+    for name in ("radiance_mips", "unlit_mips"):
+        if not torch.equal(getattr(p3["voxels"], name)[0],
+                           getattr(p["voxels"], name)[0]):
+            fail(f"the subdivided atrium's {name}[0] differs from the "
+                 "atrium's on the same samples")
+    if not (torch.equal(p3["mats"].albedo, mats.albedo)
+            and torch.equal(p3["mats"].atlas.albedo, mats.atlas.albedo)):
+        fail("the subdivided atrium's material table differs")
+    img_err = float((p3["img"] - p["img"]).abs().mean())
+    say(f"atrium x4 image: finite, mean {float(p3['img'].mean()):.6f}; "
+        f"voxel state and material table equal path 2's; mean abs "
+        f"difference from the 1,122-triangle image {img_err:.3e}")
+    del p3["voxels"]       # the build is path 2's: time the frame only
+    atrium4_ms = timings(p3, "atrium x4", builds=False)
+
+    d3, origin3, _, _ = primary_gbuf(p3)
+    dimg3 = F._pad_edge(p3["dirs"], hp, wp)
+    m3 = p3["mats"]
+    isect3, attrs3 = binrast.pack_rows(ds_hi, origin3, m3.albedo,
+                                       m3.specular, m3.shininess)
+    scal3, table3, n_col = binrast.bin_triangles(ds_hi, origin3, d3, dimg3,
+                                                 isect3)
+    nb_col = binrast._budgets(ds_hi.v0.shape[0])[1]
+    gangs = scal3[1] + scal3[3]
+    say(f"binning at {ds_hi.v0.shape[0]} triangles: {scal3.shape[1]} "
+        f"strips, table {table3.shape[0]} rows, gangs per strip mean "
+        f"{float(gangs.float().mean()):.3f} max {int(gangs.max())} (strip "
+        f"{int(scal3[1].sum())}, column {int(scal3[3].sum())}); column "
+        f"tier {int(n_col)} of its budget {nb_col}")
+    if int(n_col) > nb_col:
+        fail("the column tier overflowed its budget: geometry was dropped")
+    for name, fn in (
+            ("pack_rows", lambda: binrast.pack_rows(
+                ds_hi, origin3, m3.albedo, m3.specular, m3.shininess)),
+            ("bin", lambda: binrast.bin_triangles(ds_hi, origin3, d3, dimg3,
+                                                  isect3))):
+        ms = elapsed_ms(fn, KERNEL_REPS)
+        say(f"atrium x4 {name} ms: median {statistics.median(ms):.3f} "
+            f"over {ms}")
+    torch.cuda.reset_peak_memory_stats()
+    st, st_total = stage_ms(lambda: F.render_frame(
+        cfg, ds_hi, p3["tables"], m3, p3["origins"], p3["dirs"], p3["cam"]),
+        3)
+    say("atrium x4 frame stages, device ms (medians of 3):",
+        json.dumps({k: round(v, 4) for k, v in st.items()}),
+        f"total {st_total}")
+    say(f"peak device memory in the atrium x4 frame: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # the binned kernel against its plain version over the whole frame,
+    # through the G-buffer: the winner's attribute row (picked by its
+    # triangle id) and material exact with the hit, t and the interpolated
+    # u, v within 1e-6
+    gb_k = binrast.raycast_binned_cuda(d3, origin3, scal3, table3, attrs3)
+    o8_p = binrast.raycast_binned_plain(d3, scal3, table3)
+    gb_p = binrast.finish_binned(d3, origin3, o8_p, attrs3)
+    hit3 = o8_p[:, 4] > 0.5
+    if not (torch.equal(gb_k[:, 19], gb_p[:, 19])
+            and torch.equal(gb_k[:, 17], gb_p[:, 17])
+            and torch.equal(gb_k[:, 6:9], gb_p[:, 6:9])
+            and torch.equal(gb_k[:, 20:28], gb_p[:, 20:28])):
+        fail("binned raycast hits or winners' attribute rows differ from "
+             "the plain version")
+    t_rel = float(((gb_k[:, 18] - gb_p[:, 18]).abs()
+                   / gb_p[:, 18].abs().clamp_min(1.0))[hit3].max())
+    uv_err = maxerr(gb_k[:, 15:17], gb_p[:, 15:17])
+    if not max(t_rel, uv_err) <= 1e-6:
+        fail(f"binned raycast t/u/v differ from the plain version: t "
+             f"{t_rel:.3e} (relative), u/v {uv_err:.3e}")
+    # against the whole-table kernel on the same 287,232 triangles: the
+    # binning drops nothing (hit exact, t within 1e-6)
+    t0 = time.perf_counter()
+    gb_w = raycast.raycast_cuda(d3, origin3, *raycast.pack_tables(
+        ds_hi, origin3, m3.albedo, m3.specular, m3.shininess))
+    sync()
+    whole_s = time.perf_counter() - t0
+    t_w = maxerr(gb_k[:, 18], gb_w[:, 18])
+    close = float(torch.isclose(gb_k, gb_w, rtol=1e-4, atol=1e-4).all(1)
+                  .float().mean())
+    say(f"binned vs plain: G-buffer bitwise {torch.equal(gb_k, gb_p)}, t rel "
+        f"{t_rel:.3e}, u/v {uv_err:.3e}; vs the whole-table kernel "
+        f"({whole_s:.3f} s): hit equal "
+        f"{torch.equal(gb_k[:, 19], gb_w[:, 19])}, t err {t_w:.3e}, rows "
+        f"within 1e-4 {close:.6f}; hit fraction "
+        f"{float(hit3.float().mean()):.6f}")
+    if not (torch.equal(gb_k[:, 19], gb_w[:, 19]) and t_w <= 1e-6
+            and close >= 0.99):
+        fail("the binned raycast disagrees with the whole-table kernel")
+    del gb_w
+
+    # the alpha re-cast at 287k: its candidates, masked pixels and chunks
+    n_cand3, n_masked3, _, cidx3 = alpha_input(gb_k, m3)
+    nc3, sargs3 = stream_input(gb_k, cidx3, budget, d3, ds_hi, origin3, m3)
+    counts3 = sargs3[5]
+    say(f"alpha re-cast at {ds_hi.v0.shape[0]} triangles: {n_cand3} "
+        f"candidate pixels, {n_masked3} masked and re-cast, budget "
+        f"{budget}; {sargs3[2].shape[0] // raycast.CHUNK} chunks, the "
+        f"first pass's lists hold {int(counts3.sum())} (mean "
+        f"{float(counts3.float().mean()):.1f} per 256-ray tile); "
+        f"streamed-raycast launches {launches3['raycast_stream']}")
+    expect(launches3, ("mip", "prepass", "tap", "material", "binrast")
+           + (("raycast_stream",) if n_cand3 else ()), ("raycast",),
+           "atrium x4")
+    del sargs3
+
+    # binrast's row: the hit tests the walk forces, the rays in, the
+    # G-buffer out, the table and the winners' attribute rows read once
+    row_launches["binrast"] = launches3["binrast"]
+    n3 = d3.shape[0]
+    winners = unique_count(o8_p[hit3, 1])
+    kernel_row("binrast", "vct_tpu_torch/ops/csrc/binrast.cu",
+               "vct_tpu/ops/binrast_pallas.py:463", maxerr(gb_k, gb_p), 1e-4,
+               elapsed_ms(lambda: binrast.raycast_binned_cuda(
+                   d3, origin3, scal3, table3, attrs3), KERNEL_REPS),
+               elapsed_ms(lambda: binrast.raycast_binned_plain(
+                   d3, scal3, table3), PLAIN_REPS),
+               n3 * (12 + raycast.NOUT * 4) + table3.numel() * 4
+               + scal3.numel() * 4 + winners * raycast.NATTR * 4,
+               int(gangs.sum()) * binrast.GANGW * binrast.STRIPE
+               * OPS_PER_HIT_TEST)
+    small_check(subdivide_scene(scene, 1), camera, 128, 64, "atrium x1")
+
+    say(f"frame ms medians on {card}: atrium "
+        f"{statistics.median(atrium_ms['render_frame']):.3f}, atrium x4 "
+        f"{statistics.median(atrium4_ms['render_frame']):.3f}")
 
     # ---- (d) the result ------------------------------------------------
     print(json.dumps({"kernels": report}))

@@ -2,9 +2,11 @@
 `import vct_tpu` (the JAX package) fail imports every module of
 vct_tpu_torch and renders the tiny slices on the CPU from the port's own
 config and scenes (sponza256 cut to a 32^3 grid, float32 compute: the
-Cornell box at 64x48 and the textured atrium at 96x64).  No source of the
-port or of chip_smoke.py imports either.  Also the ops' device rule and
-the entry points' default device, which need no card to check."""
+Cornell box at 64x48, the textured atrium at 96x64, and the atrium
+subdivided once, 4,488 triangles through the binned raycast, at
+128x64).  No source of the port or of chip_smoke.py imports either.
+Also the ops' device rule and the entry points' default device, which
+need no card to check."""
 
 import pathlib
 import subprocess
@@ -16,7 +18,8 @@ import torch
 
 from vct_tpu_torch.config import preset
 from vct_tpu_torch.core import camera as CAM
-from vct_tpu_torch.ops import _build, material, mip, prepass, raycast, tap
+from vct_tpu_torch.ops import (_build, binrast, material, mip, prepass,
+                               raycast, tap)
 from vct_tpu_torch.render import gbuffer as GB
 from vct_tpu_torch.render import renderer as R
 from vct_tpu_torch.render import voxelize as V
@@ -50,19 +53,24 @@ SCRIPT = textwrap.dedent("""
     from vct_tpu_torch.render import renderer as R
     from vct_tpu_torch.scene.atrium import atrium
     from vct_tpu_torch.scene.cornell import cornell_box
+    from vct_tpu_torch.scene.mesh import subdivide_scene
 
     cpu = torch.device("cpu")
-    for scene, cam, w, h in (
-            (cornell_box(size=100.0), CAM.Camera(position=(3.0, 2.0, 40.0)),
-             64, 48),
-            (atrium(), CAM.Camera(position=(48.0, -10.0, 0.0), yaw=180.0),
-             96, 64)):
+    bench_cam = CAM.Camera(position=(48.0, -10.0, 0.0), yaw=180.0)
+    for scene, subdiv, cam, w, h in (
+            (cornell_box(size=100.0), 0,
+             CAM.Camera(position=(3.0, 2.0, 40.0)), 64, 48),
+            (atrium(), 0, bench_cam, 96, 64),
+            (atrium(), 1, bench_cam, 128, 64)):
         cfg = preset("sponza256")
         cfg = dataclasses.replace(
             cfg, grid=dataclasses.replace(cfg.grid, dim=32, compute="float32"),
             cones=dataclasses.replace(cfg.cones, field_dim=32),
             render=dataclasses.replace(cfg.render, width=w, height=h))
         ds, mats, samples = R.prepare_scene(cfg, scene, device=cpu)
+        if subdiv:       # bench.py's frame: samples of the base scene
+            ds, _, _ = R.prepare_scene(cfg, subdivide_scene(scene, subdiv),
+                                       samples=samples, device=cpu)
         voxels = R.build_voxel_state(cfg, samples, mats)
         origins, dirs = CAM.primary_rays(cam, w, h, device=cpu)
         img = R.render_camera_pass(cfg, ds, voxels, mats, origins, dirs,
@@ -70,7 +78,7 @@ SCRIPT = textwrap.dedent("""
         assert img.shape == (h, w, 3) and bool(torch.isfinite(img).all())
         assert float(img.mean()) > 0.01
         print("rendered", tuple(img.shape), mats.atlas is not None,
-              float(img.mean()))
+              ds.v0.shape[0], float(img.mean()))
     assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
 """)
 
@@ -79,8 +87,9 @@ def test_imports_and_renders_without_jax():
     res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
-    assert "rendered (48, 64, 3) False" in res.stdout
-    assert "rendered (64, 96, 3) True" in res.stdout
+    assert "rendered (48, 64, 3) False 40 " in res.stdout
+    assert "rendered (64, 96, 3) True 1122 " in res.stdout
+    assert "rendered (64, 128, 3) True 4488 " in res.stdout   # binned
 
 
 def _sources():
@@ -156,7 +165,10 @@ def test_no_native_build_at_import():
     lambda t: material.material_tiles(t, t, t, t, t, resolution=16),
     lambda t: raycast.raycast_stream(t[0, 0], t[0, 0, 0], t, t, t, t[0, 0],
                                      t),
-], ids=["mip", "raycast", "prepass", "material", "raycast_stream"])
+    lambda t: binrast.raycast_binned(t[0, 0], t[0, 0, 0], t[0], t[0, 0],
+                                     t[0, 0]),
+], ids=["mip", "raycast", "prepass", "material", "raycast_stream",
+        "binrast"])
 def test_wrappers_refuse_other_devices(call):
     """CPU tensors take the plain version, CUDA tensors the kernel, and
     anything else is refused rather than sent down either path."""

@@ -30,6 +30,7 @@ from vct_tpu.scene.cornell import cornell_box as jcornell_box
 from vct_tpu_torch import interop
 from vct_tpu_torch.config import preset
 from vct_tpu_torch.core import camera as CAM
+from vct_tpu_torch.ops import binrast as BR
 from vct_tpu_torch.ops import raycast as RP
 from vct_tpu_torch.render import fast as F
 from vct_tpu_torch.render import renderer as R
@@ -171,16 +172,25 @@ def test_no_specular_config(jax_run, port_run):
     assert np.abs(out - with_spec).max() > 0        # specular was dropped
 
 
-def test_off_slice_inputs_raise(jax_run, port_run):
+def test_off_slice_inputs_raise(jax_run, port_run, monkeypatch):
     cfg = jax_run[0]
     ds, mats, _, voxels, origins, dirs, cam = port_run
     tables = F.build_frame_tables(cfg, voxels, mats)
+    # above MAX_TRIANGLES the frame takes the binned raycast: every
+    # triangle 52 times over renders the box's image
     big = dataclasses.replace(
         ds, **{f.name: getattr(ds, f.name).repeat_interleave(52, dim=0)
                for f in dataclasses.fields(ds)})
     assert big.v0.shape[0] > RP.MAX_TRIANGLES
-    with pytest.raises(NotImplementedError, match="binned raycast"):
-        F.render_frame(cfg, big, tables, mats, origins, dirs, cam)
+    binned = []
+    walk = BR.raycast_binned
+    monkeypatch.setattr(BR, "raycast_binned",
+                        lambda *a: binned.append(1) or walk(*a))
+    img = F.render_frame(cfg, big, tables, mats, origins, dirs, cam).numpy()
+    assert binned == [1]
+    ref = F.render_frame(cfg, ds, tables, mats, origins, dirs, cam).numpy()
+    err = np.abs(img - ref)
+    assert err.mean() < 1e-3 and (err.max(axis=-1) > 0.02).mean() < 0.01
     # a textured material table against frame tables built without its
     # atlas pages (textured scenes themselves render: test_torch_atrium.py)
     textured = dataclasses.replace(mats, atlas=object())

@@ -7,8 +7,10 @@ to the JAX ones) and re-implements the rest in PyTorch, with hand-written
 CUDA kernels for the Pallas kernels on the ported path (`ops/csrc/`).
 
 Ported so far: the voxel build (`render.renderer.build_voxel_state`) and
-the fast frame path (`render.fast`) for scenes of at most 2048 triangles,
-textured ones included (texture atlas, material fetch, alpha re-cast).
+the fast frame path (`render.fast`) for scenes of up to 2**24 triangles
+(the whole-table raycast up to 2048 triangles, the binned raycast above),
+textured ones of up to 2**23 included (texture atlas, material fetch,
+alpha re-cast); larger scenes raise ValueError.
 Entry points put their tensors on the card unless given
 `device="cpu"`; every function then works on the device its tensors are
 on: on CUDA tensors the `ops` wrappers launch their kernels, on CPU

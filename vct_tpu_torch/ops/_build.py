@@ -53,6 +53,8 @@ SIGNATURES = {
     # voxel_off, out, stream
     "vct_tap": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _I,
                 _I, _I, _F, _F, _F, _P, _P),
+    # dirs, origin, scal, ns, table, np_rows, attrs, out, stream
+    "vct_binrast": (_P, _P, _P, _I, _P, _I, _P, _P, _P),
 }
 
 

@@ -28,7 +28,9 @@ __device__ __forceinline__ float interp(float w0, float u, float v, const float*
 }
 
 // One triangle row (a3 b3 c3 k) against direction d: true and t, u, v
-// when the ray hits it in front of the origin.
+// when the ray hits it in front of the origin (t, u, v are not written
+// otherwise).  The test needs no division, so the IEEE division, the
+// costliest step, runs only for hits.
 __device__ __forceinline__ bool hit_test(float d0, float d1, float d2, const float* row,
                                          float* t, float* u, float* v) {
     const float det = dot3(d0, d1, d2, row + 0);
@@ -37,16 +39,17 @@ __device__ __forceinline__ bool hit_test(float d0, float d1, float d2, const flo
     const float kk = row[9];
     const float s = det > 0.0f ? 1.0f : (det < 0.0f ? -1.0f : 0.0f);
     const float ad = fabsf(det);
-    const float inv = div_rn(1.0f, fmaxf(ad, kEps));
-    const float sinv = mul_rn(s, inv);
     const bool valid = ad > kEps && mul_rn(s, ud) >= 0.0f
         && mul_rn(s, vd) >= 0.0f
         && mul_rn(s, add_rn(ud, vd)) <= ad
         && mul_rn(s, kk) > mul_rn(kTminEps, ad);
+    if (!valid) return false;
+    const float inv = div_rn(1.0f, fmaxf(ad, kEps));
+    const float sinv = mul_rn(s, inv);
     *t = mul_rn(kk, sinv);
     *u = mul_rn(ud, sinv);
     *v = mul_rn(vd, sinv);
-    return valid;
+    return true;
 }
 
 // The 32-column G-buffer row (raycast_pallas._finish_gbuf) of a ray whose

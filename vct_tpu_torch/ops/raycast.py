@@ -33,13 +33,14 @@ Tensor = torch.Tensor
 NISECT = 16             # a3 b3 c3 k, zero padded
 NATTR = 48              # vn9 vt9 vb9 uv6 fn3 mat1 alb4 spec3 shin1, padded
 NOUT = 32
-MAX_TRIANGLES = 2048    # the whole-table path's limit (render/fast.py)
+MAX_TRIANGLES = 2048    # render/fast.py: above, the binned raycast
 EPS = 1e-7
 TMIN_EPS = 1e-4
 BIG = 3.0e38            # "no hit" sentinel
 TILE = 256              # rays per streamed list tile
 CHUNK = 128             # triangles per streamed chunk
 CULLED = 0x7FFFFFFF     # list word of a culled chunk: sorts after every kept one
+MAX_CHUNKS = 1 << 16    # a list word holds the chunk id in its low 16 bits
 
 LAUNCHES = 0
 STREAM_LAUNCHES = 0
@@ -185,6 +186,13 @@ def _norm_rows3(x: Tensor) -> Tensor:
                       + x[:, 2] * x[:, 2])
 
 
+def _check_chunks(nchunk: int) -> None:
+    if nchunk > MAX_CHUNKS:
+        raise ValueError(f"{nchunk} chunks of {CHUNK} triangles: the streamed "
+                         f"raycast's list words hold at most {MAX_CHUNKS} "
+                         f"chunk ids ({MAX_CHUNKS * CHUNK} triangles)")
+
+
 def pack_tables_stream(ds: DeviceScene, origin: Tensor,
                        albedo: Optional[Tensor] = None,
                        specular: Optional[Tensor] = None,
@@ -194,10 +202,11 @@ def pack_tables_stream(ds: DeviceScene, origin: Tensor,
     CHUNK multiple Tp, and spheres (nchunk, 4): per chunk the bounding
     sphere of its real triangles' corners, (center - origin, radius),
     radius -BIG for an all-padding chunk (raycast_pallas.pack_tables_stream)."""
-    isect, attrs = pack_tables(ds, origin, albedo, specular, shininess)
-    t = isect.shape[0]
+    t = ds.v0.shape[0]
     tp = -(-t // CHUNK) * CHUNK
     nchunk = tp // CHUNK
+    _check_chunks(nchunk)
+    isect, attrs = pack_tables(ds, origin, albedo, specular, shininess)
     dev = isect.device
 
     def pad(x):
@@ -223,6 +232,7 @@ def select_chunks(dirs: Tensor, spheres: Tensor) -> Tuple[Tensor, Tensor]:
     (raycast_pallas.select_chunks)."""
     nrt = dirs.shape[0]
     nchunk = spheres.shape[0]
+    _check_chunks(nchunk)
     axis = dirs.sum(dim=1)
     axis = axis / torch.clamp_min(_norm_rows3(axis), 1e-12)[:, None]
     min_dot = (dirs * axis[:, None, :]).sum(dim=2).amin(dim=1)

@@ -3,7 +3,10 @@
 
     python -m vct_tpu_torch.profile_stages --scene atrium --reps 5
 
-preset("sponza256") at 1920x1080, the scene and camera of chip_smoke.py.
+preset("sponza256") at 1920x1080, the scenes and cameras of chip_smoke.py:
+"cornell" (40 triangles), "atrium" (1,122) and "atrium287k", bench.py's
+frame: the atrium subdivided 4 times (287,232 triangles, the binned
+raycast) on the voxel state of the base atrium's samples.
 Prints the card (nvidia-smi name and power limit), then one JSON line per
 measurement:
   * "build" and "frame": device ms per stage, medians over --reps runs,
@@ -37,9 +40,12 @@ from vct_tpu_torch.config import preset
 from vct_tpu_torch.core import camera as CAM
 from vct_tpu_torch.render import fast as F
 from vct_tpu_torch.render import renderer as R
+from vct_tpu_torch.scene.mesh import subdivide_scene
 
+BENCH_CAMERA = dict(position=(48.0, -10.0, 0.0), yaw=180.0)   # bench.py:122
 CAMERAS = {"cornell": dict(position=(3.0, 2.0, 40.0)),
-           "atrium": dict(position=(48.0, -10.0, 0.0), yaw=180.0)}
+           "atrium": BENCH_CAMERA, "atrium287k": BENCH_CAMERA}
+SUBDIVIDE = {"atrium287k": 4}      # the frame's scene: 4**levels x triangles
 
 
 def _scene(name):
@@ -140,7 +146,13 @@ def main(argv=None) -> int:
         cfg.render, width=1920, height=1080))
     dev = torch.device("cuda")
     camera = CAM.Camera(**CAMERAS[args.scene])
-    ds, mats, samples = R.prepare_scene(cfg, _scene(args.scene), device=dev)
+    scene = _scene(args.scene)
+    ds, mats, samples = R.prepare_scene(cfg, scene, device=dev)
+    levels = SUBDIVIDE.get(args.scene, 0)
+    if levels:
+        # the same surfaces in more triangles: the base scene's samples
+        ds, _, _ = R.prepare_scene(cfg, subdivide_scene(scene, levels),
+                                   samples=samples, device=dev)
     voxels = R.build_voxel_state(cfg, samples, mats)
     tables = F.build_frame_tables(cfg, voxels, mats)
     origins, dirs = CAM.primary_rays(camera, 1920, 1080, device=dev)
@@ -149,7 +161,8 @@ def main(argv=None) -> int:
     def frame():
         return F.render_frame(cfg, ds, tables, mats, origins, dirs, cam)
 
-    common = {"scene": args.scene, "card": card}
+    common = {"scene": args.scene, "triangles": ds.v0.shape[0],
+              "card": card}
     b, bt = stage_ms(lambda: R.build_voxel_state(cfg, samples, mats),
                      max(1, args.reps // 2))
     print(json.dumps({"build": b, "total_ms": bt, **common}), flush=True)

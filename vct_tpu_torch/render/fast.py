@@ -1,6 +1,8 @@
 """The fast frame path (port of vct_tpu/render/fast.py:56-482).
 
-  1. ops/raycast.py  — closest hit + G-buffer, whole triangle table
+  1. ops/raycast.py  — closest hit + G-buffer, whole triangle table, for
+                       scenes of at most raycast.MAX_TRIANGLES; above,
+     ops/binrast.py  — screen-space binning and the binned raycast
   1b. alpha_resolve  — with a texture atlas: rays that hit a masked texel
                        re-cast past it through the streamed raycast
   2. ops/prepass.py  — per 16x16 tile: light and field mip level + brick,
@@ -9,12 +11,16 @@
   4. ops/tap.py      — shadow tap + basis-weighted diffuse/specular taps
   5. shading.combine (VoxelConeTracing.fs:165-228), background, untile.
 
-Ported for scenes of at most 2048 triangles and field-mode specular.  The
-other branches of the JAX path raise NotImplementedError naming the
-ROADMAP item that ports them; nothing falls back silently.  PyTorch runs
-eagerly, so the JAX path's two-jit split (a TPU compile-arena workaround)
-has no counterpart, and its lax.cond over the alpha re-cast becomes a
-host check of a flag: one device-to-host sync per pass.
+Ported for field-mode specular and scenes of up to 2**24 triangles
+(float32 triangle ids in the binned raycast), 2**23 with a texture atlas
+(the alpha re-cast's 16-bit chunk ids); larger scenes raise.  The
+percone specular branch of the JAX path raises NotImplementedError naming
+the ROADMAP item that ports it; nothing falls back silently.  The JAX
+path's VCT_RAYCAST=stream switch (the streamed raycast as the primary
+raycast) is not carried over.  PyTorch runs eagerly, so the JAX path's
+two-jit split (a TPU compile-arena workaround) has no counterpart, and
+its lax.cond over the alpha re-cast becomes a host check of a flag: one
+device-to-host sync per pass.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 from vct_tpu_torch.config import VCTConfig
 from vct_tpu_torch.core import cones as C
 from vct_tpu_torch.core import dense as D
+from vct_tpu_torch.ops import binrast as BR
 from vct_tpu_torch.ops import material as MT
 from vct_tpu_torch.ops import mip
 from vct_tpu_torch.ops import prepass as PP
@@ -152,22 +159,29 @@ def render_frame(cfg: VCTConfig,
         raise ValueError("the material table and the frame tables disagree "
                          "on the texture atlas: build the tables from "
                          "these materials")
-    if ds.v0.shape[0] > RP.MAX_TRIANGLES:
-        raise NotImplementedError(
-            f"{ds.v0.shape[0]} triangles exceed the whole-table raycast's "
-            f"{RP.MAX_TRIANGLES}: the binned raycast is ROADMAP Queue 2 "
-            "item 3 (binrast_pallas)")
     h, w = dirs.shape[:2]
     hp = -(-h // TSY) * TSY
-    wp = -(-w // 64) * 64
+    wp = -(-w // 64) * 64          # binned raycast strip granularity
     if light_dir is None:
         light_dir = light_direction(cfg, dirs.device)
     origin = origins.reshape(-1, 3)[0].contiguous()
-    d = _tile_order(_pad_edge(dirs, hp, wp), hp, wp).contiguous()
-    isect, attrs = RP.pack_tables(ds, origin, mats.albedo, mats.specular,
-                                  mats.shininess)
-    mark("rays_and_tables")
-    g = RP.raycast_gbuf24(d, origin, isect, attrs)
+    dimg = _pad_edge(dirs, hp, wp)
+    d = _tile_order(dimg, hp, wp).contiguous()
+    if ds.v0.shape[0] <= RP.MAX_TRIANGLES:
+        isect, attrs = RP.pack_tables(ds, origin, mats.albedo, mats.specular,
+                                      mats.shininess)
+        mark("rays_and_tables")
+        g = RP.raycast_gbuf24(d, origin, isect, attrs)
+    else:
+        # the raster-style binned raycast: work per strip scales with the
+        # triangles that project onto it
+        mark("rays")
+        isect, attrs = BR.pack_rows(ds, origin, mats.albedo, mats.specular,
+                                    mats.shininess)
+        mark("pack_rows")
+        scal, table, _ = BR.bin_triangles(ds, origin, d, dimg, isect)
+        mark("bin")
+        g = BR.raycast_binned(d, origin, scal, table, attrs)
     mark("raycast")
     if mats.atlas is not None and cfg.render.alpha_mask_depth > 0:
         g = alpha_resolve(cfg, ds, mats, g, d, origin)

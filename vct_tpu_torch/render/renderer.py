@@ -101,14 +101,21 @@ class VoxelState:
     specular_field: Optional[Tensor] = None    # (df, df, df, B*4)
 
 
-def prepare_scene(cfg: VCTConfig, scene: Scene, device="cuda"):
+def prepare_scene(cfg: VCTConfig, scene: Scene,
+                  samples: Optional[SamplesDevice] = None, device="cuda"):
     """Host-side prep: device geometry, material table, surface samples,
-    all on `device`."""
+    all on `device`.
+
+    Pass `samples` to reuse an existing SamplesDevice, for example for a
+    subdivided copy of the same surfaces (scene/mesh.subdivide_scene),
+    whose voxelization is the same by construction."""
     ds = DeviceScene.from_scene(scene, device=device)
     mats = MaterialTable.from_scene(scene, device=device)
-    host = generate_surface_samples(scene, cfg.grid.voxel_world_size,
-                                    cfg.voxelize.samples_per_voxel_width)
-    return ds, mats, SamplesDevice.from_samples(host, device=device)
+    if samples is None:
+        host = generate_surface_samples(scene, cfg.grid.voxel_world_size,
+                                        cfg.voxelize.samples_per_voxel_width)
+        samples = SamplesDevice.from_samples(host, device=device)
+    return ds, mats, samples
 
 
 def light_direction(cfg: VCTConfig, device="cuda") -> Tensor:
