@@ -7,12 +7,12 @@ Run from the repository root, on a machine with one CUDA card and nvcc:
 
 Phases, each reported on its own lines:
   (a) the card (nvidia-smi name and power limit) and the kernel build;
-  (c) the three paths at full width, preset("sponza256") (256^3 grid,
-      bf16 dense march, 128^3 x 208-channel fields, 1920x1080), each
-      through prepare_scene -> build_voxel_state -> build_frame_tables ->
-      render_camera_pass with every kernel's launch count set to 0 just
-      before and read just after, and each naming the kernels it must and
-      must not launch:
+  (c) four paths at full width, 1920x1080, each through prepare_scene ->
+      build_voxel_state -> build_frame_tables -> render_camera_pass with
+      every kernel's launch count set to 0 just before and read just
+      after, and each naming the kernels it must and must not launch;
+      paths 1-3 run preset("sponza256") (256^3 grid, bf16 dense march,
+      128^3 x 208-channel fields):
         1. the Cornell box (40 triangles, no textures): mip, raycast,
            prepass and tap;
         2. the textured atrium (1,122 triangles, 8 materials, a 256^2
@@ -22,11 +22,15 @@ Phases, each reported on its own lines:
         3. bench.py's frame: the atrium subdivided 4 times (287,232
            triangles) on the base atrium's samples, through the binned
            raycast in place of the whole-table one;
+        4. preset("sponza256_exact_specular") on the atrium: no specular
+           field, a diffuse-only tap (104 channels) and the exact
+           per-pixel specular march, once each per frame;
       then per path: timings, a small render on the card against the
       plain PyTorch path on the CPU, and for Cornell a determinism check;
   (b) each kernel against its plain PyTorch version on the card, at the
       shapes the atrium paths give it (the binned raycast at 287,232
-      triangles, also against the whole-table kernel), with its time
+      triangles, also against the whole-table kernel; the specular march
+      and the diffuse-only tap on path 4's frame), with its time
       beside the plain one, the least time the card could take (bound),
       and, where one PyTorch call computes the same function, that
       call's time;
@@ -62,6 +66,15 @@ FP32_OPS_PER_S = 67e12
 # hit_test): 3 dot3s (9 mul + 6 add) and the sign tests (5 mul + 1 add);
 # the division and the t, u, v multiplies run only for hits
 OPS_PER_HIT_TEST = 21
+# float operations of the specular march (csrc/specmarch.cu): per step
+# the point (3 mul + 3 add), its texture coordinate (3 x div, mul, add)
+# and the composite (2 for the early-out test, 6 color, 3 occlusion, 2
+# transmittance); per tap the corner coordinates (mul, sub, floor, sub,
+# 1 - f per axis) and 7 lerps of 3 operations for each of 4 channels; per
+# mip lerp 1 - w and 4 lerps
+OPS_PER_MARCH_STEP = 28
+OPS_PER_TAP = 99
+OPS_PER_MIP_LERP = 13
 
 
 def fail(msg: str):
@@ -110,9 +123,9 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def slice_config(dim, width, height, compute=None):
+def slice_config(dim, width, height, compute=None, name="sponza256"):
     from vct_tpu_torch.config import preset
-    cfg = preset("sponza256")
+    cfg = preset(name)
     grid = cfg.grid
     if dim is not None:
         grid = dataclasses.replace(grid, dim=dim)
@@ -138,16 +151,35 @@ def unique_count(keys: torch.Tensor) -> int:
     return int(torch.unique(keys.reshape(-1)).numel())
 
 
+def corner_keys(uvw: torch.Tensor, lv: torch.Tensor, dims) -> torch.Tensor:
+    """Cell ids, levels counted back to back, of the 8 corners that
+    grid.trilinear_sample reads for each point at its level."""
+    keys, base = [], 0
+    for li, dl in enumerate(dims):
+        t = uvw[lv == li] * dl - 0.5
+        i = torch.floor(t).long()
+        i0, i1 = torch.clamp(i, 0, dl - 1), torch.clamp(i + 1, 0, dl - 1)
+        for k in range(8):
+            ix = [i1[:, a] if k >> (2 - a) & 1 else i0[:, a]
+                  for a in range(3)]
+            keys.append(base + (ix[0] * dl + ix[1]) * dl + ix[2])
+        base += dl ** 3
+    return torch.cat(keys)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from vct_tpu_torch.core import camera as CAM
+    from vct_tpu_torch.core import cones as C
+    from vct_tpu_torch.core import grid as G
     from vct_tpu_torch.ops import (_build, binrast, material, mip, prepass,
-                                   raycast, tap)
-    from vct_tpu_torch.profile_stages import stage_ms
+                                   raycast, specmarch, tap)
+    from vct_tpu_torch.profile_stages import count_syncs, stage_ms
     from vct_tpu_torch.render import fast as F
     from vct_tpu_torch.render import renderer as R
+    from vct_tpu_torch.render import shading
     from vct_tpu_torch.scene import textures as TX
     from vct_tpu_torch.scene.atrium import atrium
     from vct_tpu_torch.scene.cornell import cornell_box
@@ -157,7 +189,8 @@ def main() -> int:
                 "prepass": (prepass, "LAUNCHES"), "tap": (tap, "LAUNCHES"),
                 "material": (material, "LAUNCHES"),
                 "raycast_stream": (raycast, "STREAM_LAUNCHES"),
-                "binrast": (binrast, "LAUNCHES")}
+                "binrast": (binrast, "LAUNCHES"),
+                "specmarch": (specmarch, "LAUNCHES")}
 
     def reset_counts():
         for mod, attr in counters.values():
@@ -185,19 +218,19 @@ def main() -> int:
     cfg = slice_config(None, WIDTH, HEIGHT)
     hp, wp = -(-HEIGHT // F.TSY) * F.TSY, -(-WIDTH // 64) * 64
 
-    def run_path(scene, camera, samples=None):
+    def run_path(scene, camera, samples=None, run_cfg=cfg):
         """The main path once, counts set to 0 just before, read after."""
         reset_counts()
         t0 = time.perf_counter()
-        ds, mats, samples = R.prepare_scene(cfg, scene, samples=samples,
+        ds, mats, samples = R.prepare_scene(run_cfg, scene, samples=samples,
                                             device=dev)
-        voxels = R.build_voxel_state(cfg, samples, mats)
-        tables = F.build_frame_tables(cfg, voxels, mats)
+        voxels = R.build_voxel_state(run_cfg, samples, mats)
+        tables = F.build_frame_tables(run_cfg, voxels, mats)
         origins, dirs = CAM.primary_rays(camera, WIDTH, HEIGHT, device=dev)
         cam = torch.as_tensor(camera.position, dtype=torch.float32,
                               device=dev)
-        img = R.render_camera_pass(cfg, ds, voxels, mats, origins, dirs, cam,
-                                   frame_tables=tables)
+        img = R.render_camera_pass(run_cfg, ds, voxels, mats, origins, dirs,
+                                   cam, frame_tables=tables)
         sync()
         first_s = time.perf_counter() - t0
         return (read_counts(), first_s,
@@ -265,23 +298,23 @@ def main() -> int:
         miss = raycast.miss_distance(ds_, spheres)
         return nc, (ds_, origin, s_isect, s_attrs, lists, counts, tmin, miss)
 
-    def timings(p, what, builds=True):
+    def timings(p, what, builds=True, run_cfg=cfg):
         ms = {}
         if builds:
             ms["build_voxel_state"] = elapsed_ms(lambda: R.build_voxel_state(
-                cfg, p["samples"], p["mats"]), BUILD_REPS)
+                run_cfg, p["samples"], p["mats"]), BUILD_REPS)
             ms["build_frame_tables"] = elapsed_ms(
-                lambda: F.build_frame_tables(cfg, p["voxels"], p["mats"]),
+                lambda: F.build_frame_tables(run_cfg, p["voxels"], p["mats"]),
                 BUILD_REPS)
         ms["render_frame"] = elapsed_ms(lambda: F.render_frame(
-            cfg, p["ds"], p["tables"], p["mats"], p["origins"], p["dirs"],
-            p["cam"]), FRAME_REPS)
+            run_cfg, p["ds"], p["tables"], p["mats"], p["origins"],
+            p["dirs"], p["cam"]), FRAME_REPS)
         for k, v in ms.items():
             say(f"{what} {k} ms: median {statistics.median(v):.3f} over {v}")
         return ms
 
-    def small_check(scene, camera, w, h, what):
-        small = slice_config(32, w, h, compute="float32")
+    def small_check(scene, camera, w, h, what, name="sponza256"):
+        small = slice_config(32, w, h, compute="float32", name=name)
         imgs = []
         for d in (dev, torch.device("cpu")):
             s_ds, s_mats, s_samples = R.prepare_scene(small, scene, device=d)
@@ -310,7 +343,7 @@ def main() -> int:
         f"first run {first_s:.2f} s")
     say("launches in main path 1 (Cornell):", json.dumps(launches))
     expect(launches, ("mip", "raycast", "prepass", "tap"),
-           ("material", "raycast_stream", "binrast"), "Cornell")
+           ("material", "raycast_stream", "binrast", "specmarch"), "Cornell")
     check_image(p["img"], "Cornell")
     g = raycast.raycast_gbuf24(*primary_gbuf(p))
     hit_frac = float((F._untile(g[:, 19], hp, wp)[:HEIGHT, :WIDTH]
@@ -344,7 +377,7 @@ def main() -> int:
         f"{WIDTH}x{HEIGHT}; first run {first_s:.2f} s")
     say("launches in main path 2 (atrium):", json.dumps(launches))
     expect(launches, ("mip", "raycast", "prepass", "tap", "material",
-                      "raycast_stream"), ("binrast",), "atrium")
+                      "raycast_stream"), ("binrast", "specmarch"), "atrium")
     check_image(p["img"], "atrium")
     say(f"atrium image: finite, mean {float(p['img'].mean()):.6f}")
     say(f"atrium prepare_scene ms (host clock): median "
@@ -542,19 +575,8 @@ def main() -> int:
         uvw = (g[:, 0:3] + g[:, col:col + 3] * off) / (
             cfg.grid.world_size * 0.5) * 0.5 + 0.5
         lv = lev.long().repeat_interleave(tap.TILE)
-        keys, base = [], 0
-        for li, m in enumerate(mips):
-            dl = m.shape[0]
-            sel = hitpx & (lv == li)
-            t = uvw[sel] * dl - 0.5
-            i0 = torch.clamp(torch.floor(t).long(), 0, dl - 1)
-            i1 = torch.clamp(i0 + 1, 0, dl - 1)
-            for k in range(8):
-                ix = [i1[:, a] if k >> (2 - a) & 1 else i0[:, a]
-                      for a in range(3)]
-                keys.append(base + (ix[0] * dl + ix[1]) * dl + ix[2])
-            base += dl ** 3
-        cells[which] = unique_count(torch.cat(keys))
+        cells[which] = unique_count(corner_keys(
+            uvw[hitpx], lv[hitpx], [m.shape[0] for m in mips]))
     n_px = g.shape[0]
     ncones = len(tkw["cones_static"][1])
     kernel_row("tap", "vct_tpu_torch/ops/csrc/tap.cu",
@@ -685,8 +707,8 @@ def main() -> int:
         f"{float(counts3.float().mean()):.1f} per 256-ray tile); "
         f"streamed-raycast launches {launches3['raycast_stream']}")
     expect(launches3, ("mip", "prepass", "tap", "material", "binrast")
-           + (("raycast_stream",) if n_cand3 else ()), ("raycast",),
-           "atrium x4")
+           + (("raycast_stream",) if n_cand3 else ()),
+           ("raycast", "specmarch"), "atrium x4")
     del sargs3
 
     # binrast's row: the hit tests the walk forces, the rays in, the
@@ -705,10 +727,160 @@ def main() -> int:
                int(gangs.sum()) * binrast.GANGW * binrast.STRIPE
                * OPS_PER_HIT_TEST)
     small_check(subdivide_scene(scene, 1), camera, 128, 64, "atrium x1")
+    del p3, gb_k, gb_p, o8_p, table3, scal3, isect3, attrs3, d3, dimg3
+
+    # ---- (c4) sponza256_exact_specular on the atrium ---------------------
+    # the exact per-pixel specular march (tan 0.07) in place of the
+    # specular field: the build makes no specular field, the tap kernel
+    # runs diffuse-only, and the march runs once per frame
+    xcfg = slice_config(None, WIDTH, HEIGHT, name="sponza256_exact_specular")
+    nb = xcfg.cones.field_basis
+    launches4, first_s, p4 = run_path(scene, camera, run_cfg=xcfg)
+    t4 = p4["tables"]
+    dims4 = specmarch.pyramid_dims(t4.spec_mips)
+    groups4 = specmarch.plan_groups(shading.specular_schedule(xcfg),
+                                    len(dims4))
+    plan4 = specmarch.plan_entries(groups4, len(dims4))
+    say(f"main path 4: sponza256_exact_specular on the atrium "
+        f"({p4['ds'].v0.shape[0]} triangles), {WIDTH}x{HEIGHT}; field "
+        f"channels {t4.field_mips[0].shape[-1]}, pyramid {list(dims4)}; "
+        f"march plan: {plan4.nsteps} steps in {len(groups4)} groups at "
+        f"levels {[l0 for l0, _ in groups4]}, {len(plan4.entries)} "
+        f"entries, {plan4.rows} sample rows per pixel; first run "
+        f"{first_s:.2f} s")
+    say("launches in main path 4 (exact specular):", json.dumps(launches4))
+    expect(launches4, ("mip", "raycast", "prepass", "tap", "material",
+                       "raycast_stream", "specmarch"), ("binrast",),
+           "exact-specular")
+    if launches4["specmarch"] != 1 or launches4["tap"] != 1:
+        fail("the exact-specular frame must launch specmarch and tap once "
+             "each")
+    if p4["voxels"].specular_field is not None:
+        fail("the exact-specular build made a specular field")
+    if t4.field_mips[0].shape[-1] != 4 * nb:
+        fail(f"the exact-specular field tables carry "
+             f"{t4.field_mips[0].shape[-1]} channels, not {4 * nb}")
+    check_image(p4["img"], "exact specular")
+    x_ms = timings(p4, "exact specular", run_cfg=xcfg)
+
+    # the frame's own march inputs, as _shade makes them
+    d4, origin4, isect4, attrs4 = primary_gbuf(p4)
+    g4 = F.alpha_resolve(xcfg, p4["ds"], p4["mats"], raycast.raycast_gbuf24(
+        d4, origin4, isect4, attrs4), d4, origin4)
+    pages4 = t4.atlas_pages
+    res4 = material.pages_resolution(pages4)
+    scal4, mscal4, mlists4, mslots4 = prepass.prepass_tiles(
+        g4, **dict(pkw, atlas=prepass.AtlasShape(pages4.shape[0], res4,
+                                                 res4.bit_length())))
+    mout4 = material.material_tiles(g4, mslots4, mscal4, mlists4, pages4,
+                                    resolution=res4)
+    shade_n = TX.bump_normal_from_heights(mout4[:, 7], mout4[:, 8],
+                                          mout4[:, 9], g4[:, 9:12],
+                                          g4[:, 12:15], g4[:, 3:6])
+    hit4 = g4[:, 19] > 0.5
+    eye4 = C.normalize(p4["cam"] - g4[:, 0:3])
+    margs = F.spec_march_inputs(xcfg, t4.spec_mips, g4[:, 0:3], g4[:, 3:6],
+                                shade_n, eye4, hit4)[:4]
+    mkw = dict(world_size=xcfg.grid.world_size,
+               max_alpha=xcfg.cones.max_alpha)
+    so_k = specmarch.spec_march_cuda(*margs, t4.spec_mips, **mkw)
+    so_p = specmarch.spec_march_plain(*margs, t4.spec_mips, **mkw)
+    hit_s = margs[0][:, 3] > 0.5
+    lit = float((so_k[hit_s, 0:3].amax(dim=1) > 0).float().mean())
+    loose = int(((so_k - so_p).abs().amax(dim=1) > 1e-6).sum())
+    say(f"specular march on path 4's frame: {int(hit_s.sum())} hit pixels "
+        f"of {so_k.shape[0]} in {margs[2].shape[0]} groups, nonzero "
+        f"specular on {lit:.6f} of them (mean rgb "
+        f"{float(so_k[hit_s, 0:3].mean()):.6f}); {loose} pixels differ from "
+        f"the plain version by more than 1e-6")
+    if lit == 0.0:
+        fail("the exact specular term is zero on every hit pixel")
+
+    # the diffuse-only tap (cfield 104) at this frame's shapes
+    bumpn4 = torch.cat([shade_n, torch.zeros_like(shade_n[:, :1])],
+                       dim=1).contiguous()
+    tkw4 = dict(tkw, cfield=4 * nb)
+    targs4 = (g4, scal4, bumpn4, p4["cam"], t4.light_mips, t4.field_mips)
+    tap_k = tap.tap_cuda(*targs4, **tkw4)
+    tap_err = maxerr(tap_k, tap.tap_plain(*targs4, **tkw4))
+    tap_ms = elapsed_ms(lambda: tap.tap_cuda(*targs4, **tkw4), KERNEL_REPS)
+    say(f"diffuse-only tap (cfield {4 * nb}) on path 4's frame: max_abs_err "
+        f"{tap_err:.3e} (tolerance 1e-4), specular columns all zero "
+        f"{bool((tap_k[:, 5:9] == 0).all())}, median "
+        f"{statistics.median(tap_ms):.4f} ms over {tap_ms}")
+    if not (tap_err <= 1e-4 and bool((tap_k[:, 5:9] == 0).all())):
+        fail("the diffuse-only tap disagrees with its plain version")
+
+    # what the march needs on these inputs, walked as the plain version
+    # walks it: the steps before each pixel's early-out, the second taps
+    # (nonzero mip weight) and the distinct pyramid cells all taps read
+    touched = torch.zeros(sum(d ** 3 for d in dims4), dtype=torch.bool,
+                          device=dev)
+    pos_s, trans, refl_s = margs[0][:, 0:3], margs[0][:, 3:4], margs[1][:, :3]
+    n_steps = n_second = 0
+    for k in range(margs[2].shape[1]):
+        lv = margs[2][:, k].long().repeat_interleave(specmarch.TILE)
+        lv1 = torch.clamp(lv + 1, max=len(dims4) - 1)
+        dist, w, _ = margs[3][:, k].repeat_interleave(
+            specmarch.TILE, dim=0).split(1, dim=1)
+        active = ((1.0 - trans) < mkw["max_alpha"])[:, 0]
+        second = active & (w[:, 0] != 0)
+        uvw = G.world_to_uvw(pos_s + dist * refl_s, mkw["world_size"])
+        touched[corner_keys(uvw[active], lv[active], dims4)] = True
+        touched[corner_keys(uvw[second], lv1[second], dims4)] = True
+        n_steps += int(active.sum())
+        n_second += int(second.sum())
+        smp = (specmarch.sample_levels(t4.spec_mips, lv, uvw) * (1.0 - w)
+               + specmarch.sample_levels(t4.spec_mips, lv1, uvw) * w)
+        trans = torch.where(active[:, None], trans * (1.0 - smp[:, 3:4]),
+                            trans)
+    n_cells = int(touched.sum())
+    n4 = so_k.shape[0]
+    say(f"march work: {n_steps} steps "
+        f"({n_steps / max(int(hit_s.sum()), 1):.3f} per hit pixel of "
+        f"{margs[2].shape[1]}), {n_steps + n_second} taps, {n_cells} "
+        f"distinct pyramid cells of {touched.numel()}")
+    # tolerance 1e-5: the kernel rounds every operation alone in the plain
+    # version's order, so the two agree bit for bit; a pixel whose
+    # transmittance sat within rounding of 1 - max_alpha would flip one
+    # step's contribution (the early-out), which this bound catches and
+    # the count of pixels above 1e-6 printed above shows
+    row_launches["specmarch"] = launches4["specmarch"]
+    kernel_row("specmarch", "vct_tpu_torch/ops/csrc/specmarch.cu",
+               "vct_tpu/ops/specmarch_pallas.py:644", maxerr(so_k, so_p), 1e-5,
+               elapsed_ms(lambda: specmarch.spec_march_cuda(
+                   *margs, t4.spec_mips, **mkw), KERNEL_REPS),
+               elapsed_ms(lambda: specmarch.spec_march_plain(
+                   *margs, t4.spec_mips, **mkw), PLAIN_REPS),
+               n4 * 16 * 3 + margs[2].numel() * 4 + margs[3].numel() * 4
+               + n_cells * 8,
+               n_steps * OPS_PER_MARCH_STEP
+               + (n_steps + n_second) * OPS_PER_TAP
+               + n_second * OPS_PER_MIP_LERP)
+    del touched, so_p, tap_k, targs4, g4, mout4
+
+    def frame4():
+        return F.render_frame(xcfg, p4["ds"], t4, p4["mats"], p4["origins"],
+                              p4["dirs"], p4["cam"])
+
+    sync()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    st4, st4_total = stage_ms(frame4, 3)
+    peak4 = torch.cuda.max_memory_allocated()
+    say("exact-specular frame stages, device ms (medians of 3):",
+        json.dumps({k: round(v, 4) for k, v in st4.items()}),
+        f"total {st4_total}")
+    say(f"exact-specular frame: host syncs {count_syncs(frame4)}, peak "
+        f"device memory {peak4 / 2**30:.2f} GiB ({held / 2**30:.2f} GiB "
+        f"held before it)")
+    small_check(scene, camera, 96, 64, "exact specular",
+                name="sponza256_exact_specular")
 
     say(f"frame ms medians on {card}: atrium "
         f"{statistics.median(atrium_ms['render_frame']):.3f}, atrium x4 "
-        f"{statistics.median(atrium4_ms['render_frame']):.3f}")
+        f"{statistics.median(atrium4_ms['render_frame']):.3f}, exact "
+        f"specular {statistics.median(x_ms['render_frame']):.3f}")
 
     # ---- (d) the result ------------------------------------------------
     print(json.dumps({"kernels": report}))

@@ -12,7 +12,9 @@ Bounds, with what this fixture measured on the CPU:
     True): mean < 1e-3 and p99 < 1e-2 (measured mean 1.9e-4, p99 1.9e-3,
     max 1.0e-2; the TPU material kernel rounds its bilinear weights to
     bf16 and its tap kernel its trilinear weights, the port's kernels do
-    not);
+    not); the same bounds for preset sponza256_exact_specular cut the same
+    way (the exact per-pixel specular march in place of the specular
+    field; the TPU march kernel also rounds its weights to bf16);
   * the port's own build + frame vs R.render_rays, the per-cone oracle
     path: mean < 0.03, tests/test_fast.py's bound (measured mean 0.020,
     p99 0.20; the fast path mip-filters textures by tile footprint,
@@ -52,8 +54,8 @@ W, H = 96, 64
 CAMERA = dict(position=(48.0, -10.0, 0.0), yaw=180.0)
 
 
-def _cfg(make_preset):
-    cfg = make_preset("sponza256")
+def _cfg(make_preset, name="sponza256"):
+    cfg = make_preset(name)
     return dataclasses.replace(
         cfg,
         grid=dataclasses.replace(cfg.grid, dim=32, compute="float32"),
@@ -135,6 +137,41 @@ def test_frame_on_converted_state_matches_jax_fast_path(jax_run, port_run):
     mean, p99 = _err(out, fast)
     assert mean < 1e-3, mean
     assert p99 < 1e-2, p99
+
+
+@pytest.fixture(scope="module")
+def jax_exact(jax_run):
+    """The JAX fast frame under sponza256_exact_specular on jax_run's
+    voxel state (the percone config builds no specular field and samples
+    none) and its frame tables, as numpy."""
+    cfg = _cfg(jpreset, "sponza256_exact_specular")
+    ds, mats, _ = JR.prepare_scene(cfg, jatrium())
+    voxels = jax.tree_util.tree_map(jnp.asarray, jax_run[0][0])
+    origins, dirs = jcam.primary_rays(jcam.Camera(**CAMERA), W, H)
+    cam = jnp.asarray(CAMERA["position"], jnp.float32)
+    tables = JF.build_frame_tables(cfg, voxels, mats)
+    assert tables.spec_mips is not None
+    img = np.asarray(JF.render_frame(cfg, ds, tables, mats, origins, dirs,
+                                     cam, interpret=True))
+    return jax.tree_util.tree_map(np.asarray, tables), img
+
+
+def test_exact_specular_frame_matches_jax_fast_path(jax_run, jax_exact,
+                                                    port_run):
+    jt, fast_x = jax_exact
+    _, ds, _, _, origins, dirs, cam = port_run
+    cfg = _cfg(preset, "sponza256_exact_specular")
+    mats = interop.material_table(jax_run[0][2], device=CPU)
+    tables = interop.frame_tables(jt, cfield=4 * cfg.cones.field_basis,
+                                  device=CPU)
+    assert tables.field_mips[0].shape[-1] == 4 * cfg.cones.field_basis
+    out = F.render_frame(cfg, ds, tables, mats, origins, dirs, cam).numpy()
+    assert out.shape == fast_x.shape and np.isfinite(out).all()
+    mean, p99 = _err(out, fast_x)
+    assert mean < 1e-3, mean
+    assert p99 < 1e-2, p99
+    # the exact march is not the field: the two JAX frames differ
+    assert np.abs(fast_x - jax_run[1]).max() > 1e-3
 
 
 def test_own_build_matches_render_rays(jax_run, port_run):

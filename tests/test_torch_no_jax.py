@@ -2,9 +2,10 @@
 `import vct_tpu` (the JAX package) fail imports every module of
 vct_tpu_torch and renders the tiny slices on the CPU from the port's own
 config and scenes (sponza256 cut to a 32^3 grid, float32 compute: the
-Cornell box at 64x48, the textured atrium at 96x64, and the atrium
-subdivided once, 4,488 triangles through the binned raycast, at
-128x64).  No source of the port or of chip_smoke.py imports either.
+Cornell box at 64x48, the textured atrium at 96x64, the atrium
+subdivided once, 4,488 triangles through the binned raycast, at 128x64,
+and sponza256_exact_specular cut the same way on the atrium at 96x64).
+No source of the port or of chip_smoke.py imports either.
 Also the ops' device rule and the entry points' default device, which
 need no card to check."""
 
@@ -19,7 +20,7 @@ import torch
 from vct_tpu_torch.config import preset
 from vct_tpu_torch.core import camera as CAM
 from vct_tpu_torch.ops import (_build, binrast, material, mip, prepass,
-                               raycast, tap)
+                               raycast, specmarch, tap)
 from vct_tpu_torch.render import gbuffer as GB
 from vct_tpu_torch.render import renderer as R
 from vct_tpu_torch.render import voxelize as V
@@ -57,12 +58,13 @@ SCRIPT = textwrap.dedent("""
 
     cpu = torch.device("cpu")
     bench_cam = CAM.Camera(position=(48.0, -10.0, 0.0), yaw=180.0)
-    for scene, subdiv, cam, w, h in (
-            (cornell_box(size=100.0), 0,
+    for name, scene, subdiv, cam, w, h in (
+            ("sponza256", cornell_box(size=100.0), 0,
              CAM.Camera(position=(3.0, 2.0, 40.0)), 64, 48),
-            (atrium(), 0, bench_cam, 96, 64),
-            (atrium(), 1, bench_cam, 128, 64)):
-        cfg = preset("sponza256")
+            ("sponza256", atrium(), 0, bench_cam, 96, 64),
+            ("sponza256", atrium(), 1, bench_cam, 128, 64),
+            ("sponza256_exact_specular", atrium(), 0, bench_cam, 96, 64)):
+        cfg = preset(name)
         cfg = dataclasses.replace(
             cfg, grid=dataclasses.replace(cfg.grid, dim=32, compute="float32"),
             cones=dataclasses.replace(cfg.cones, field_dim=32),
@@ -77,7 +79,7 @@ SCRIPT = textwrap.dedent("""
                                    torch.tensor(cam.position))
         assert img.shape == (h, w, 3) and bool(torch.isfinite(img).all())
         assert float(img.mean()) > 0.01
-        print("rendered", tuple(img.shape), mats.atlas is not None,
+        print("rendered", name, tuple(img.shape), mats.atlas is not None,
               ds.v0.shape[0], float(img.mean()))
     assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
 """)
@@ -87,9 +89,11 @@ def test_imports_and_renders_without_jax():
     res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
-    assert "rendered (48, 64, 3) False 40 " in res.stdout
-    assert "rendered (64, 96, 3) True 1122 " in res.stdout
-    assert "rendered (64, 128, 3) True 4488 " in res.stdout   # binned
+    assert "rendered sponza256 (48, 64, 3) False 40 " in res.stdout
+    assert "rendered sponza256 (64, 96, 3) True 1122 " in res.stdout
+    assert "rendered sponza256 (64, 128, 3) True 4488 " in res.stdout  # binned
+    assert ("rendered sponza256_exact_specular (64, 96, 3) True 1122 "
+            in res.stdout)
 
 
 def _sources():
@@ -167,8 +171,11 @@ def test_no_native_build_at_import():
                                      t),
     lambda t: binrast.raycast_binned(t[0, 0], t[0, 0, 0], t[0], t[0, 0],
                                      t[0, 0]),
+    lambda t: specmarch.spec_march_tiles(t[0, 0], t[0, 0], t[0, 0], t[0],
+                                         (t,), world_size=16.0,
+                                         max_alpha=0.95),
 ], ids=["mip", "raycast", "prepass", "material", "raycast_stream",
-        "binrast"])
+        "binrast", "specmarch"])
 def test_wrappers_refuse_other_devices(call):
     """CPU tensors take the plain version, CUDA tensors the kernel, and
     anything else is refused rather than sent down either path."""

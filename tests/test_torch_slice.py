@@ -196,12 +196,25 @@ def test_off_slice_inputs_raise(jax_run, port_run, monkeypatch):
     textured = dataclasses.replace(mats, atlas=object())
     with pytest.raises(ValueError, match="atlas"):
         F.render_frame(cfg, ds, tables, textured, origins, dirs, cam)
+    # percone specular renders (the exact march replaces the specular
+    # field's taps) and differs from the field frame only in the specular
+    # term: with both specular terms off the two frames are equal
     percone = dataclasses.replace(cfg, cones=dataclasses.replace(
         cfg.cones, specular_mode="percone"))
-    with pytest.raises(NotImplementedError, match="specmarch"):
+    with pytest.raises(ValueError, match="percone"):
         F.render_frame(percone, ds, tables, mats, origins, dirs, cam)
-    with pytest.raises(NotImplementedError, match="specmarch"):
-        F.build_frame_tables(percone, voxels, mats)
+    p_tables = F.build_frame_tables(percone, voxels, mats)
+    assert p_tables.field_mips[0].shape[-1] == 4 * cfg.cones.field_basis
+    img_p = F.render_frame(percone, ds, p_tables, mats, origins, dirs, cam)
+    assert bool(torch.isfinite(img_p).all())
+    assert np.abs(img_p.numpy() - ref).max() > 1e-3
+    no_spec = dict(show_specular=False, show_indirect_specular=False)
+    frames = []
+    for c, t in ((cfg, tables), (percone, p_tables)):
+        c = dataclasses.replace(c, render=dataclasses.replace(c.render,
+                                                               **no_spec))
+        frames.append(F.render_frame(c, ds, t, mats, origins, dirs, cam))
+    assert torch.equal(frames[0], frames[1])
     oracle = dataclasses.replace(cfg, cones=dataclasses.replace(
         cfg.cones, diffuse_mode="percone"))
     with pytest.raises(NotImplementedError, match="per-cone"):

@@ -70,9 +70,9 @@ def setup(request):
     g, bumpn = _gbuf(4, rng)
     tables = interop.frame_tables(
         dataclasses.make_dataclass(
-            "T", ["light_mips", "field_mips", "atlas_pages"])(
+            "T", ["light_mips", "field_mips", "atlas_pages", "spec_mips"])(
             [np.asarray(m) for m in jlight], [np.asarray(m) for m in jfield],
-            None),
+            None, None),
         cfield, device="cpu")
     scal = PP.prepass_tiles(
         torch.as_tensor(g), light_dims=(LDIM, LDIM // 2),

@@ -14,6 +14,7 @@ import torch
 from vct_tpu_torch.render import fast as F
 from vct_tpu_torch.render import renderer as R
 from vct_tpu_torch.render.gbuffer import DeviceScene
+from vct_tpu_torch.ops import specmarch as SM
 from vct_tpu_torch.ops import tap as TP
 from vct_tpu_torch.scene.textures import TextureAtlas
 
@@ -63,6 +64,25 @@ def voxel_state(v, device="cuda") -> R.VoxelState:
         specular_field=opt(v.specular_field))
 
 
+SPEC_PAGE_ROWS = 24   # specmarch_pallas BY: y rows padded past each level
+
+
+def spec_pyramid(pages, device="cuda"):
+    """specmarch_pallas.pack_spec_mips' (2, 4, XTP, Y0, ZC) pages -> the
+    port's pyramid (ops/specmarch.pack_spec_mips layout).  The pages hold
+    2 y-shifted x 4 z-shifted copies with the levels stacked along x
+    (level l from row 2*D0 - 2*(D0 >> l)), y padded to D0 + 24 rows and z
+    fused with the 4 channels; copy (0, 0), the one spec_march_ref reads,
+    is cut level by level."""
+    d0 = pages.shape[3] - SPEC_PAGE_ROWS
+    levels = []
+    for li, d in enumerate(SM._level_dims(d0)):
+        xb = 2 * d0 - 2 * (d0 >> li)
+        levels.append(tensor(pages[0, 0, xb:xb + d, :d, :d * SM.NC],
+                             device).reshape(d, d, d, SM.NC))
+    return SM.pack_spec_mips(levels)
+
+
 def frame_tables(t, cfield: int, device="cuda") -> F.FrameTables:
     """The JAX package's packed FrameTables -> the port's layout.
 
@@ -70,12 +90,16 @@ def frame_tables(t, cfield: int, device="cuda") -> F.FrameTables:
     (D, max(D, 32), pad128(D)) and pack_field_mips each (D, D, D, C) field
     level to (D, D, max(D, 32), pad128(C)); this cuts the padding off and
     re-packs the levels back to back.  cfield is the logical channel
-    count (4 * basis, doubled with the specular field).  The atlas mip
-    pages share the port's layout and carry over as they are."""
+    count: 4 * basis, doubled when the config samples the specular field
+    (not with percone specular).  The atlas mip pages share the port's
+    layout and carry over as they are; the specular march's pages become
+    the port's pyramid (spec_pyramid)."""
     light = [tensor(m, device)[:, :m.shape[0], :m.shape[0]]
              for m in t.light_mips]
     field = [tensor(m, device)[:, :, :m.shape[0], :cfield]
              for m in t.field_mips]
     pages = None if t.atlas_pages is None else tensor(t.atlas_pages, device)
+    spec = None if t.spec_mips is None else spec_pyramid(t.spec_mips, device)
     return F.FrameTables(light_mips=TP.pack_mips(light),
-                         field_mips=TP.pack_mips(field), atlas_pages=pages)
+                         field_mips=TP.pack_mips(field), atlas_pages=pages,
+                         spec_mips=spec)

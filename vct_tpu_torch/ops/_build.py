@@ -55,6 +55,9 @@ SIGNATURES = {
                 _I, _I, _F, _F, _F, _P, _P),
     # dirs, origin, scal, ns, table, np_rows, attrs, out, stream
     "vct_binrast": (_P, _P, _P, _I, _P, _I, _P, _P, _P),
+    # start4, refl4, ntiles, step_lv, weights, nsteps, pyramid, d0, nl,
+    # half_ws, max_alpha, out, stream
+    "vct_specmarch": (_P, _P, _I, _P, _P, _I, _P, _I, _I, _F, _F, _P, _P),
 }
 
 

@@ -2,8 +2,11 @@
 1080p frame on the card, for one scene of the port's slice.
 
     python -m vct_tpu_torch.profile_stages --scene atrium --reps 5
+    python -m vct_tpu_torch.profile_stages --preset sponza256_exact_specular
 
-preset("sponza256") at 1920x1080, the scenes and cameras of chip_smoke.py:
+--preset (default sponza256, or sponza256_exact_specular: the exact
+per-pixel specular march in place of the specular field) at 1920x1080,
+on the scenes and cameras of chip_smoke.py:
 "cornell" (40 triangles), "atrium" (1,122) and "atrium287k", bench.py's
 frame: the atrium subdivided 4 times (287,232 triangles, the binned
 raycast) on the voxel state of the base atrium's samples.
@@ -131,6 +134,8 @@ def profile(fn, reps: int):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=sorted(CAMERAS), default="atrium")
+    ap.add_argument("--preset", default="sponza256",
+                    choices=("sponza256", "sponza256_exact_specular"))
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -141,7 +146,7 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(card, flush=True)
-    cfg = preset("sponza256")
+    cfg = preset(args.preset)
     cfg = dataclasses.replace(cfg, render=dataclasses.replace(
         cfg.render, width=1920, height=1080))
     dev = torch.device("cuda")
@@ -161,8 +166,8 @@ def main(argv=None) -> int:
     def frame():
         return F.render_frame(cfg, ds, tables, mats, origins, dirs, cam)
 
-    common = {"scene": args.scene, "triangles": ds.v0.shape[0],
-              "card": card}
+    common = {"scene": args.scene, "preset": args.preset,
+              "triangles": ds.v0.shape[0], "card": card}
     b, bt = stage_ms(lambda: R.build_voxel_state(cfg, samples, mats),
                      max(1, args.reps // 2))
     print(json.dumps({"build": b, "total_ms": bt, **common}), flush=True)

@@ -8,19 +8,20 @@
   2. ops/prepass.py  — per 16x16 tile: light and field mip level + brick,
                        and with an atlas the per-material atlas entries
   3. ops/material.py — with an atlas: albedo, specular and bump heights
-  4. ops/tap.py      — shadow tap + basis-weighted diffuse/specular taps
+  4. ops/tap.py      — shadow tap + basis-weighted diffuse taps, and the
+                       specular taps with specular_mode="field"
+  4b. ops/specmarch.py — with specular_mode="percone": the exact per-pixel
+                       specular cone march over Morton-sorted pixel groups
   5. shading.combine (VoxelConeTracing.fs:165-228), background, untile.
 
-Ported for field-mode specular and scenes of up to 2**24 triangles
-(float32 triangle ids in the binned raycast), 2**23 with a texture atlas
-(the alpha re-cast's 16-bit chunk ids); larger scenes raise.  The
-percone specular branch of the JAX path raises NotImplementedError naming
-the ROADMAP item that ports it; nothing falls back silently.  The JAX
-path's VCT_RAYCAST=stream switch (the streamed raycast as the primary
-raycast) is not carried over.  PyTorch runs eagerly, so the JAX path's
-two-jit split (a TPU compile-arena workaround) has no counterpart, and
-its lax.cond over the alpha re-cast becomes a host check of a flag: one
-device-to-host sync per pass.
+Ported for scenes of up to 2**24 triangles (float32 triangle ids in the
+binned raycast), 2**23 with a texture atlas (the alpha re-cast's 16-bit
+chunk ids); larger scenes raise.  The JAX path's VCT_RAYCAST=stream
+switch (the streamed raycast as the primary raycast) is not carried over.
+PyTorch runs eagerly, so the JAX path's two-jit split (a TPU
+compile-arena workaround) has no counterpart, and its lax.cond over the
+alpha re-cast becomes a host check of a flag: one device-to-host sync per
+pass.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from vct_tpu_torch.ops import material as MT
 from vct_tpu_torch.ops import mip
 from vct_tpu_torch.ops import prepass as PP
 from vct_tpu_torch.ops import raycast as RP
+from vct_tpu_torch.ops import specmarch as SM
 from vct_tpu_torch.ops import tap as TP
 from vct_tpu_torch.render import shading
 from vct_tpu_torch.render.gbuffer import DeviceScene
@@ -60,6 +62,9 @@ class FrameTables:
     light_mips: Tuple[Tensor, ...]       # each (D, D, D) bf16, D = dim..16
     field_mips: Tuple[Tensor, ...]       # each (D, D, D, C) bf16, D = df..8
     atlas_pages: Optional[Tensor] = None  # ops/material.py packed mip pages
+    # ops/specmarch.py radiance pyramid, (D, D, D, 4) bf16, D = dim..8;
+    # with specular_mode="percone" only
+    spec_mips: Optional[Tuple[Tensor, ...]] = None
 
 
 def supported(cfg: VCTConfig) -> bool:
@@ -73,11 +78,81 @@ def supported(cfg: VCTConfig) -> bool:
             and cfg.cones.diffuse_mode == "field" and spec_ok)
 
 
-def _refuse_off_slice(cfg: VCTConfig) -> None:
-    if cfg.cones.trace_specular and cfg.cones.specular_mode == "percone":
-        raise NotImplementedError(
-            "specular_mode='percone' needs the exact specular march: "
-            "ROADMAP Queue 2 item 8 (specmarch_pallas)")
+def _spec_field(cfg: VCTConfig) -> bool:
+    return cfg.cones.trace_specular and cfg.cones.specular_mode == "field"
+
+
+def _spec_percone(cfg: VCTConfig) -> bool:
+    return cfg.cones.trace_specular and cfg.cones.specular_mode == "percone"
+
+
+def _morton3(q: Tensor) -> Tensor:
+    """(N, 3) int32 cell coords (7 bits each) -> interleaved Morton key."""
+    def part(x):
+        x = x & 0x7F
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        x = (x | (x << 2)) & 0x09249249
+        return x
+    return (part(q[:, 0]) << 2) | (part(q[:, 1]) << 1) | part(q[:, 2])
+
+
+def percone_order(cfg: VCTConfig, pos: Tensor, nrm: Tensor,
+                  shade_normal: Tensor, eye: Tensor, hit: Tensor):
+    """The march's starts (pos + geometric normal * voxel, fs:92), its
+    axes reflect(-E, N_bump) (fs:217) and the pixel order that makes
+    256-pixel groups world-space compact: by the Morton code of the start's
+    cell in a 128^3 grid, then the reflection octant, misses last, stably
+    (jnp.argsort is stable)."""
+    ws = cfg.grid.world_size
+    refl = shading.reflect_eye(shade_normal, eye)
+    start = pos + nrm * cfg.grid.voxel_world_size
+    cell = torch.clamp((start + ws * 0.5) * (2.0 / ws) * 64.0,
+                       0.0, 127.0).to(torch.int32)
+    octant = ((refl[:, 0] > 0).to(torch.int32)
+              + 2 * (refl[:, 1] > 0).to(torch.int32)
+              + 4 * (refl[:, 2] > 0).to(torch.int32))
+    key = torch.where(hit, (_morton3(cell) << 3) | octant, 2 ** 30)
+    return start, refl, torch.argsort(key, stable=True)
+
+
+def spec_march_inputs(cfg: VCTConfig, spec_mips, pos: Tensor, nrm: Tensor,
+                      shade_normal: Tensor, eye: Tensor, hit: Tensor):
+    """What the specular march takes, in percone_order: (start4 [start,
+    hit], refl4 [refl, 0], per (group, step) levels and constants from
+    ops/specmarch.py step_table, the order)."""
+    ntiles = pos.shape[0] // SM.TILE
+    start, refl, perm = percone_order(cfg, pos, nrm, shade_normal, eye, hit)
+    start_p, refl_p, hit_p = start[perm], refl[perm], hit[perm]
+    dims = SM.pyramid_dims(spec_mips)
+    groups = SM.plan_groups(shading.specular_schedule(cfg), len(dims))
+    levels = SM.select_spec_levels(
+        start_p.reshape(ntiles, SM.TILE, 3),
+        refl_p.reshape(ntiles, SM.TILE, 3), hit_p.reshape(ntiles, SM.TILE),
+        groups, dims, cfg.grid.world_size)
+    step_lv, weights = SM.step_table(groups, levels,
+                                     cfg.cones.occlusion_falloff)
+    start4 = torch.cat([start_p, hit_p.to(torch.float32)[:, None]], dim=1)
+    refl4 = torch.cat([refl_p, torch.zeros_like(refl_p[:, :1])], dim=1)
+    return start4, refl4, step_lv, weights, perm
+
+
+def spec_percone_pass(cfg: VCTConfig, spec_mips, pos: Tensor, nrm: Tensor,
+                      shade_normal: Tensor, eye: Tensor, hit: Tensor
+                      ) -> Tensor:
+    """The exact per-pixel specular cone march (ops/specmarch.py) over
+    content-clustered pixel groups -> (N, 4) [rgb, occlusion] in pixel
+    order (fast.spec_percone_pass).  A group shares one mip level per step
+    group, so groups are made world-space compact by percone_order.  The
+    sort, the level selection and the march stay on the device."""
+    start4, refl4, step_lv, weights, perm = spec_march_inputs(
+        cfg, spec_mips, pos, nrm, shade_normal, eye, hit)
+    so = SM.spec_march_tiles(start4, refl4, step_lv, weights, spec_mips,
+                             world_size=cfg.grid.world_size,
+                             max_alpha=cfg.cones.max_alpha)
+    out = torch.empty_like(so)
+    out[perm] = so
+    return out
 
 
 def _mips_to(vol: Tensor, floor_dim: int) -> Tuple[Tensor, ...]:
@@ -88,14 +163,16 @@ def _mips_to(vol: Tensor, floor_dim: int) -> Tuple[Tensor, ...]:
 def build_frame_tables(cfg: VCTConfig, voxels: VoxelState,
                        mats: MaterialTable) -> FrameTables:
     """Light-transmittance mips (down to the 16^3 light brick), the fused
-    diffuse(+specular) field mips (down to the 8^3 field brick) and, with
-    a texture atlas, its packed mip pages."""
+    diffuse(+specular) field mips (down to the 8^3 field brick), with a
+    texture atlas its packed mip pages, and with percone specular the
+    radiance pyramid the specular march samples.  The specular field is
+    fused only when this config samples it, so a voxel state built for
+    field specular can feed a percone frame."""
     if not supported(cfg):
         raise ValueError("fast path needs volume shadows + field cones")
-    _refuse_off_slice(cfg)
     light = _mips_to(voxels.light_volume, TP.BRICK_L)
     fields = [voxels.diffuse_field]
-    if cfg.cones.trace_specular:
+    if _spec_field(cfg):
         if voxels.specular_field is None:
             raise ValueError("specular_mode='field' needs a VoxelState "
                              "built with the specular field")
@@ -105,10 +182,13 @@ def build_frame_tables(cfg: VCTConfig, voxels: VoxelState,
     if mats.atlas is not None:
         pages = MT.atlas_mip_pages(mats.atlas.albedo, mats.atlas.specular,
                                    mats.atlas.height)
+    spec_mips = None
+    if _spec_percone(cfg):
+        spec_mips = SM.pack_spec_mips(voxels.radiance_mips)
     return FrameTables(
         light_mips=TP.pack_mips([m[..., 0] for m in light]),
         field_mips=TP.pack_mips(_mips_to(fused, TP.BRICK_F)),
-        atlas_pages=pages)
+        atlas_pages=pages, spec_mips=spec_mips)
 
 
 def _tile_order(img: Tensor, hp: int, wp: int) -> Tensor:
@@ -154,11 +234,13 @@ def render_frame(cfg: VCTConfig,
                  camera_position: Tensor,    # (3,)
                  light_dir: Optional[Tensor] = None) -> Tensor:
     """Full camera pass -> (H, W, 3) linear RGB."""
-    _refuse_off_slice(cfg)
     if (mats.atlas is None) != (tables.atlas_pages is None):
         raise ValueError("the material table and the frame tables disagree "
                          "on the texture atlas: build the tables from "
                          "these materials")
+    if _spec_percone(cfg) and tables.spec_mips is None:
+        raise ValueError("specular_mode='percone' needs frame tables built "
+                         "under it (the radiance pyramid, spec_mips)")
     h, w = dirs.shape[:2]
     hp = -(-h // TSY) * TSY
     wp = -(-w // 64) * 64          # binned raycast strip granularity
@@ -298,10 +380,11 @@ def _shade(cfg: VCTConfig, tables: FrameTables, g: Tensor,
     eye = C.normalize(camera_position - pos)
     nb = cfg.cones.field_basis
 
-    # shadow + basis-weighted diffuse (+ specular) taps, one kernel
+    # shadow + basis-weighted diffuse (+ specular in field mode) taps, one
+    # kernel
     bumpn = torch.cat([shade_normal, torch.zeros_like(shade_normal[:, :1])],
                       dim=1)
-    cfield = 4 * nb * (2 if cfg.cones.trace_specular else 1)
+    cfield = 4 * nb * (2 if _spec_field(cfg) else 1)
     taps = TP.tap_tiles(
         g, scal, bumpn, camera_position.contiguous(), tables.light_mips,
         tables.field_mips, cfield=cfield, nb=nb, world_size=ws, voxel=voxel,
@@ -310,12 +393,18 @@ def _shade(cfg: VCTConfig, tables: FrameTables, g: Tensor,
         power_specular=int(cfg.cones.basis_power_specular),
         cones_static=_cones_static(cfg))
     mark("tap")
+    ind_spec = taps[:, 5:9]
+    if _spec_percone(cfg):
+        # the exact per-pixel specular cone march in place of the field
+        ind_spec = spec_percone_pass(cfg, tables.spec_mips, pos, nrm,
+                                     shade_normal, eye, hit)
+        mark("specmarch")
 
     rgb = shading.combine(
         cfg, albedo=albedo4[:, :3], spec_color=spec, normal=shade_normal,
         light_dir=light_dir, eye_dir=eye, shadow=taps[:, 0],
         ind_diffuse_rgb=taps[:, 1:4], ind_diffuse_occ=taps[:, 4],
-        ind_spec_rgb=taps[:, 5:8], ind_spec_occ=taps[:, 8],
+        ind_spec_rgb=ind_spec[:, 0:3], ind_spec_occ=ind_spec[:, 3],
         shininess=g[:, 27])
     bg = torch.as_tensor(cfg.render.background, dtype=rgb.dtype,
                          device=rgb.device)
