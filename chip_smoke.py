@@ -6,7 +6,10 @@ Run from the repository root, on a machine with one CUDA card and nvcc:
     python3 chip_smoke.py
 
 Phases, each reported on its own lines:
-  (a) the card (nvidia-smi name and power limit) and the kernel build;
+  (a) the card (nvidia-smi name and power limit), the kernel build with
+      ptxas's registers and spills, and for the tap and raycast kernels
+      the registers, spill and shared bytes and resident warps per SM the
+      card reports;
   (c) four paths at full width, 1920x1080, each through prepare_scene ->
       build_voxel_state -> build_frame_tables -> render_camera_pass with
       every kernel's launch count set to 0 just before and read just
@@ -26,14 +29,18 @@ Phases, each reported on its own lines:
            field, a diffuse-only tap (104 channels) and the exact
            per-pixel specular march, once each per frame;
       then per path: timings, a small render on the card against the
-      plain PyTorch path on the CPU, and for Cornell a determinism check;
+      plain PyTorch path on the CPU, and for Cornell a determinism check
+      and the whole-table raycast against its plain version (hit,
+      material id and t bit for bit);
   (b) each kernel against its plain PyTorch version on the card, at the
       shapes the atrium paths give it (the binned raycast at 287,232
       triangles, also against the whole-table kernel; the specular march
       and the diffuse-only tap on path 4's frame), with its time
       beside the plain one, the least time the card could take (bound),
       and, where one PyTorch call computes the same function, that
-      call's time;
+      call's time (the whole-table raycast's bound counts the tests its
+      per-block cull leaves, `raycast.tile_cull_plain`, beside the bound
+      of every ray against every row);
   (d) the result: a JSON line of kernels, then {"ok": true, ...} last.
 Any failure raises: the script exits non-zero and prints no result line.
 It exits non-zero at once when CUDA is unavailable.
@@ -54,14 +61,20 @@ import torch
 DEVICE = "cuda"
 WIDTH, HEIGHT = 1920, 1080
 BUILD_REPS, FRAME_REPS, KERNEL_REPS, PLAIN_REPS = 3, 5, 10, 3
+KERNEL_BATCH = 10        # kernel launches per timing sample
 SEED = 0
 CORNELL_CAMERA = dict(position=(3.0, 2.0, 40.0))
 ATRIUM_CAMERA = dict(position=(48.0, -10.0, 0.0), yaw=180.0)  # bench.py:122
 
 # H100 SXM peaks (NVIDIA data sheet) for the bound: HBM bytes/s and dense
-# float32 outside the tensor cores
+# float32 outside the tensor cores.  67e12 counts a fused multiply-add as
+# two operations; kernels that round every operation on its own (raycast,
+# raycast_stream, binrast, specmarch: the *_rn helpers of csrc/common.cuh)
+# issue each as its own instruction, so their operation floor is half
+# that rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP32_RN_OPS_PER_S = FP32_OPS_PER_S / 2
 # float operations every ray-triangle test does (raycast_common.cuh
 # hit_test): 3 dot3s (9 mul + 6 add) and the sign tests (5 mul + 1 add);
 # the division and the t, u, v multiplies run only for hits
@@ -89,18 +102,22 @@ def sync():
     torch.cuda.synchronize()
 
 
-def elapsed_ms(fn, reps: int) -> list:
-    """Per-rep device time of fn() in ms, by CUDA events (one warm-up)."""
+def elapsed_ms(fn, reps: int, batch: int = 1) -> list:
+    """Per-call device time of fn() in ms, by CUDA events (one warm-up):
+    `reps` samples, each over `batch` calls back to back.  Kernels are
+    timed in batches, so that the host queues launches ahead of the card
+    and a sample is the kernel's device time, not its launch overhead."""
     fn()
     out = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         stop.record()
         sync()
-        out.append(start.elapsed_time(stop))
+        out.append(start.elapsed_time(stop) / batch)
     return out
 
 
@@ -139,11 +156,11 @@ def slice_config(dim, width, height, compute=None, name="sponza256"):
         render=dataclasses.replace(cfg.render, width=width, height=height))
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, rate: float = FP32_OPS_PER_S):
     """(least ms, what bounds it): bytes over HBM rate or float32 ops over
-    the card's peak, whichever is larger."""
+    `rate`, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -216,6 +233,16 @@ def main() -> int:
 
     dev = torch.device(DEVICE)
     cfg = slice_config(None, WIDTH, HEIGHT)
+    nb = cfg.cones.field_basis
+    for what, reporter, args in (
+            (f"tap, {8 * nb} channels", "vct_tap_occupancy", (nb, 8 * nb)),
+            (f"tap, {4 * nb} channels", "vct_tap_occupancy", (nb, 4 * nb)),
+            ("raycast", "vct_raycast_occupancy", ())):
+        occ = _build.occupancy(reporter, *args)
+        say(f"kernel {what}: {occ['registers']} registers, "
+            f"{occ['spill_bytes']} spill bytes a thread, "
+            f"{occ['shared_bytes']} shared bytes a block, "
+            f"{occ['warps_per_sm']} resident warps per SM")
     hp, wp = -(-HEIGHT // F.TSY) * F.TSY, -(-WIDTH // 64) * 64
 
     def run_path(scene, camera, samples=None, run_cfg=cfg):
@@ -245,6 +272,22 @@ def main() -> int:
         for name in must_not:
             if launches[name] != 0:
                 fail(f"kernel {name} was launched by the {what} path")
+
+    def maxerr(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    def raycast_equal(gk, gp, what):
+        """The whole-table kernel's G-buffer against its plain version's:
+        hit, material id and t bit for bit, every column within 1e-4."""
+        same = [torch.equal(gk[:, c], gp[:, c]) for c in (19, 17, 18)]
+        err = maxerr(gk, gp)
+        say(f"raycast on the {what} frame ({gk.shape[0]} rays): hit, "
+            f"material id, t bit-equal to the plain version {same}; max "
+            f"error {err:.3e} (tolerance 1e-4)")
+        if not (all(same) and err <= 1e-4):
+            fail(f"the raycast kernel disagrees with its plain version on "
+                 f"the {what} frame")
+        return err
 
     def check_image(img, what):
         if tuple(img.shape) != (HEIGHT, WIDTH, 3):
@@ -346,6 +389,7 @@ def main() -> int:
            ("material", "raycast_stream", "binrast", "specmarch"), "Cornell")
     check_image(p["img"], "Cornell")
     g = raycast.raycast_gbuf24(*primary_gbuf(p))
+    raycast_equal(g, raycast.raycast_plain(*primary_gbuf(p)), "Cornell")
     hit_frac = float((F._untile(g[:, 19], hp, wp)[:HEIGHT, :WIDTH]
                       > 0.5).float().mean())
     say(f"Cornell image: finite, mean {float(p['img'].mean()):.6f}, hit "
@@ -402,8 +446,8 @@ def main() -> int:
     row_launches = dict(launches)     # path 2's; binrast's from path 3
 
     def kernel_row(name, source, replaces, err, tol, ms, plain_ms, nbytes,
-                   ops, library_ms=None):
-        bound_ms, bound_by = bound(nbytes, ops)
+                   ops, library_ms=None, rate=FP32_OPS_PER_S):
+        bound_ms, bound_by = bound(nbytes, ops, rate)
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": row_launches[name],
                "max_abs_err": err, "ms": statistics.median(ms),
@@ -413,15 +457,13 @@ def main() -> int:
                               else statistics.median(library_ms))}
         say(f"kernel {name}: max_abs_err {err:.3e} (tolerance {tol:g}), "
             f"{row['ms']:.4f} ms vs plain {row['plain_ms']:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}: {nbytes:.4g} B, {ops:.4g} ops)"
+            f"{bound_ms:.4f} ms ({bound_by}: {nbytes:.4g} B, {ops:.4g} ops "
+            f"at {rate:.4g}/s)"
             + ("" if library_ms is None
                else f", library {row['library_ms']:.4f} ms"))
         if not err <= tol:
             fail(f"kernel {name} disagrees with its plain version")
         report.append(row)
-
-    def maxerr(a, b):
-        return float((a.float() - b.float()).abs().max())
 
     # mip: the 256^3 x 4 albedo/occupancy grid of the build
     rng = np.random.default_rng(SEED)
@@ -437,27 +479,38 @@ def main() -> int:
                           mip.downsample2x_plain(grid, "mean")))
     kernel_row("mip", "vct_tpu_torch/ops/csrc/mip.cu",
                "vct_tpu/ops/mip_pallas.py:145", err, 1e-6,
-               elapsed_ms(lambda: mip.downsample2x_cuda(grid), KERNEL_REPS),
+               elapsed_ms(lambda: mip.downsample2x_cuda(grid), KERNEL_REPS,
+                          KERNEL_BATCH),
                elapsed_ms(lambda: mip.downsample2x_plain(grid), KERNEL_REPS),
                grid.numel() * 4 * (1 + 1 / 8), grid.numel() / 8 * 8,
-               elapsed_ms(lambda: lib(cf, 2), KERNEL_REPS))
+               elapsed_ms(lambda: lib(cf, 2), KERNEL_REPS, KERNEL_BATCH))
     del grid, cf
 
-    # raycast: the atrium's primary rays, whole table
+    # raycast: the atrium's primary rays, whole table; the kernel tests
+    # each 256-ray block against the rows its cone keeps (tile_cull_plain
+    # predicts them exactly), so the bound counts those tests
     n_rays, n_tris = d_t.shape[0], isect.shape[0]
-    g_plain = raycast.raycast_plain(d_t, origin, isect, attrs)
-    if not (torch.equal(g0[:, 19], g_plain[:, 19])
-            and torch.equal(g0[:, 17], g_plain[:, 17])):
-        fail("raycast hit or material ids differ from the plain version")
+    r_err = raycast_equal(g0, raycast.raycast_plain(d_t, origin, isect, attrs),
+                          "atrium")
+    kept = raycast.tile_cull_plain(d_t, isect).sum(dim=1)
+    kept_pairs = int(kept.sum())
+    r_bytes = n_rays * (12 + 128) + n_tris * 4 * (16 + 48)
+    uncut = bound(r_bytes, n_rays * n_tris * OPS_PER_HIT_TEST,
+                  FP32_RN_OPS_PER_S)
+    say(f"raycast cull on the atrium frame: {kept.shape[0]} blocks keep "
+        f"{kept_pairs} (block, row) pairs of {kept.shape[0] * n_tris}, mean "
+        f"{float(kept.float().mean()):.3f} and max {int(kept.max())} rows a "
+        f"block; bound of every ray against every row {uncut[0]:.4f} ms "
+        f"({uncut[1]})")
     kernel_row("raycast", "vct_tpu_torch/ops/csrc/raycast.cu",
-               "vct_tpu/ops/raycast_pallas.py:342", maxerr(g0, g_plain), 1e-4,
+               "vct_tpu/ops/raycast_pallas.py:342", r_err, 1e-4,
                elapsed_ms(lambda: raycast.raycast_cuda(d_t, origin, isect,
-                                                       attrs), KERNEL_REPS),
+                                                       attrs), KERNEL_REPS,
+                          KERNEL_BATCH),
                elapsed_ms(lambda: raycast.raycast_plain(d_t, origin, isect,
                                                         attrs), PLAIN_REPS),
-               n_rays * (12 + 128) + n_tris * 4 * (16 + 48),
-               n_rays * n_tris * OPS_PER_HIT_TEST)
-    del g_plain
+               r_bytes, kept_pairs * raycast.TILE * OPS_PER_HIT_TEST,
+               rate=FP32_RN_OPS_PER_S)
 
     # the frame's G-buffer after the alpha re-cast, as _shade gets it
     g = F.alpha_resolve(cfg, p["ds"], mats, g0, d_t, origin)
@@ -481,7 +534,7 @@ def main() -> int:
                "vct_tpu/ops/prepass_pallas.py:315",
                max(maxerr(a, b) for a, b in zip(outs, plains)), 0.0,
                elapsed_ms(lambda: prepass.prepass_cuda(g, **pkw),
-                          KERNEL_REPS),
+                          KERNEL_REPS, KERNEL_BATCH),
                elapsed_ms(lambda: prepass.prepass_plain(g, **pkw),
                           PLAIN_REPS),
                g.shape[0] * (13 * 4 + 4) + ntiles * 4 * (8 + 5 + 128), 0.0)
@@ -510,7 +563,8 @@ def main() -> int:
     kernel_row("material", "vct_tpu_torch/ops/csrc/material.cu",
                "vct_tpu/ops/material_pallas.py:400", maxerr(m_k, m_p), 1e-5,
                elapsed_ms(lambda: material.material_cuda(
-                   g, mslots, mscal, mlists, pages, res), KERNEL_REPS),
+                   g, mslots, mscal, mlists, pages, res), KERNEL_REPS,
+                          KERNEL_BATCH),
                elapsed_ms(lambda: material.material_plain(
                    g, mslots, mscal, mlists, pages, res), PLAIN_REPS),
                g.shape[0] * (2 * 4 + 4 + material.NOUT * 4)
@@ -544,15 +598,14 @@ def main() -> int:
     kernel_row("raycast_stream", "vct_tpu_torch/ops/csrc/raycast_stream.cu",
                "vct_tpu/ops/raycast_pallas.py:769", maxerr(gs_k, gs_p), 1e-4,
                elapsed_ms(lambda: raycast.raycast_stream_cuda(*sargs),
-                          KERNEL_REPS),
+                          KERNEL_REPS, KERNEL_BATCH),
                elapsed_ms(lambda: raycast.raycast_stream_plain(*sargs),
                           PLAIN_REPS),
                budget * (12 + 4 + 4 + 128) + lists.numel() * 4
                + s_isect.shape[0] * 4 * (16 + 48),
-               tests * OPS_PER_HIT_TEST)
+               tests * OPS_PER_HIT_TEST, rate=FP32_RN_OPS_PER_S)
 
     # tap: the frame's pixels at their prepass levels
-    nb = cfg.cones.field_basis
     voxel = cfg.grid.voxel_world_size
     bumpn = torch.cat([g[:, 3:6], torch.zeros_like(g[:, :1])],
                       dim=1).contiguous()
@@ -581,7 +634,8 @@ def main() -> int:
     ncones = len(tkw["cones_static"][1])
     kernel_row("tap", "vct_tpu_torch/ops/csrc/tap.cu",
                "vct_tpu/ops/tap_pallas.py:534", t_err, 1e-4,
-               elapsed_ms(lambda: tap.tap_cuda(*targs, **tkw), KERNEL_REPS),
+               elapsed_ms(lambda: tap.tap_cuda(*targs, **tkw), KERNEL_REPS,
+                          KERNEL_BATCH),
                elapsed_ms(lambda: tap.tap_plain(*targs, **tkw), PLAIN_REPS),
                n_px * (16 * 4 + 16 + tap.NOUT * 4) + ntiles * 32
                + cells["light"] * 2 + cells["field"] * cfield * 2,
@@ -719,13 +773,14 @@ def main() -> int:
     kernel_row("binrast", "vct_tpu_torch/ops/csrc/binrast.cu",
                "vct_tpu/ops/binrast_pallas.py:463", maxerr(gb_k, gb_p), 1e-4,
                elapsed_ms(lambda: binrast.raycast_binned_cuda(
-                   d3, origin3, scal3, table3, attrs3), KERNEL_REPS),
+                   d3, origin3, scal3, table3, attrs3), KERNEL_REPS,
+                          KERNEL_BATCH),
                elapsed_ms(lambda: binrast.raycast_binned_plain(
                    d3, scal3, table3), PLAIN_REPS),
                n3 * (12 + raycast.NOUT * 4) + table3.numel() * 4
                + scal3.numel() * 4 + winners * raycast.NATTR * 4,
                int(gangs.sum()) * binrast.GANGW * binrast.STRIPE
-               * OPS_PER_HIT_TEST)
+               * OPS_PER_HIT_TEST, rate=FP32_RN_OPS_PER_S)
     small_check(subdivide_scene(scene, 1), camera, 128, 64, "atrium x1")
     del p3, gb_k, gb_p, o8_p, table3, scal3, isect3, attrs3, d3, dimg3
 
@@ -803,7 +858,8 @@ def main() -> int:
     targs4 = (g4, scal4, bumpn4, p4["cam"], t4.light_mips, t4.field_mips)
     tap_k = tap.tap_cuda(*targs4, **tkw4)
     tap_err = maxerr(tap_k, tap.tap_plain(*targs4, **tkw4))
-    tap_ms = elapsed_ms(lambda: tap.tap_cuda(*targs4, **tkw4), KERNEL_REPS)
+    tap_ms = elapsed_ms(lambda: tap.tap_cuda(*targs4, **tkw4), KERNEL_REPS,
+                        KERNEL_BATCH)
     say(f"diffuse-only tap (cfield {4 * nb}) on path 4's frame: max_abs_err "
         f"{tap_err:.3e} (tolerance 1e-4), specular columns all zero "
         f"{bool((tap_k[:, 5:9] == 0).all())}, median "
@@ -849,14 +905,15 @@ def main() -> int:
     kernel_row("specmarch", "vct_tpu_torch/ops/csrc/specmarch.cu",
                "vct_tpu/ops/specmarch_pallas.py:644", maxerr(so_k, so_p), 1e-5,
                elapsed_ms(lambda: specmarch.spec_march_cuda(
-                   *margs, t4.spec_mips, **mkw), KERNEL_REPS),
+                   *margs, t4.spec_mips, **mkw), KERNEL_REPS,
+                          KERNEL_BATCH),
                elapsed_ms(lambda: specmarch.spec_march_plain(
                    *margs, t4.spec_mips, **mkw), PLAIN_REPS),
                n4 * 16 * 3 + margs[2].numel() * 4 + margs[3].numel() * 4
                + n_cells * 8,
                n_steps * OPS_PER_MARCH_STEP
                + (n_steps + n_second) * OPS_PER_TAP
-               + n_second * OPS_PER_MIP_LERP)
+               + n_second * OPS_PER_MIP_LERP, rate=FP32_RN_OPS_PER_S)
     del touched, so_p, tap_k, targs4, g4, mout4
 
     def frame4():

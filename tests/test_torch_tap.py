@@ -20,6 +20,7 @@ from vct_tpu.core import dense as jdense
 from vct_tpu.core import grid as jgrid
 from vct_tpu.ops import tap_pallas as JTP
 from vct_tpu_torch import interop
+from vct_tpu_torch.config import preset as port_preset
 from vct_tpu_torch.core import grid as G
 from vct_tpu_torch.ops import prepass as PP
 from vct_tpu_torch.ops import tap as TP
@@ -128,3 +129,16 @@ def test_output_layout(setup):
     if kw["cfield"] == 4 * NB:
         np.testing.assert_array_equal(out[:, 5:9], 0.0)
     assert np.isfinite(out).all()
+
+
+@pytest.mark.parametrize("name", ["cornell64", "cornell64_full", "aniso128",
+                                  "sponza256", "sponza256_exact_specular",
+                                  "inverse", "multihost512", "reference"])
+def test_presets_fit_the_kernel(name):
+    """csrc/tap.cu is built for basis sizes 6 and 26 and for the sharpening
+    powers of KERNEL_POWERS as template constants (the wrapper refuses
+    others): every preset of the port's config is one it runs."""
+    cones = port_preset(name).cones
+    assert (int(cones.basis_power_diffuse),
+            int(cones.basis_power_specular)) == TP.KERNEL_POWERS
+    assert cones.field_basis in (6, 26)

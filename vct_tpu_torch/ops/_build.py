@@ -49,15 +49,18 @@ SIGNATURES = {
     # out, stream
     "vct_raycast_stream": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P),
     # gbuf, ntiles, gcols, scal8, bumpn, campos, light, ld0, field, fd0,
-    # cfield, consts, nb, ncones, sq_diffuse, sq_specular, half_ws, voxel,
-    # voxel_off, out, stream
+    # cfield, consts, nb, ncones, half_ws, voxel, voxel_off, out, stream
     "vct_tap": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _I,
-                _I, _I, _F, _F, _F, _P, _P),
+                _F, _F, _F, _P, _P),
     # dirs, origin, scal, ns, table, np_rows, attrs, out, stream
     "vct_binrast": (_P, _P, _P, _I, _P, _I, _P, _P, _P),
     # start4, refl4, ntiles, step_lv, weights, nsteps, pyramid, d0, nl,
     # half_ws, max_alpha, out, stream
     "vct_specmarch": (_P, _P, _I, _P, _P, _I, _P, _I, _I, _F, _F, _P, _P),
+    # kernel reports: (nb, cfield,) info -> info[0:4] = registers, spill
+    # bytes a thread, shared bytes a block, resident warps per SM
+    "vct_tap_occupancy": (_I, _I, _P),
+    "vct_raycast_occupancy": (_P,),
 }
 
 
@@ -131,6 +134,17 @@ def check(status: int, name: str) -> None:
     if status != 0:
         msg = library().vct_error_string(status).decode()
         raise RuntimeError(f"{name}: CUDA error {status}: {msg}")
+
+
+def occupancy(reporter: str, *args: int) -> dict:
+    """What the card makes of a kernel, from its `*_occupancy` reporter:
+    registers and spill (local) bytes a thread, shared bytes a block, and
+    resident warps per SM."""
+    info = (ctypes.c_int * 4)()
+    check(getattr(library(), reporter)(*args, ctypes.addressof(info)),
+          reporter)
+    return dict(zip(("registers", "spill_bytes", "shared_bytes",
+                     "warps_per_sm"), info))
 
 
 def stream() -> int:

@@ -9,85 +9,44 @@
 //            dw = sum_k cone_w[k] * normalize_b(relu(cone_k . basis_b)^8);
 //   specular sum_b sw[b] * trilinear(field[4nb + b*4 ..]) with
 //            sw = normalize_b(relu(refl . basis_b)^32), refl the eye ray
-//            reflected about the unit bump normal.
+//            reflected about the unit bump normal (only when the field
+//            carries the specular half, cfield = 8 nb).
 // Output row: [shadow, diffuse rgba, specular rgba, 7 zeros].
 //
-// What bounds it: the field reads.  Each pixel reads 8 corner rows of
-// 2 x 26 x 4 bf16 channels (~3.3 KB); the 256 pixels of a tile hit nearby
-// cells, so most reads hit L1/L2 rather than HBM.  The TPU kernel DMA'd one
-// brick per tile and tapped it with two-hot matmuls because the TPU has no
-// fast gather; here each thread gathers its own corners directly from the
-// selected level (trilinear with edge clamp: tap_tiles_ref's semantics,
-// which equals the brick tap whenever the brick covers the tile, as the
-// prepass guarantees), 4 channels per 8-byte load.  The 26 diffuse and 26
-// specular weights live in registers and each basis direction is folded
-// into 8 float32 accumulators as soon as it is sampled, so no thread ever
-// holds the 208 channels.  Tables stay bf16 with float32 accumulation.
+// What bounds it: neither the field reads (each pixel reads 8 corner rows
+// of up to 208 bf16 channels, mostly from L1/L2: the 256 pixels of a tile
+// hit nearby cells) nor the arithmetic (about 4,000 instructions a pixel,
+// 0.3 ms of issue on 132 SMs), but the latency of the dependent gathers,
+// which only many resident warps hide.  So the design keeps a thread's
+// live state small: one thread a pixel, one 256-thread block a 16x16 tile
+// (the prepass's levels are per tile), and the per-pixel basis weights
+// (26 diffuse, 26 specular) in dynamic shared memory laid out
+// [basis][thread], so each thread reads its own column without bank
+// conflicts.  Each cone's 26 sharpened values are computed once, summed,
+// and folded into the weights with cone_w / sum; the sharpening powers
+// are template constants (^8, ^32: 3 and 5 squarings).  The field taps
+// then walk the basis two directions at a time: the 8 corners' 16-byte
+// loads (8 bf16 channels each, through the read-only path) are issued
+// together, and the trilinear weights, computed once a pixel, fold them
+// as sum_k w_k v_k.  At most 80 registers and 53 KB of shared memory a
+// block keep 3 blocks, 24 warps, on each SM.  The TPU kernel DMA'd one
+// brick per tile and tapped it with two-hot matmuls because the TPU has
+// no fast gather; here each thread gathers its own corners directly from
+// the selected level (trilinear with edge clamp: tap_tiles_ref's
+// semantics, which equals the brick tap whenever the brick covers the
+// tile, as the prepass guarantees).  Tables stay bf16 with float32
+// accumulation; sums are taken in another order than tap_plain's, within
+// 1e-5 of it.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kTile = 256;
+constexpr int kMinBlocks = 3;
 constexpr int kMaxCones = 8;
 constexpr int kOut = 16;
-
-struct Corners {
-    long long row[8];          // corner cell index, order (x, y, z) bits 4/2/1
-    float fx, fy, fz;
-};
-
-// trilinear_sample's corner cells and weights at one level (texel centers
-// at (i + 0.5) / d, edge clamp)
-__device__ __forceinline__ Corners corners(const float* uvw, int d) {
-    int i0[3], i1[3];
-    float f[3];
-    for (int ax = 0; ax < 3; ++ax) {
-        const float t = uvw[ax] * static_cast<float>(d) - 0.5f;
-        const float fl = floorf(t);
-        f[ax] = t - fl;
-        const int i = static_cast<int>(fl);
-        i0[ax] = min(max(i, 0), d - 1);
-        i1[ax] = min(max(i + 1, 0), d - 1);
-    }
-    Corners c;
-    for (int k = 0; k < 8; ++k) {
-        const long long x = (k & 4) ? i1[0] : i0[0];
-        const long long y = (k & 2) ? i1[1] : i0[1];
-        const long long z = (k & 1) ? i1[2] : i0[2];
-        c.row[k] = (x * d + y) * d + z;
-    }
-    c.fx = f[0];
-    c.fy = f[1];
-    c.fz = f[2];
-    return c;
-}
-
-// lerp order of grid.trilinear_sample: z, then y, then x
-__device__ __forceinline__ float trilerp(const float* v, const Corners& c) {
-    const float c00 = v[0] * (1.0f - c.fz) + v[1] * c.fz;
-    const float c01 = v[2] * (1.0f - c.fz) + v[3] * c.fz;
-    const float c10 = v[4] * (1.0f - c.fz) + v[5] * c.fz;
-    const float c11 = v[6] * (1.0f - c.fz) + v[7] * c.fz;
-    const float c0 = c00 * (1.0f - c.fy) + c01 * c.fy;
-    const float c1 = c10 * (1.0f - c.fy) + c11 * c.fy;
-    return c0 * (1.0f - c.fx) + c1 * c.fx;
-}
-
-// 4 consecutive bf16 channels starting at ch of each corner row
-__device__ __forceinline__ void tap4(const __nv_bfloat16* lvl, int cfield, int ch,
-                                     const Corners& c, float* out4) {
-    float v[4][8];
-    for (int k = 0; k < 8; ++k) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(lvl + c.row[k] * cfield + ch);
-        const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-        const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-        v[0][k] = lo.x;
-        v[1][k] = lo.y;
-        v[2][k] = hi.x;
-        v[3][k] = hi.y;
-    }
-    for (int q = 0; q < 4; ++q) out4[q] = trilerp(v[q], c);
-}
+constexpr int kSquaringsDiffuse = 3;   // ^8
+constexpr int kSquaringsSpecular = 5;  // ^32
 
 __device__ __forceinline__ void norm3(float* v) {
     const float r = rsqrtf(fmaxf(v[0] * v[0] + v[1] * v[1] + v[2] * v[2], 1e-24f));
@@ -96,8 +55,21 @@ __device__ __forceinline__ void norm3(float* v) {
     v[2] *= r;
 }
 
-__device__ __forceinline__ float sharpen(float w, int squarings) {
-    for (int i = 0; i < squarings; ++i) w *= w;
+// one basis direction from shared memory, by a load the compiler may not
+// hoist out of the cone loop: kept in registers, the 26 float4s (104
+// registers) spilled the diffuse-only kernel
+__device__ __forceinline__ float4 basis_at(const float4* s_basis, int b) {
+    float4 e;
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(e.x), "=f"(e.y), "=f"(e.z), "=f"(e.w)
+                 : "r"(static_cast<unsigned>(__cvta_generic_to_shared(s_basis + b))));
+    return e;
+}
+
+template <int SQ>
+__device__ __forceinline__ float sharpen(float w) {
+#pragma unroll
+    for (int i = 0; i < SQ; ++i) w *= w;
     return w;
 }
 
@@ -111,27 +83,76 @@ __device__ __forceinline__ long long level_offset(int d0, int lvl) {
     return off;
 }
 
-template <int NB>
-__global__ void __launch_bounds__(kTile)
+// trilinear_sample's corner cells (order x, y, z: bits 4/2/1) and their
+// weights at one level (texel centers at (i + 0.5) / d, edge clamp)
+__device__ __forceinline__ void corners(const float* uvw, int d, long long* cell, float* w) {
+    int i0[3], i1[3];
+    float f[3];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+        const float t = uvw[ax] * static_cast<float>(d) - 0.5f;
+        const float fl = floorf(t);
+        f[ax] = t - fl;
+        const int i = static_cast<int>(fl);
+        i0[ax] = min(max(i, 0), d - 1);
+        i1[ax] = min(max(i + 1, 0), d - 1);
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        const long long x = (k & 4) ? i1[0] : i0[0];
+        const long long y = (k & 2) ? i1[1] : i0[1];
+        const long long z = (k & 1) ? i1[2] : i0[2];
+        cell[k] = (x * d + y) * d + z;
+        w[k] = ((k & 4) ? f[0] : 1.0f - f[0]) * ((k & 2) ? f[1] : 1.0f - f[1])
+             * ((k & 1) ? f[2] : 1.0f - f[2]);
+    }
+}
+
+// two basis directions (8 bf16 channels) at 16-byte column `col` of every
+// corner row, trilinearly weighted: the 8 loads first, then the sums
+__device__ __forceinline__ void tap8(const uint4* const* rows, int col, const float* w,
+                                     float* t8) {
+    uint4 raw[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) raw[k] = __ldg(rows[k] + col);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) t8[q] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        const unsigned int wd[4] = {raw[k].x, raw[k].y, raw[k].z, raw[k].w};
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+            // bf16 -> float: the 16 bits become a float's high half
+            t8[2 * h] += w[k] * __uint_as_float(wd[h] << 16);
+            t8[2 * h + 1] += w[k] * __uint_as_float(wd[h] & 0xffff0000u);
+        }
+    }
+}
+
+template <int NB, bool SPEC>
+__global__ void __launch_bounds__(kTile, kMinBlocks)
 tap_kernel(const float* __restrict__ gbuf, int gcols, const int* __restrict__ scal8,
            const float* __restrict__ bumpn, const float* __restrict__ campos,
            const __nv_bfloat16* __restrict__ light, int ld0,
-           const __nv_bfloat16* __restrict__ field, int fd0, int cfield,
-           const float* __restrict__ consts, int ncones, int sq_diffuse,
-           int sq_specular, float half_ws, float voxel, float voxel_off,
-           float* __restrict__ out) {
+           const __nv_bfloat16* __restrict__ field, int fd0,
+           const float* __restrict__ consts, int ncones, float half_ws, float voxel,
+           float voxel_off, float* __restrict__ out) {
     // consts: basis (NB x 3), cone directions (ncones x 3), cone weights
-    __shared__ float s_basis[NB * 3];
+    __shared__ float4 s_basis[NB];
     __shared__ float s_cone[kMaxCones * 4];
-    for (int i = threadIdx.x; i < NB * 3; i += kTile) s_basis[i] = consts[i];
+    extern __shared__ float s_w[];     // [NB diffuse (+ NB specular)][kTile]
+    for (int i = threadIdx.x; i < NB; i += kTile)
+        s_basis[i] = make_float4(consts[3 * i], consts[3 * i + 1], consts[3 * i + 2], 0.0f);
     for (int i = threadIdx.x; i < ncones * 4; i += kTile) s_cone[i] = consts[NB * 3 + i];
     __syncthreads();
 
+    const int tid = threadIdx.x;
     const int tile = blockIdx.x;
-    const long long px = static_cast<long long>(tile) * kTile + threadIdx.x;
+    const long long px = static_cast<long long>(tile) * kTile + tid;
     const float* g = gbuf + px * gcols;
     const int* sc = scal8 + tile * 8;
     float pos[3], nrm[3], tan[3], bit[3], ul[3], uf[3];
+#pragma unroll
     for (int ax = 0; ax < 3; ++ax) {
         pos[ax] = g[ax];
         nrm[ax] = g[3 + ax];
@@ -142,84 +163,96 @@ tap_kernel(const float* __restrict__ gbuf, int gcols, const int* __restrict__ sc
     }
 
     // ---- shadow: light level sc[0] ----
-    float shadow;
+    float shadow = 0.0f;
     {
-        const int d = ld0 >> sc[0];
+        long long cell[8];
+        float w[8];
+        corners(ul, ld0 >> sc[0], cell, w);
         const __nv_bfloat16* lvl = light + level_offset(ld0, sc[0]);
-        const Corners c = corners(ul, d);
         float v[8];
-        for (int k = 0; k < 8; ++k) v[k] = __bfloat162float(lvl[c.row[k]]);
-        shadow = trilerp(v, c);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] = __bfloat162float(lvl[cell[k]]);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) shadow += w[k] * v[k];
     }
 
-    // ---- diffuse weights: 6 cones x NB basis, folded by cone weight ----
-    float dw[NB];
-#pragma unroll
-    for (int b = 0; b < NB; ++b) dw[b] = 0.0f;
+    // ---- diffuse weights: each cone's sharpened basis values once ----
+#pragma unroll 1
     for (int k = 0; k < ncones; ++k) {
         const float* cd = s_cone + 3 * k;
         float dv[3];
+#pragma unroll
         for (int ax = 0; ax < 3; ++ax) dv[ax] = tan[ax] * cd[0] + bit[ax] * cd[1] + nrm[ax] * cd[2];
         norm3(dv);
+        float p[NB];
         float sum = 0.0f;
 #pragma unroll
         for (int b = 0; b < NB; ++b) {
-            const float* e = s_basis + 3 * b;
-            sum += sharpen(fmaxf(dv[0] * e[0] + dv[1] * e[1] + dv[2] * e[2], 0.0f), sq_diffuse);
+            const float4 e = basis_at(s_basis, b);
+            p[b] = sharpen<kSquaringsDiffuse>(fmaxf(dv[0] * e.x + dv[1] * e.y + dv[2] * e.z, 0.0f));
+            sum += p[b];
         }
-        const float inv = 1.0f / fmaxf(sum, 1e-8f);
-        const float cw = s_cone[3 * ncones + k];
+        const float scale = s_cone[3 * ncones + k] / fmaxf(sum, 1e-8f);
 #pragma unroll
         for (int b = 0; b < NB; ++b) {
-            const float* e = s_basis + 3 * b;
-            const float w = sharpen(fmaxf(dv[0] * e[0] + dv[1] * e[1] + dv[2] * e[2], 0.0f),
-                                    sq_diffuse);
-            dw[b] += cw * (w * inv);
+            float* dst = s_w + b * kTile + tid;
+            *dst = (k == 0 ? 0.0f : *dst) + scale * p[b];
         }
     }
 
     // ---- specular weights: reflection about the unit bump normal ----
-    const bool has_spec = cfield > 4 * NB;
-    float sw[NB];
-    {
-        float sn[3], eye[3], refl[3];
-        for (int ax = 0; ax < 3; ++ax) {
-            sn[ax] = bumpn[px * 4 + ax];
-            eye[ax] = campos[ax] - pos[ax];
-        }
+    if (SPEC) {
+        const float4 bn = reinterpret_cast<const float4*>(bumpn)[px];
+        float sn[3] = {bn.x, bn.y, bn.z};
+        float eye[3], refl[3];
+#pragma unroll
+        for (int ax = 0; ax < 3; ++ax) eye[ax] = campos[ax] - pos[ax];
         norm3(sn);
         norm3(eye);
         const float ne = sn[0] * eye[0] + sn[1] * eye[1] + sn[2] * eye[2];
+#pragma unroll
         for (int ax = 0; ax < 3; ++ax) refl[ax] = 2.0f * ne * sn[ax] - eye[ax];
         norm3(refl);   // must be unit: ^32 of a longer vector overflows
+        float p[NB];
         float sum = 0.0f;
 #pragma unroll
         for (int b = 0; b < NB; ++b) {
-            const float* e = s_basis + 3 * b;
-            sw[b] = sharpen(fmaxf(refl[0] * e[0] + refl[1] * e[1] + refl[2] * e[2], 0.0f),
-                            sq_specular);
-            sum += sw[b];
+            const float4 e = s_basis[b];
+            p[b] = sharpen<kSquaringsSpecular>(
+                fmaxf(refl[0] * e.x + refl[1] * e.y + refl[2] * e.z, 0.0f));
+            sum += p[b];
         }
         const float inv = 1.0f / fmaxf(sum, 1e-8f);
 #pragma unroll
-        for (int b = 0; b < NB; ++b) sw[b] *= inv;
+        for (int b = 0; b < NB; ++b) s_w[(NB + b) * kTile + tid] = p[b] * inv;
     }
 
-    // ---- field taps at level sc[4], folded per basis direction ----
+    // ---- field taps at level sc[4], two basis directions a step ----
+    constexpr int kCols = (SPEC ? 8 : 4) * NB / 8;    // 16-byte columns a row
     float acc_d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     float acc_s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     {
-        const int d = fd0 >> sc[4];
-        const __nv_bfloat16* lvl = field + level_offset(fd0, sc[4]) * cfield;
-        const Corners c = corners(uf, d);
+        long long cell[8];
+        float w[8];
+        corners(uf, fd0 >> sc[4], cell, w);
+        const uint4* lvl = reinterpret_cast<const uint4*>(field) + level_offset(fd0, sc[4]) * kCols;
+        const uint4* rows[8];
 #pragma unroll
-        for (int b = 0; b < NB; ++b) {
-            float t4[4];
-            tap4(lvl, cfield, 4 * b, c, t4);
-            for (int q = 0; q < 4; ++q) acc_d[q] += dw[b] * t4[q];
-            if (has_spec) {
-                tap4(lvl, cfield, 4 * NB + 4 * b, c, t4);
-                for (int q = 0; q < 4; ++q) acc_s[q] += sw[b] * t4[q];
+        for (int k = 0; k < 8; ++k) rows[k] = lvl + cell[k] * kCols;
+#pragma unroll 1
+        for (int bp = 0; bp < NB / 2; ++bp) {
+            float t8[8];
+            tap8(rows, bp, w, t8);
+            const float w0 = s_w[(2 * bp) * kTile + tid];
+            const float w1 = s_w[(2 * bp + 1) * kTile + tid];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc_d[q] += w0 * t8[q] + w1 * t8[4 + q];
+            if (SPEC) {
+                tap8(rows, NB / 2 + bp, w, t8);
+                const float s0 = s_w[(NB + 2 * bp) * kTile + tid];
+                const float s1 = s_w[(NB + 2 * bp + 1) * kTile + tid];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) acc_s[q] += s0 * t8[q] + s1 * t8[4 + q];
             }
         }
     }
@@ -231,27 +264,64 @@ tap_kernel(const float* __restrict__ gbuf, int gcols, const int* __restrict__ sc
     dst[3] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
+using TapKernel = decltype(&tap_kernel<26, true>);
+
+// the instance for (nb, cfield) and its dynamic shared bytes, or null
+TapKernel pick(int nb, int cfield, int* smem) {
+    const bool spec = cfield == 8 * nb;
+    if (!spec && cfield != 4 * nb) return nullptr;
+    *smem = (spec ? 2 : 1) * nb * kTile * static_cast<int>(sizeof(float));
+    if (nb == 26) return spec ? tap_kernel<26, true> : tap_kernel<26, false>;
+    if (nb == 6) return spec ? tap_kernel<6, true> : tap_kernel<6, false>;
+    return nullptr;
+}
+
+// above 48 KB a kernel may use dynamic shared memory only after
+// cudaFuncSetAttribute; the carveout asks for all of it, so that 3 blocks
+// of 53 KB fit on an SM
+cudaError_t allow_smem(TapKernel kernel, int smem) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   static_cast<int>(cudaSharedmemCarveoutMaxShared));
+    return err;
+}
+
 }  // namespace
 
 VCT_EXPORT int vct_tap(const float* gbuf, int ntiles, int gcols, const int* scal8,
                        const float* bumpn, const float* campos,
                        const __nv_bfloat16* light, int ld0,
                        const __nv_bfloat16* field, int fd0, int cfield,
-                       const float* consts, int nb, int ncones, int sq_diffuse,
-                       int sq_specular, float half_ws, float voxel, float voxel_off,
-                       float* out, cudaStream_t stream) {
-    if (ncones > kMaxCones || cfield % 4 != 0)
-        return static_cast<int>(cudaErrorInvalidValue);
-    if (nb == 26) {
-        tap_kernel<26><<<ntiles, kTile, 0, stream>>>(
-            gbuf, gcols, scal8, bumpn, campos, light, ld0, field, fd0, cfield, consts,
-            ncones, sq_diffuse, sq_specular, half_ws, voxel, voxel_off, out);
-    } else if (nb == 6) {
-        tap_kernel<6><<<ntiles, kTile, 0, stream>>>(
-            gbuf, gcols, scal8, bumpn, campos, light, ld0, field, fd0, cfield, consts,
-            ncones, sq_diffuse, sq_specular, half_ws, voxel, voxel_off, out);
-    } else {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
+                       const float* consts, int nb, int ncones, float half_ws,
+                       float voxel, float voxel_off, float* out, cudaStream_t stream) {
+    int smem = 0;
+    const TapKernel kernel = pick(nb, cfield, &smem);
+    if (kernel == nullptr || ncones > kMaxCones) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<ntiles, kTile, smem, stream>>>(gbuf, gcols, scal8, bumpn, campos, light, ld0, field,
+                                            fd0, consts, ncones, half_ws, voxel, voxel_off, out);
     return launch_status();
+}
+
+// registers, local (spill) bytes a thread, shared bytes a block (static +
+// dynamic) and resident warps per SM of the kernel for (nb, cfield), for
+// the caller's report
+VCT_EXPORT int vct_tap_occupancy(int nb, int cfield, int* info) {
+    int smem = 0;
+    const TapKernel kernel = pick(nb, cfield, &smem);
+    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    cudaFuncAttributes fa;
+    int blocks = 0;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kTile, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    info[0] = fa.numRegs;
+    info[1] = static_cast<int>(fa.localSizeBytes);
+    info[2] = static_cast<int>(fa.sharedSizeBytes) + smem;
+    info[3] = blocks * kTile / 32;
+    return 0;
 }

@@ -5,7 +5,10 @@ vct_tpu/ops/raycast_pallas.py raycast_gbuf24 and raycast_stream).
 (det = d.a, u*det = d.b, v*det = d.c, t*det = k); `raycast_gbuf24`
 launches `csrc/raycast.cu` for CUDA tensors and runs the plain version
 for CPU tensors.  Both take the first minimum by triangle index, and both
-round every multiply and add separately, as the reference does.
+round every multiply and add separately, as the reference does.  The
+kernel first drops, per 256-ray block, the rows no ray of the block can
+hit (`tile_cull_plain` is that predicate in plain PyTorch); the plain
+version tests every row, with the same result.
 
 The streamed raycast tests each 256-ray tile against only the
 128-triangle chunks whose bounding sphere touches the tile's direction
@@ -37,10 +40,14 @@ MAX_TRIANGLES = 2048    # render/fast.py: above, the binned raycast
 EPS = 1e-7
 TMIN_EPS = 1e-4
 BIG = 3.0e38            # "no hit" sentinel
-TILE = 256              # rays per streamed list tile
+TILE = 256              # rays per tile: a streamed list row, a whole-table block
 CHUNK = 128             # triangles per streamed chunk
 CULLED = 0x7FFFFFFF     # list word of a culled chunk: sorts after every kept one
 MAX_CHUNKS = 1 << 16    # a list word holds the chunk id in its low 16 bits
+# the whole-table kernel's per-block cull (tile_cull_plain, csrc/raycast.cu)
+CULL_MARGIN = 1e-4      # half-space margin, relative to the row's scale
+CONE_SLACK = 4e-6       # taken off the cone's least dot product
+WIDE_DOT = 1e-4         # at or below: no bounding cone, keep every row
 
 LAUNCHES = 0
 STREAM_LAUNCHES = 0
@@ -115,6 +122,96 @@ def _finish_gbuf(d: Tensor, origin: Tensor, tbest: Tensor, u: Tensor,
     ], dim=1)
 
 
+def hit_tests(d: Tensor, isect: Tensor):
+    """The hit test of every ray against every row, (N, T) each: valid,
+    and ud, vd, kk with the signed inverse determinant (t = kk * sinv)."""
+
+    def dot3(r0):
+        return (d[:, 0:1] * isect[None, :, r0]
+                + d[:, 1:2] * isect[None, :, r0 + 1]
+                + d[:, 2:3] * isect[None, :, r0 + 2])
+
+    det, ud, vd = dot3(0), dot3(3), dot3(6)
+    kk = isect[None, :, 9]
+    sgn = torch.sign(det)
+    ad = torch.abs(det)
+    sinv = sgn * (1.0 / torch.clamp_min(ad, EPS))
+    valid = ((ad > EPS) & (sgn * ud >= 0) & (sgn * vd >= 0)
+             & (sgn * (ud + vd) <= ad) & (sgn * kk > TMIN_EPS * ad))
+    return valid, ud, vd, kk, sinv
+
+
+def _halve(x: Tensor, dim: int) -> Tensor:
+    """Pairwise sum along `dim` (a power of two) in the order of a warp's
+    xor-shuffle reduction: element i adds i + half, halving each step."""
+    while x.shape[dim] > 1:
+        a, b = x.split(x.shape[dim] // 2, dim=dim)
+        x = a + b
+    return x.squeeze(dim)
+
+
+def tile_cones(dirs: Tensor):
+    """The direction cone of each TILE-ray block, in csrc/raycast.cu's
+    float order: dirs (N, 3) -> axis (ntiles, 3), sin of the half-angle
+    (ntiles,) and `wide` (ntiles,) where no cone narrower than a
+    half-space bounds the block.  Rays of length 0 (and the padding of a
+    ragged last block) cannot hit and do not widen the cone.  The half-
+    angle's cosine is the least ray-axis dot product less CONE_SLACK,
+    which exceeds its rounding error."""
+    n = dirs.shape[0]
+    nt = -(-n // TILE)
+    d = torch.cat([dirs, dirs.new_zeros((nt * TILE - n, 3))])
+    dd = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+    live = dd > 0.0
+    dn = torch.where(live[:, None], d / torch.sqrt(dd)[:, None], 0.0)
+    # warp totals (32 lanes), then the block's 8 warp totals
+    s = _halve(_halve(dn.reshape(nt, TILE // 32, 32, 3), 2), 1)
+    norm = torch.sqrt(s[:, 0] * s[:, 0] + s[:, 1] * s[:, 1] + s[:, 2] * s[:, 2])
+    axis = s / torch.clamp_min(norm, 1e-12)[:, None]
+    a = axis.repeat_interleave(TILE, dim=0)
+    dots = dn[:, 0] * a[:, 0] + dn[:, 1] * a[:, 1] + dn[:, 2] * a[:, 2]
+    min_dot = torch.where(live, dots, BIG).reshape(nt, TILE).amin(dim=1)
+    cos_a = torch.clamp(min_dot - CONE_SLACK, WIDE_DOT, 1.0)
+    sin_a = torch.sqrt(torch.clamp_min(1.0 - cos_a * cos_a, 0.0))
+    return axis, sin_a, min_dot <= WIDE_DOT
+
+
+def tile_cull_plain(dirs: Tensor, isect: Tensor) -> Tensor:
+    """Which rows each TILE-ray block of the whole-table kernel keeps:
+    dirs (N, 3), isect (T, 16) -> keep (ntiles, T) bool, in the kernel's
+    float order.
+
+    A ray d hits row (a, b, c, k) only if sign(det) = sign(k) = s and
+    s*d.b >= 0, s*d.c >= 0, s*d.(a - b - c) >= 0 (so s*d.a >= 0): d lies
+    in four half-spaces through the origin.  The block drops a row when
+    its cone (axis A, half-angle alpha) misses one of them by a margin:
+    s*A.n + sin(alpha)*|n| + CULL_MARGIN*S < 0, where S is |n|, or
+    |a| + |b| + |c| for a - b - c.  Every ray of the cone then has
+    s*d.n < -(2/pi)*CULL_MARGIN*S*|d|, far beyond the hit test's rounding
+    (about 3e-7*S*|d|), so a dropped row fails the rounded hit test for
+    every ray of the block and the first minimum is unchanged.  A row
+    with k = 0 never hits; a wide block keeps every row."""
+    axis, sin_a, wide = tile_cones(dirs)
+    a, b, c, k = isect[:, 0:3], isect[:, 3:6], isect[:, 6:9], isect[:, 9]
+    sgn = torch.sign(k)
+
+    def norm(v):
+        return torch.sqrt(v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1]
+                          + v[:, 2] * v[:, 2])
+
+    na, nb, nc = norm(a), norm(b), norm(c)
+    e = a - b - c
+    keep = (sgn != 0.0)[None, :].expand(axis.shape[0], -1)
+    for n, nn, scale in ((a, na, na), (b, nb, nb), (c, nc, nc),
+                         (e, norm(e), na + nb + nc)):
+        an = sgn[None, :] * (axis[:, 0:1] * n[None, :, 0]
+                             + axis[:, 1:2] * n[None, :, 1]
+                             + axis[:, 2:3] * n[None, :, 2])
+        keep = keep & (an + sin_a[:, None] * nn[None, :]
+                       + CULL_MARGIN * scale[None, :] >= 0.0)
+    return keep | wide[:, None]
+
+
 def raycast_plain(dirs: Tensor, origin: Tensor, isect: Tensor,
                   attrs: Tensor, chunk: int = 65536) -> Tensor:
     """Plain PyTorch version: (N, T) hit tests per chunk of rays."""
@@ -123,19 +220,7 @@ def raycast_plain(dirs: Tensor, origin: Tensor, isect: Tensor,
     out = []
     for s in range(0, dirs.shape[0], chunk):
         d = dirs[s:s + chunk]
-
-        def dot3(r0):
-            return (d[:, 0:1] * isect[None, :, r0]
-                    + d[:, 1:2] * isect[None, :, r0 + 1]
-                    + d[:, 2:3] * isect[None, :, r0 + 2])
-
-        det, ud, vd = dot3(0), dot3(3), dot3(6)
-        kk = isect[None, :, 9]
-        sgn = torch.sign(det)
-        ad = torch.abs(det)
-        sinv = sgn * (1.0 / torch.clamp_min(ad, EPS))
-        valid = ((ad > EPS) & (sgn * ud >= 0) & (sgn * vd >= 0)
-                 & (sgn * (ud + vd) <= ad) & (sgn * kk > TMIN_EPS * ad))
+        valid, ud, vd, kk, sinv = hit_tests(d, isect)
         tcand = torch.where(valid, kk * sinv, BIG)
         tbest = tcand.min(dim=1, keepdim=True).values
         idx = torch.where(tcand == tbest, lanes, t).min(dim=1,
@@ -159,6 +244,9 @@ def raycast_cuda(dirs: Tensor, origin: Tensor, isect: Tensor,
                        and x.is_contiguous() and tuple(x.shape) == shape,
                        f"raycast kernel: expected contiguous float32 CUDA "
                        f"{shape}, got {tuple(x.shape)} {x.dtype}")
+    _build.require(isect.data_ptr() % 16 == 0,
+                   "raycast kernel: isect rows are read as float4s and must "
+                   "be 16-byte aligned")
     n, t = dirs.shape[0], isect.shape[0]
     out = torch.empty((n, NOUT), dtype=torch.float32, device=dirs.device)
     status = _build.library().vct_raycast(
@@ -295,21 +383,10 @@ def raycast_stream_plain(dirs: Tensor, origin: Tensor, isect: Tensor,
     for s in range(0, dirs.shape[0], chunk):
         d = dirs[s:s + chunk]
         key = order[torch.arange(s, s + d.shape[0], device=dev) // TILE]
-
-        def dot3(r0):
-            return (d[:, 0:1] * isect[None, :, r0]
-                    + d[:, 1:2] * isect[None, :, r0 + 1]
-                    + d[:, 2:3] * isect[None, :, r0 + 2])
-
-        det, ud, vd = dot3(0), dot3(3), dot3(6)
-        kk = isect[None, :, 9]
-        sgn = torch.sign(det)
-        ad = torch.abs(det)
-        sinv = sgn * (1.0 / torch.clamp_min(ad, EPS))
+        valid, ud, vd, kk, sinv = hit_tests(d, isect)
         tval = kk * sinv
-        valid = ((ad > EPS) & (sgn * ud >= 0) & (sgn * vd >= 0)
-                 & (sgn * (ud + vd) <= ad) & (sgn * kk > TMIN_EPS * ad)
-                 & (tval > tmin[s:s + chunk, None]) & (key < tp * CHUNK))
+        valid = (valid & (tval > tmin[s:s + chunk, None])
+                 & (key < tp * CHUNK))
         tcand = torch.where(valid, tval, BIG)
         tbest = tcand.min(dim=1, keepdim=True).values
         win = torch.where(tcand == tbest, key, tp * CHUNK).argmin(dim=1,

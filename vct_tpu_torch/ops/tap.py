@@ -31,6 +31,7 @@ BRICK_F = 8       # field brick x/y-extent == coarsest field mip dim
 FBZ = 32          # field brick z-extent (16-aligned origin)
 ALIGN = 16
 NOUT = 16         # [shadow, diffuse rgba, specular rgba, 7 zeros]
+KERNEL_POWERS = (8, 32)   # csrc/tap.cu's sharpening: diffuse ^8, specular ^32
 
 LAUNCHES = 0
 
@@ -238,9 +239,13 @@ def tap_cuda(gbuf: Tensor, scalars: Tensor, bumpn: Tensor, campos: Tensor,
     fd0, c = _chain(field_mips, "field tables")
     _build.require(c == cfield and cfield % 4 == 0 and cfield in (4 * nb, 8 * nb),
                    f"tap kernel: field tables carry {c} channels, cfield={cfield}")
-    for p in (power_diffuse, power_specular):
-        _build.require(p > 0 and p & (p - 1) == 0,
-                       f"tap kernel: basis powers must be powers of two, got {p}")
+    _build.require((power_diffuse, power_specular) == KERNEL_POWERS,
+                   f"tap kernel: basis powers {KERNEL_POWERS} (its template "
+                   f"constants), got {(power_diffuse, power_specular)}")
+    for x in (bumpn, field_mips[0]):
+        _build.require(x.data_ptr() % 16 == 0,
+                       "tap kernel: bump normals and field tables must be "
+                       "16-byte aligned")
     cone_dirs, cone_w, basis = _cones(cones_static)
     _build.require(basis.shape == (nb, 3) and nb in (6, 26)
                    and len(cone_dirs) <= 8,
@@ -256,8 +261,7 @@ def tap_cuda(gbuf: Tensor, scalars: Tensor, bumpn: Tensor, campos: Tensor,
         gbuf.data_ptr(), ntiles, gcols, scalars.data_ptr(), bumpn.data_ptr(),
         campos.data_ptr(), light_mips[0].data_ptr(), ld0,
         field_mips[0].data_ptr(), fd0, cfield, consts.data_ptr(), nb,
-        len(cone_dirs), int(np.log2(power_diffuse)),
-        int(np.log2(power_specular)), f32(world_size * 0.5), f32(voxel),
+        len(cone_dirs), f32(world_size * 0.5), f32(voxel),
         f32(voxel * shadow_offset), out.data_ptr(), _build.stream())
     _build.check(status, "vct_tap")
     LAUNCHES += 1
