@@ -7,9 +7,9 @@ Run from the repository root, on a machine with one CUDA card and nvcc:
 
 Phases, each reported on its own lines:
   (a) the card (nvidia-smi name and power limit), the kernel build with
-      ptxas's registers and spills, and for the tap and raycast kernels
-      the registers, spill and shared bytes and resident warps per SM the
-      card reports;
+      ptxas's registers and spills, and for the tap, raycast, binned
+      raycast and specular march kernels the registers, spill and shared
+      bytes and resident warps per SM the card reports;
   (c) four paths at full width, 1920x1080, each through prepare_scene ->
       build_voxel_state -> build_frame_tables -> render_camera_pass with
       every kernel's launch count set to 0 just before and read just
@@ -38,9 +38,11 @@ Phases, each reported on its own lines:
       and the diffuse-only tap on path 4's frame), with its time
       beside the plain one, the least time the card could take (bound),
       and, where one PyTorch call computes the same function, that
-      call's time (the whole-table raycast's bound counts the tests its
-      per-block cull leaves, `raycast.tile_cull_plain`, beside the bound
-      of every ray against every row);
+      call's time (the whole-table and binned raycasts' bounds count the
+      tests their per-tile cull leaves, `raycast.tile_cull_plain` and
+      `binrast.walk_cull_plain`, beside the bound of every ray against
+      every row; the binned kernel's own count of kept rows must equal
+      `walk_cull_plain`'s);
   (d) the result: a JSON line of kernels, then {"ok": true, ...} last.
 Any failure raises: the script exits non-zero and prints no result line.
 It exits non-zero at once when CUDA is unavailable.
@@ -237,7 +239,9 @@ def main() -> int:
     for what, reporter, args in (
             (f"tap, {8 * nb} channels", "vct_tap_occupancy", (nb, 8 * nb)),
             (f"tap, {4 * nb} channels", "vct_tap_occupancy", (nb, 4 * nb)),
-            ("raycast", "vct_raycast_occupancy", ())):
+            ("raycast", "vct_raycast_occupancy", ()),
+            ("binrast", "vct_binrast_occupancy", ()),
+            ("specmarch", "vct_specmarch_occupancy", ())):
         occ = _build.occupancy(reporter, *args)
         say(f"kernel {what}: {occ['registers']} registers, "
             f"{occ['spill_bytes']} spill bytes a thread, "
@@ -712,8 +716,12 @@ def main() -> int:
     # the binned kernel against its plain version over the whole frame,
     # through the G-buffer: the winner's attribute row (picked by its
     # triangle id) and material exact with the hit, t and the interpolated
-    # u, v within 1e-6
-    gb_k = binrast.raycast_binned_cuda(d3, origin3, scal3, table3, attrs3)
+    # u, v within 1e-6; the kernel also counts the walk rows each tile's
+    # cull keeps
+    ntile3 = d3.shape[0] // raycast.TILE
+    kept3 = torch.zeros(ntile3, dtype=torch.int32, device=dev)
+    gb_k = binrast.raycast_binned_cuda(d3, origin3, scal3, table3, attrs3,
+                                       kept=kept3)
     o8_p = binrast.raycast_binned_plain(d3, scal3, table3)
     gb_p = binrast.finish_binned(d3, origin3, o8_p, attrs3)
     hit3 = o8_p[:, 4] > 0.5
@@ -765,11 +773,43 @@ def main() -> int:
            ("raycast", "specmarch"), "atrium x4")
     del sargs3
 
-    # binrast's row: the hit tests the walk forces, the rays in, the
-    # G-buffer out, the table and the winners' attribute rows read once
+    # binrast's row: the hit tests left after each tile's cull of its
+    # strip's walk (walk_cull_plain predicts the kept rows exactly, and the
+    # kernel's own counts must agree), the rays in, the G-buffer out, the
+    # table rows some walk reads (a column's gangs once, however many
+    # strips share them; the table's unused tail is never read) and the
+    # winners' attribute rows, each read once
     row_launches["binrast"] = launches3["binrast"]
     n3 = d3.shape[0]
+    kept_tile = binrast.walk_cull_plain(d3, scal3, table3).sum(dim=1)
+    same_kept = torch.equal(kept3, kept_tile.to(torch.int32))
+    kept_pairs3 = int(kept_tile.sum())
+    walk_pairs = int(gangs.sum()) * binrast.GANGW * (binrast.STRIPE
+                                                     // raycast.TILE)
+    wrows, wlive = binrast._walk(
+        scal3, torch.arange(scal3.shape[1], device=dev),
+        int(gangs.max()) * binrast.GANGW)
+    read_rows = unique_count(wrows[wlive & (wrows < table3.shape[0])])
+    del wrows, wlive
     winners = unique_count(o8_p[hit3, 1])
+    b_bytes = (n3 * (12 + raycast.NOUT * 4) + read_rows * raycast.NISECT * 4
+               + scal3.numel() * 4 + winners * raycast.NATTR * 4)
+    culled3 = bound(b_bytes, kept_pairs3 * raycast.TILE * OPS_PER_HIT_TEST,
+                    FP32_RN_OPS_PER_S)
+    uncut3 = bound(b_bytes, walk_pairs * raycast.TILE * OPS_PER_HIT_TEST,
+                   FP32_RN_OPS_PER_S)
+    say(f"binned cull at {ds_hi.v0.shape[0]} triangles: {ntile3} tiles "
+        f"keep {kept_pairs3} (tile, walk row) pairs of {walk_pairs} "
+        f"({100 * kept_pairs3 / max(walk_pairs, 1):.2f}%), a tile mean "
+        f"{float(kept_tile.float().mean()):.3f}, median "
+        f"{int(kept_tile.median())}, max {int(kept_tile.max())}; the "
+        f"kernel's own counts equal walk_cull_plain's on the card: "
+        f"{same_kept}; the walks read {read_rows} distinct table rows of "
+        f"{table3.shape[0]}; bound culled {culled3[0]:.4f} ms ({culled3[1]}), "
+        f"uncut (every ray against its whole walk) {uncut3[0]:.4f} ms "
+        f"({uncut3[1]})")
+    if not same_kept:
+        fail("the binned kernel's kept rows differ from walk_cull_plain's")
     kernel_row("binrast", "vct_tpu_torch/ops/csrc/binrast.cu",
                "vct_tpu/ops/binrast_pallas.py:463", maxerr(gb_k, gb_p), 1e-4,
                elapsed_ms(lambda: binrast.raycast_binned_cuda(
@@ -777,12 +817,11 @@ def main() -> int:
                           KERNEL_BATCH),
                elapsed_ms(lambda: binrast.raycast_binned_plain(
                    d3, scal3, table3), PLAIN_REPS),
-               n3 * (12 + raycast.NOUT * 4) + table3.numel() * 4
-               + scal3.numel() * 4 + winners * raycast.NATTR * 4,
-               int(gangs.sum()) * binrast.GANGW * binrast.STRIPE
-               * OPS_PER_HIT_TEST, rate=FP32_RN_OPS_PER_S)
+               b_bytes, kept_pairs3 * raycast.TILE * OPS_PER_HIT_TEST,
+               rate=FP32_RN_OPS_PER_S)
     small_check(subdivide_scene(scene, 1), camera, 128, 64, "atrium x1")
     del p3, gb_k, gb_p, o8_p, table3, scal3, isect3, attrs3, d3, dimg3
+    del kept3, kept_tile
 
     # ---- (c4) sponza256_exact_specular on the atrium ---------------------
     # the exact per-pixel specular march (tan 0.07) in place of the

@@ -22,6 +22,9 @@ Bounds, with what these fixtures measured on the CPU:
     can go the other way.  Where the winners agree, t within rtol 1e-6
     (measured 2.2e-7) and u, v within 1e-4 (measured 2.1e-5: u*det and
     v*det cancel, so one fused rounding moves them);
+  * walk_cull_plain (the kernel's per-tile cull of its strip's walk): no
+    dropped (ray, row) pair passes the hit test, and each tile cast against
+    its kept rows alone gives the plain walk's rows bit for bit;
   * raycast_pinhole_binned: hit and t (rtol/atol 1e-6) equal to the port's
     whole-table raycast_plain, rows within 1e-4 on > 99% (exact-t ties
     go by walk order, not triangle order), and against the JAX pipeline
@@ -110,44 +113,52 @@ def _jax_bins(jds, o, dflat, dimg, mats=None):
     return np.asarray(scal), np.asarray(isect_p), int(n_col)
 
 
+def cast_ref(d, rows):
+    """Rays d (m, 3) against table rows (L, 16), L >= 1, in order, in numpy
+    float32 with each multiply and add rounded on its own: (m, 8) rows
+    [t, id, u, v, hit, 0, 0, 0], the first minimum of t."""
+    f32 = np.float32
+    tb = rows[None]
+    dd = d[:, None, :]
+
+    def dot3(c):
+        return (dd[..., 0] * tb[..., c] + dd[..., 1] * tb[..., c + 1]
+                + dd[..., 2] * tb[..., c + 2])
+
+    det, ud, vd = dot3(0), dot3(3), dot3(6)
+    kk = tb[..., 9]
+    sgn = np.sign(det)
+    ad = np.abs(det)
+    sinv = sgn * (f32(1) / np.maximum(ad, f32(RP.EPS)))
+    valid = ((ad > f32(RP.EPS)) & (sgn * ud >= 0) & (sgn * vd >= 0)
+             & (sgn * (ud + vd) <= ad)
+             & (sgn * kk > f32(RP.TMIN_EPS) * ad))
+    tc = np.where(valid, kk * sinv, f32(RP.BIG))
+    j = np.argmin(tc, axis=1)
+    r = np.arange(tc.shape[0])
+    best = tc[r, j]
+    hit = best < f32(RP.BIG)
+    out = np.zeros((d.shape[0], 8), f32)
+    out[:, 0] = best
+    out[:, 1] = np.where(hit, tb[0, j, 10], 0)
+    out[:, 2] = np.where(hit, (ud * sinv)[r, j], 0)
+    out[:, 3] = np.where(hit, (vd * sinv)[r, j], 0)
+    out[:, 4] = hit
+    return out
+
+
 def walk_ref(d, scal, table):
     """The walk in numpy float32, each multiply and add rounded on its own:
     (n, 8) rows [t, id, u, v, hit, 0, 0, 0]."""
-    f32 = np.float32
-    out = np.zeros((d.shape[0], 8), f32)
-    out[:, 0] = f32(RP.BIG)
+    out = np.zeros((d.shape[0], 8), np.float32)
+    out[:, 0] = np.float32(RP.BIG)
     for s in range(scal.shape[1]):
         off, gseg, coff, gcol = (int(x) for x in scal[:, s])
         rows = np.concatenate([off + np.arange(gseg * BR.GANGW),
                                coff + np.arange(gcol * BR.GANGW)])
-        if rows.size == 0:
-            continue
-        tb = table[rows][None]
-        dd = d[s * BR.STRIPE:(s + 1) * BR.STRIPE, None, :]
-
-        def dot3(c):
-            return (dd[..., 0] * tb[..., c] + dd[..., 1] * tb[..., c + 1]
-                    + dd[..., 2] * tb[..., c + 2])
-
-        det, ud, vd = dot3(0), dot3(3), dot3(6)
-        kk = tb[..., 9]
-        sgn = np.sign(det)
-        ad = np.abs(det)
-        sinv = sgn * (f32(1) / np.maximum(ad, f32(RP.EPS)))
-        valid = ((ad > f32(RP.EPS)) & (sgn * ud >= 0) & (sgn * vd >= 0)
-                 & (sgn * (ud + vd) <= ad)
-                 & (sgn * kk > f32(RP.TMIN_EPS) * ad))
-        tc = np.where(valid, kk * sinv, f32(RP.BIG))
-        j = np.argmin(tc, axis=1)
-        r = np.arange(tc.shape[0])
-        best = tc[r, j]
-        hit = best < f32(RP.BIG)
-        sl = slice(s * BR.STRIPE, (s + 1) * BR.STRIPE)
-        out[sl, 0] = best
-        out[sl, 1] = np.where(hit, tb[0, j, 10], 0)
-        out[sl, 2] = np.where(hit, (ud * sinv)[r, j], 0)
-        out[sl, 3] = np.where(hit, (vd * sinv)[r, j], 0)
-        out[sl, 4] = hit
+        if rows.size:
+            sl = slice(s * BR.STRIPE, (s + 1) * BR.STRIPE)
+            out[sl] = cast_ref(d[sl], table[rows])
     return out
 
 
@@ -206,6 +217,69 @@ def test_pipeline_matches(scenes, level, cam):
         *map(jnp.asarray, mats), interpret=True))
     np.testing.assert_array_equal(out[:, 19], ref[:, 19])
     assert np.isclose(out, ref, rtol=1e-4, atol=1e-4).all(1).mean() > 0.99
+
+
+# ---------------------------------------------------------------------------
+# the binned kernel's per-tile cull of its strip's walk (walk_cull_plain)
+# ---------------------------------------------------------------------------
+
+TPS = BR.STRIPE // RP.TILE      # 256-ray tiles a strip
+
+
+@pytest.fixture(scope="module", params=CASES, ids=IDS)
+def walk_case(request, scenes):
+    """The port's own binning of one fixture, and walk_cull_plain on it."""
+    level, cam = request.param
+    _, pds, _ = scenes[level]
+    o, dflat, dimg = _rays(CAMERAS[cam])
+    isect, _ = BR.pack_rows(pds, t(o))
+    scal, table, _ = BR.bin_triangles(pds, t(o), t(dflat), t(dimg), isect)
+    return dflat, scal, table, BR.walk_cull_plain(t(dflat), scal, table)
+
+
+def _tile_walk(scal, tile, length):
+    rows, live = BR._walk(scal, torch.tensor([tile // TPS]), length)
+    return rows[0], live[0]
+
+
+def test_walk_cull_drops_no_hit(walk_case):
+    """Every (ray, walk row) pair the tile's cull drops fails the hit test;
+    the cull keeps only positions on the walk, is tile_cull_plain's verdict
+    on the same rows (one predicate, two batchings), and drops most of the
+    walk."""
+    dflat, scal, table, keep = walk_case
+    d = t(dflat)
+    whole = RP.tile_cull_plain(d, table)
+    assert keep.shape[0] == d.shape[0] // RP.TILE
+    walked = 0
+    for tile in range(keep.shape[0]):
+        rows, live = _tile_walk(scal, tile, keep.shape[1])
+        assert not (keep[tile] & ~live).any()
+        kt, rows = keep[tile][live], rows[live]
+        np.testing.assert_array_equal(kt.numpy(), whole[tile, rows].numpy())
+        valid = RP.hit_tests(d[tile * RP.TILE:(tile + 1) * RP.TILE],
+                             table[rows])[0]
+        assert not (valid & ~kt[None, :]).any()
+        walked += rows.numel()
+    assert 0 < int(keep.sum()) < 0.5 * walked
+
+
+def test_walk_culled_cast_is_exact(walk_case):
+    """Each tile cast against only its kept walk rows, in walk order (plus
+    one all-zero row, which never hits, so that no table is empty), gives
+    raycast_binned_plain's rows bit for bit: dropped rows never win and the
+    kept ones keep their order."""
+    dflat, scal, table, keep = walk_case
+    out = BR.raycast_binned_plain(t(dflat), scal, table).numpy()
+    parts = []
+    for tile in range(keep.shape[0]):
+        rows, _ = _tile_walk(scal, tile, keep.shape[1])
+        tb = table[rows[keep[tile]]].numpy()
+        parts.append(cast_ref(dflat[tile * RP.TILE:(tile + 1) * RP.TILE],
+                              np.concatenate([tb, np.zeros((1, RP.NISECT),
+                                                           np.float32)])))
+    np.testing.assert_array_equal(np.concatenate(parts), out)
+    assert out[:, 4].any()
 
 
 def test_stable_order_branch():

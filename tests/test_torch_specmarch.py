@@ -289,3 +289,15 @@ def test_percone_pass_matches_jax(percone):
     np.testing.assert_allclose(out, percone["ker"], atol=4e-2)
     assert np.abs(out[~percone["hit"]]).max() == 0.0
     assert np.abs(out[percone["hit"]]).max() > 0.05
+
+
+def test_pyramid_cell_limit_refuses():
+    """The march kernel counts pyramid cells in 32 bits: check_cells, which
+    its wrapper calls before every launch, passes the pyramids below 2**31
+    cells and refuses the rest."""
+    SM.check_cells(SM._level_dims(256))           # 19.2 M cells
+    SM.check_cells(SM._level_dims(1024))
+    SM.check_cells([1290])                        # 2,146,689,000 cells
+    for dims in ([1291], SM._level_dims(2048)):
+        with pytest.raises(ValueError, match="32 bits"):
+            SM.check_cells(dims)

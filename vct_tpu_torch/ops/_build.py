@@ -52,8 +52,9 @@ SIGNATURES = {
     # cfield, consts, nb, ncones, half_ws, voxel, voxel_off, out, stream
     "vct_tap": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _I,
                 _F, _F, _F, _P, _P),
-    # dirs, origin, scal, ns, table, np_rows, attrs, out, stream
-    "vct_binrast": (_P, _P, _P, _I, _P, _I, _P, _P, _P),
+    # dirs, origin, scal, ns, table, np_rows, attrs, out, kept (or null),
+    # stream
+    "vct_binrast": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P),
     # start4, refl4, ntiles, step_lv, weights, nsteps, pyramid, d0, nl,
     # half_ws, max_alpha, out, stream
     "vct_specmarch": (_P, _P, _I, _P, _P, _I, _P, _I, _I, _F, _F, _P, _P),
@@ -61,6 +62,8 @@ SIGNATURES = {
     # bytes a thread, shared bytes a block, resident warps per SM
     "vct_tap_occupancy": (_I, _I, _P),
     "vct_raycast_occupancy": (_P,),
+    "vct_binrast_occupancy": (_P,),
+    "vct_specmarch_occupancy": (_P,),
 }
 
 

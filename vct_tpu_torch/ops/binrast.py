@@ -17,7 +17,10 @@ triangles:
   2. `raycast_binned` walks, for each strip, its own segment and then its
      column's, GANGW rows at a time, and keeps the first minimum in walk
      order; `csrc/binrast.cu` fuses the G-buffer row (`finish_binned`)
-     into the walk.
+     into the walk.  The kernel walks each 16x16 tile of a strip on its
+     own and first drops the rows the tile's direction cone cannot hit
+     (`walk_cull_plain` states which, in the kernel's float order); the
+     plain walk tests every row, with the same result.
 
 Testing a superset of a strip's triangles is always safe, since the
 winner is the minimum: a gang that runs past its segment into the next
@@ -37,7 +40,7 @@ caller, and the VCT_RAYCAST=stream route of the JAX frame path.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -300,6 +303,24 @@ def bin_triangles(ds: DeviceScene, origin: Tensor, dflat: Tensor,
     return scal.contiguous(), table, n_col_total
 
 
+def _batches(scal: Tensor, per_row: int) -> Iterator[Tuple[Tensor, int]]:
+    """Strips in batches of similar walk length, shortest first: (strips,
+    the longest walk's length), each batch at most PLAIN_TESTS / per_row
+    padded walk rows (or one strip).  Empty walks are skipped."""
+    gangs = (scal[1] + scal[3]).long()
+    by_len = torch.argsort(gangs, stable=True)
+    glen = gangs[by_len].tolist()
+    s, ns = 0, len(glen)
+    while s < ns:
+        e = s + 1          # grow the batch while its padded walk fits
+        while (e < ns
+               and (e + 1 - s) * per_row * GANGW * glen[e] <= PLAIN_TESTS):
+            e += 1
+        if glen[e - 1]:
+            yield by_len[s:e], glen[e - 1] * GANGW
+        s = e
+
+
 def _walk(scal: Tensor, strips: Tensor, length: int) -> Tuple[Tensor, Tensor]:
     """Table rows of each strip's walk, padded to `length`: (rows, live),
     both (len(strips), length)."""
@@ -322,23 +343,10 @@ def raycast_binned_plain(dflat: Tensor, scal: Tensor,
     batches of similar walk length, at most PLAIN_TESTS hit tests each
     (or one strip)."""
     n = dflat.shape[0]
-    ns = n // STRIPE
     dev = dflat.device
     out = torch.zeros((n, NOUT8), dtype=torch.float32, device=dev)
     out[:, 0] = RP.BIG
-    gangs = (scal[1] + scal[3]).long()
-    by_len = torch.argsort(gangs, stable=True)
-    glen = gangs[by_len].tolist()
-    s = 0
-    while s < ns:
-        e = s + 1          # grow the batch while its padded walk fits
-        while e < ns and (e + 1 - s) * STRIPE * GANGW * glen[e] <= PLAIN_TESTS:
-            e += 1
-        strips = by_len[s:e]
-        length = glen[e - 1] * GANGW
-        s = e
-        if length == 0:
-            continue
+    for strips, length in _batches(scal, STRIPE):
         rows, live = _walk(scal, strips, length)
         tri = table[rows]                                     # (B, L, 16)
         ray = (strips[:, None] * STRIPE
@@ -376,6 +384,30 @@ def raycast_binned_plain(dflat: Tensor, scal: Tensor,
     return out
 
 
+def walk_cull_plain(dflat: Tensor, scal: Tensor, table: Tensor) -> Tensor:
+    """Which rows of its strip's walk each 256-ray tile of csrc/binrast.cu
+    keeps: (ntiles, L) bool over walk positions, L the longest walk
+    (positions past a strip's walk are False), in the kernel's float order:
+    the tile's cone (raycast.tile_cones) against each row's half-spaces
+    (raycast.cull_rows, which states why a dropped row never hits).  Rows
+    at or past the table's end are dropped; a wide tile keeps the rest."""
+    tps = STRIPE // RP.TILE                   # tiles a strip
+    ns = dflat.shape[0] // STRIPE
+    axis, sin_a, wide = RP.tile_cones(dflat)
+    length = int((scal[1] + scal[3]).max()) * GANGW if ns else 0
+    keep = torch.zeros((ns * tps, length), dtype=torch.bool,
+                       device=dflat.device)
+    for strips, walk in _batches(scal, tps * RP.NISECT):
+        rows, live = _walk(scal, strips, walk)
+        live = live & (rows < table.shape[0])
+        tiles = strips[:, None] * tps + torch.arange(tps, device=dflat.device)
+        k = RP.cull_rows(axis[tiles][:, :, None], sin_a[tiles][:, :, None],
+                         wide[tiles][:, :, None],
+                         table[torch.where(live, rows, 0)][:, None])
+        keep[tiles.reshape(-1), :walk] = (k & live[:, None]).reshape(-1, walk)
+    return keep
+
+
 def finish_binned(dflat: Tensor, origin: Tensor, out8: Tensor,
                   attrs: Tensor) -> Tensor:
     """Winner rows -> the (n, NOUT) G-buffer (raycast_gbuf24's columns):
@@ -389,28 +421,38 @@ def finish_binned(dflat: Tensor, origin: Tensor, out8: Tensor,
 
 
 def raycast_binned_cuda(dflat: Tensor, origin: Tensor, scal: Tensor,
-                        table: Tensor, attrs: Tensor) -> Tensor:
-    """Launch csrc/binrast.cu: the (n, NOUT) G-buffer."""
+                        table: Tensor, attrs: Tensor,
+                        kept: Optional[Tensor] = None) -> Tensor:
+    """Launch csrc/binrast.cu: the (n, NOUT) G-buffer.  kept: an optional
+    (n // 256,) int32 tensor that receives each tile's count of the walk
+    rows its cull kept (walk_cull_plain's row sums).  It exists only so
+    that chip_smoke.py can show that the culled bound counts the tests the
+    kernel makes; the frame path never passes it, and no caller should."""
     global LAUNCHES
     n = dflat.shape[0]
     ns = n // STRIPE
-    for x, dt, shape in ((dflat, torch.float32, (ns * STRIPE, 3)),
-                         (origin, torch.float32, (3,)),
-                         (scal, torch.int32, (4, ns)),
-                         (table, torch.float32, (table.shape[0], RP.NISECT)),
-                         (attrs, torch.float32, (attrs.shape[0], RP.NATTR))):
+    checks = [(dflat, torch.float32, (ns * STRIPE, 3)),
+              (origin, torch.float32, (3,)),
+              (scal, torch.int32, (4, ns)),
+              (table, torch.float32, (table.shape[0], RP.NISECT)),
+              (attrs, torch.float32, (attrs.shape[0], RP.NATTR))]
+    if kept is not None:
+        checks.append((kept, torch.int32, (n // RP.TILE,)))
+    for x, dt, shape in checks:
         _build.require(x.is_cuda and x.dtype == dt and x.is_contiguous()
                        and tuple(x.shape) == shape,
                        f"binned raycast kernel: expected contiguous {dt} "
                        f"CUDA {shape}, got {tuple(x.shape)} {x.dtype}")
-    _build.require(ns > 0 and table.shape[0] < 2 ** 31,
+    _build.require(ns > 0 and table.shape[0] < 2 ** 31
+                   and table.data_ptr() % 16 == 0,
                    "binned raycast kernel: one strip of rays at least and "
-                   "a table of fewer than 2**31 rows")
+                   "a 16-byte aligned table (rows are read as float4s) of "
+                   "fewer than 2**31 rows")
     out = torch.empty((n, RP.NOUT), dtype=torch.float32, device=dflat.device)
     status = _build.library().vct_binrast(
         dflat.data_ptr(), origin.data_ptr(), scal.data_ptr(), ns,
         table.data_ptr(), table.shape[0], attrs.data_ptr(), out.data_ptr(),
-        _build.stream())
+        None if kept is None else kept.data_ptr(), _build.stream())
     _build.check(status, "vct_binrast")
     LAUNCHES += 1
     return out

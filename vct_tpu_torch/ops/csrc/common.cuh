@@ -27,3 +27,22 @@ __device__ __forceinline__ float world_to_uvw(float p, float half_ws) {
 
 // launch status for the ctypes caller
 static inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
+
+// What the card makes of `kernel` launched with `threads` threads and `smem`
+// dynamic shared bytes, for the caller's report: info[0:4] = registers,
+// local (spill) bytes a thread, shared bytes a block (static + dynamic) and
+// resident warps per SM
+template <typename Kernel>
+static inline int occupancy_info(Kernel kernel, int threads, int smem, int* info) {
+    cudaFuncAttributes fa;
+    int blocks = 0;
+    cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    info[0] = fa.numRegs;
+    info[1] = static_cast<int>(fa.localSizeBytes);
+    info[2] = static_cast<int>(fa.sharedSizeBytes) + smem;
+    info[3] = blocks * threads / 32;
+    return 0;
+}

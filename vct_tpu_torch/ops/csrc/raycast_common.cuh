@@ -1,10 +1,14 @@
-// Shared by the two raycast kernels (raycast.cu, raycast_stream.cu): the
-// origin-folded Moller-Trumbore test and the G-buffer row of
+// Shared by the raycast kernels (raycast.cu, binrast.cu, raycast_stream.cu):
+// the origin-folded Moller-Trumbore test and the G-buffer row of
 // vct_tpu/ops/raycast_pallas.py (_kernel / _stream_kernel and
 // _finish_gbuf), in exact float32: every multiply and add rounds on its
 // own, because the origin-folded products are ~100x larger than their
 // differences and a fused multiply-add flips `valid` on thin and grazing
-// triangles.
+// triangles.  And the per-tile cone cull of the whole-table and binned
+// kernels (ops/raycast.py tile_cones and cull_rows state it in the same
+// float order): the block's direction cone, the half-space test of one row
+// against it, the ballot compaction of a batch's survivors, the hit tests
+// against them and the G-buffer rows' way out through shared memory.
 #pragma once
 
 #include "common.cuh"
@@ -17,6 +21,11 @@ constexpr int kOut = 32;
 constexpr float kEps = 1e-7f;
 constexpr float kTminEps = 1e-4f;
 constexpr float kBig = 3.0e38f;
+constexpr int kBlock = 256;            // rays a block: one 16x16 tile
+constexpr int kWarps = kBlock / 32;
+constexpr float kCullMargin = 1e-4f;   // ops/raycast.py CULL_MARGIN
+constexpr float kConeSlack = 4e-6f;    // CONE_SLACK
+constexpr float kWideDot = 1e-4f;      // WIDE_DOT
 
 __device__ __forceinline__ float dot3(float d0, float d1, float d2, const float* r) {
     return add_rn(add_rn(mul_rn(d0, r[0]), mul_rn(d1, r[1])), mul_rn(d2, r[2]));
@@ -98,6 +107,187 @@ __device__ __forceinline__ void finish_row(float d0, float d1, float d2,
 #pragma unroll
     for (int i = 0; i < kOut / 4; ++i)
         dst[i] = make_float4(o[4 * i], o[4 * i + 1], o[4 * i + 2], o[4 * i + 3]);
+}
+
+// ---- the per-tile cone cull -------------------------------------------
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v = add_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+}
+
+// the eight warp totals, pairwise: (w0 + w4) + (w2 + w6), (w1 + w5) + (w3 + w7)
+__device__ __forceinline__ float sum8(const float* w) {
+    return add_rn(add_rn(add_rn(w[0], w[4]), add_rn(w[2], w[6])),
+                  add_rn(add_rn(w[1], w[5]), add_rn(w[3], w[7])));
+}
+
+__device__ __forceinline__ float dot3v(const float* a, const float* b) {
+    return add_rn(add_rn(mul_rn(a[0], b[0]), mul_rn(a[1], b[1])), mul_rn(a[2], b[2]));
+}
+
+// The direction cone of the block's kBlock rays (tile_cones): axis, the
+// sine of the half-angle and `wide` (no cone narrower than a half-space).
+// Rays of length 0 do not widen it.  Every thread of the block calls it;
+// s_part is __shared__ float[4][kWarps].
+struct Cone {
+    float axis[3];
+    float sin_a;
+    bool wide;
+};
+
+__device__ __forceinline__ Cone block_cone(float d0, float d1, float d2,
+                                           float (*s_part)[kWarps]) {
+    const int lane = threadIdx.x % 32;
+    const int warp = threadIdx.x / 32;
+    const float dd = add_rn(add_rn(mul_rn(d0, d0), mul_rn(d1, d1)), mul_rn(d2, d2));
+    const bool aims = dd > 0.0f;
+    float dn[3] = {0.0f, 0.0f, 0.0f};
+    if (aims) {
+        const float len = __fsqrt_rn(dd);
+        dn[0] = div_rn(d0, len);
+        dn[1] = div_rn(d1, len);
+        dn[2] = div_rn(d2, len);
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        const float w = warp_sum(dn[i]);
+        if (lane == 0) s_part[i][warp] = w;
+    }
+    __syncthreads();
+    Cone c;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) c.axis[i] = sum8(s_part[i]);
+    const float len = fmaxf(__fsqrt_rn(dot3v(c.axis, c.axis)), 1e-12f);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) c.axis[i] = div_rn(c.axis[i], len);
+    const float m = warp_min(aims ? dot3v(dn, c.axis) : kBig);
+    if (lane == 0) s_part[3][warp] = m;
+    __syncthreads();
+    float min_dot = s_part[3][0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) min_dot = fminf(min_dot, s_part[3][w]);
+    c.wide = min_dot <= kWideDot;
+    const float cos_a = fminf(fmaxf(sub_rn(min_dot, kConeSlack), kWideDot), 1.0f);
+    c.sin_a = __fsqrt_rn(fmaxf(sub_rn(1.0f, mul_rn(cos_a, cos_a)), 0.0f));
+    return c;
+}
+
+// cull_rows for one row (a3 b3 c3 k) against the block's cone: false when
+// the cone misses one of the row's four half-spaces by the margin
+__device__ __forceinline__ bool keep_row(const Cone& cone, const float* row) {
+    const float k = row[9];
+    if (k == 0.0f) return false;
+    const float s = k > 0.0f ? 1.0f : -1.0f;
+    const float* a = row;
+    const float* b = row + 3;
+    const float* c = row + 6;
+    float e[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) e[i] = sub_rn(sub_rn(a[i], b[i]), c[i]);
+    const float na = __fsqrt_rn(dot3v(a, a));
+    const float nb = __fsqrt_rn(dot3v(b, b));
+    const float nc = __fsqrt_rn(dot3v(c, c));
+    const float ne = __fsqrt_rn(dot3v(e, e));
+    const float* n[4] = {a, b, c, e};
+    const float nn[4] = {na, nb, nc, ne};
+    const float scale[4] = {na, nb, nc, add_rn(add_rn(na, nb), nc)};
+    bool keep = true;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float an = mul_rn(s, dot3v(cone.axis, n[i]));
+        keep = keep && add_rn(add_rn(an, mul_rn(cone.sin_a, nn[i])),
+                              mul_rn(kCullMargin, scale[i])) >= 0.0f;
+    }
+    return keep;
+}
+
+// one row of the table (three float4s through the read-only path)
+__device__ __forceinline__ void load_row(const float* __restrict__ src, float* row) {
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(src) + q);
+        row[4 * q] = v.x;
+        row[4 * q + 1] = v.y;
+        row[4 * q + 2] = v.z;
+        row[4 * q + 3] = v.w;
+    }
+}
+
+// The survivors of one batch (a row a thread, `keep` its verdict) written
+// in thread order to s_tri (a3 b3 c3 k and two unused) and s_id, by warp
+// ballot and prefix popcount; returns their count.  Every thread calls it.
+__device__ __forceinline__ int compact(bool keep, const float* row, int id,
+                                       float4 (*s_tri)[3], int* s_id, int* s_cnt) {
+    const int lane = threadIdx.x % 32;
+    const int warp = threadIdx.x / 32;
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    __syncthreads();                 // the previous batch's survivors are read
+    if (lane == 0) s_cnt[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, cnt = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+        before += w < warp ? s_cnt[w] : 0;
+        cnt += s_cnt[w];
+    }
+    if (keep) {
+        const int pos = before + __popc(ballot & ((1u << lane) - 1u));
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+            s_tri[pos][q] = make_float4(row[4 * q], row[4 * q + 1], row[4 * q + 2],
+                                        row[4 * q + 3]);
+        s_id[pos] = id;
+    }
+    __syncthreads();
+    return cnt;
+}
+
+// The best hit so far against the batch's survivors, in their order; the
+// best is replaced on a strict '<' only
+__device__ __forceinline__ void cast_survivors(float d0, float d1, float d2,
+                                               float4 (*s_tri)[3], const int* s_id,
+                                               int cnt, float* best, int* win, float* bu,
+                                               float* bv) {
+    for (int jj = 0; jj < cnt; ++jj) {
+        float tr[12];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+            const float4 v = s_tri[jj][q];
+            tr[4 * q] = v.x;
+            tr[4 * q + 1] = v.y;
+            tr[4 * q + 2] = v.z;
+            tr[4 * q + 3] = v.w;
+        }
+        float tval, u, v;
+        if (hit_test(d0, d1, d2, tr, &tval, &u, &v) && tval < *best) {
+            *best = tval;
+            *win = s_id[jj];
+            *bu = u;
+            *bv = v;
+        }
+    }
+}
+
+// The block's G-buffer rows, finished into s_out (kBlock * kOut floats) and
+// copied out in whole 512-byte runs: `rows` rows from `dst`
+__device__ __forceinline__ void store_rows(float d0, float d1, float d2,
+                                           const float* __restrict__ origin,
+                                           const float* __restrict__ attrs, float best, int win,
+                                           float u, float v, float4* s_out, int rows,
+                                           float* __restrict__ dst) {
+    finish_row(d0, d1, d2, origin, attrs, best, kBig, win, u, v,
+               reinterpret_cast<float*>(s_out + threadIdx.x * (kOut / 4)));
+    __syncthreads();
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (int f = threadIdx.x; f < rows * (kOut / 4); f += kBlock) d4[f] = s_out[f];
 }
 
 }  // namespace raycast

@@ -305,23 +305,12 @@ VCT_EXPORT int vct_tap(const float* gbuf, int ntiles, int gcols, const int* scal
     return launch_status();
 }
 
-// registers, local (spill) bytes a thread, shared bytes a block (static +
-// dynamic) and resident warps per SM of the kernel for (nb, cfield), for
-// the caller's report
+// the kernel's report (common.cuh occupancy_info) for (nb, cfield)
 VCT_EXPORT int vct_tap_occupancy(int nb, int cfield, int* info) {
     int smem = 0;
     const TapKernel kernel = pick(nb, cfield, &smem);
     if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    cudaFuncAttributes fa;
-    int blocks = 0;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
-    if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kTile, smem);
+    const cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    info[0] = fa.numRegs;
-    info[1] = static_cast<int>(fa.localSizeBytes);
-    info[2] = static_cast<int>(fa.sharedSizeBytes) + smem;
-    info[3] = blocks * kTile / 32;
-    return 0;
+    return occupancy_info(kernel, kTile, smem, info);
 }

@@ -44,7 +44,8 @@ TILE = 256              # rays per tile: a streamed list row, a whole-table bloc
 CHUNK = 128             # triangles per streamed chunk
 CULLED = 0x7FFFFFFF     # list word of a culled chunk: sorts after every kept one
 MAX_CHUNKS = 1 << 16    # a list word holds the chunk id in its low 16 bits
-# the whole-table kernel's per-block cull (tile_cull_plain, csrc/raycast.cu)
+# the per-tile cull of the whole-table and binned kernels (cull_rows,
+# csrc/raycast_common.cuh)
 CULL_MARGIN = 1e-4      # half-space margin, relative to the row's scale
 CONE_SLACK = 4e-6       # taken off the cone's least dot product
 WIDE_DOT = 1e-4         # at or below: no bounding cone, keep every row
@@ -176,40 +177,47 @@ def tile_cones(dirs: Tensor):
     return axis, sin_a, min_dot <= WIDE_DOT
 
 
-def tile_cull_plain(dirs: Tensor, isect: Tensor) -> Tensor:
-    """Which rows each TILE-ray block of the whole-table kernel keeps:
-    dirs (N, 3), isect (T, 16) -> keep (ntiles, T) bool, in the kernel's
-    float order.
+def cull_rows(axis: Tensor, sin_a: Tensor, wide: Tensor,
+              rows: Tensor) -> Tensor:
+    """The per-tile cull's verdict on table rows against tile cones, in
+    csrc/raycast_common.cuh keep_row's float order, broadcast: axis
+    (..., 3), sin_a and wide (...), rows (..., 16) -> keep (...) bool.
 
     A ray d hits row (a, b, c, k) only if sign(det) = sign(k) = s and
     s*d.b >= 0, s*d.c >= 0, s*d.(a - b - c) >= 0 (so s*d.a >= 0): d lies
-    in four half-spaces through the origin.  The block drops a row when
-    its cone (axis A, half-angle alpha) misses one of them by a margin:
+    in four half-spaces through the origin.  A tile drops a row when its
+    cone (axis A, half-angle alpha) misses one of them by a margin:
     s*A.n + sin(alpha)*|n| + CULL_MARGIN*S < 0, where S is |n|, or
     |a| + |b| + |c| for a - b - c.  Every ray of the cone then has
     s*d.n < -(2/pi)*CULL_MARGIN*S*|d|, far beyond the hit test's rounding
     (about 3e-7*S*|d|), so a dropped row fails the rounded hit test for
-    every ray of the block and the first minimum is unchanged.  A row
-    with k = 0 never hits; a wide block keeps every row."""
-    axis, sin_a, wide = tile_cones(dirs)
-    a, b, c, k = isect[:, 0:3], isect[:, 3:6], isect[:, 6:9], isect[:, 9]
+    every ray of the tile and the first minimum is unchanged.  A row with
+    k = 0 never hits; a wide tile keeps every row."""
+    a, b, c, k = rows[..., 0:3], rows[..., 3:6], rows[..., 6:9], rows[..., 9]
     sgn = torch.sign(k)
 
     def norm(v):
-        return torch.sqrt(v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1]
-                          + v[:, 2] * v[:, 2])
+        return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
+                          + v[..., 2] * v[..., 2])
 
     na, nb, nc = norm(a), norm(b), norm(c)
     e = a - b - c
-    keep = (sgn != 0.0)[None, :].expand(axis.shape[0], -1)
+    keep = sgn != 0.0
     for n, nn, scale in ((a, na, na), (b, nb, nb), (c, nc, nc),
                          (e, norm(e), na + nb + nc)):
-        an = sgn[None, :] * (axis[:, 0:1] * n[None, :, 0]
-                             + axis[:, 1:2] * n[None, :, 1]
-                             + axis[:, 2:3] * n[None, :, 2])
-        keep = keep & (an + sin_a[:, None] * nn[None, :]
-                       + CULL_MARGIN * scale[None, :] >= 0.0)
-    return keep | wide[:, None]
+        an = sgn * (axis[..., 0] * n[..., 0] + axis[..., 1] * n[..., 1]
+                    + axis[..., 2] * n[..., 2])
+        keep = keep & (an + sin_a * nn + CULL_MARGIN * scale >= 0.0)
+    return keep | wide
+
+
+def tile_cull_plain(dirs: Tensor, isect: Tensor) -> Tensor:
+    """Which rows each TILE-ray block of the whole-table kernel keeps:
+    dirs (N, 3), isect (T, 16) -> keep (ntiles, T) bool, in the kernel's
+    float order (tile_cones, cull_rows)."""
+    axis, sin_a, wide = tile_cones(dirs)
+    return cull_rows(axis[:, None], sin_a[:, None], wide[:, None],
+                     isect[None])
 
 
 def raycast_plain(dirs: Tensor, origin: Tensor, isect: Tensor,

@@ -49,6 +49,7 @@ BUDGETS = {"L": (28, 15, 23), "M": (14, 15, 23), "S": (6, 15, 23)}
 MIP_CLS = {"L": "M", "M": "M", "S": "S"}
 MAX_STEPS = 128   # csrc/specmarch.cu's per-block step table
 MAX_LEVELS = 16
+MAX_CELLS = 1 << 31   # csrc/specmarch.cu counts pyramid cells in 32 bits
 
 LAUNCHES = 0
 
@@ -165,6 +166,17 @@ def pack_spec_mips(mips: Sequence[Tensor]) -> Tuple[Tensor, ...]:
     """Isotropic radiance mips (D, D, D, 4) float32, level 0 first -> the
     levels down to FLOOR_DIM as bf16 views back to back in one buffer."""
     return TP.pack_mips([m for m in mips if m.shape[0] >= FLOOR_DIM])
+
+
+def check_cells(dims: Sequence[int]) -> None:
+    """Refuse a pyramid the march kernel cannot address: its levels' d**3
+    cells must number fewer than MAX_CELLS (256**3 down to 8**3 is
+    19.2 M)."""
+    cells = sum(int(d) ** 3 for d in dims)
+    if cells >= MAX_CELLS:
+        raise ValueError(f"specular pyramid of {cells} cells: the march "
+                         f"kernel addresses cells in 32 bits, fewer than "
+                         f"{MAX_CELLS}")
 
 
 def pyramid_dims(pyramid: Sequence[Tensor]) -> Tuple[int, ...]:
@@ -347,10 +359,13 @@ def spec_march_cuda(start4: Tensor, refl4: Tensor, step_levels: Tensor,
                        f"CUDA {shape}, got {tuple(x.shape)} {x.dtype}")
     d0, c = TP._chain(pyramid, "specular pyramid")
     _build.require(c == NC and len(pyramid) <= MAX_LEVELS
-                   and nsteps <= MAX_STEPS,
-                   f"specmarch kernel: {NC}-channel pyramid of <= "
-                   f"{MAX_LEVELS} levels and <= {MAX_STEPS} steps, got {c} "
-                   f"channels, {len(pyramid)} levels, {nsteps} steps")
+                   and nsteps <= MAX_STEPS
+                   and pyramid[0].data_ptr() % 8 == 0,
+                   f"specmarch kernel: 8-byte aligned {NC}-channel pyramid "
+                   f"of <= {MAX_LEVELS} levels and <= {MAX_STEPS} steps, "
+                   f"got {c} channels, {len(pyramid)} levels, {nsteps} "
+                   f"steps")
+    check_cells([m.shape[0] for m in pyramid])
     out = torch.empty((n, NC), dtype=torch.float32, device=start4.device)
     status = _build.library().vct_specmarch(
         start4.data_ptr(), refl4.data_ptr(), ntiles, step_levels.data_ptr(),
