@@ -189,3 +189,121 @@ def test_bump_normal_matches():
         TX.bump_normal_from_heights(*map(torch.as_tensor, args)).numpy(),
         np.asarray(JTX.bump_normal_from_heights(*map(jnp.asarray, args))),
         atol=1e-6, rtol=0)
+
+
+NM_STRESS = PP.MAX_MATERIALS
+REPS = 2
+
+
+@pytest.fixture(scope="module")
+def stress():
+    """prepass.stress_gbuffer at the test atlas's resolution, pages of 64
+    random materials in both packages (bit-equal, as above), and the port
+    prepass's entries and slots for it (equal to the Pallas prepass's:
+    tests/test_torch_prepass.py; the XLA oracle select_material_bricks
+    does not clip the texel bases at +-BCLIP, so it differs where uv is
+    huge)."""
+    rng = np.random.default_rng(11)
+    tex = [rng.uniform(0, 1, (NM_STRESS, RES, RES, c)).astype(np.float32)
+           for c in (4, 3, 1)]
+    jpages = JMP.atlas_mip_pages(*map(jnp.asarray, tex))
+    pages = MT.atlas_mip_pages(*map(torch.as_tensor, tex))
+    np.testing.assert_array_equal(pages.view(torch.int16).numpy(),
+                                  np.asarray(jpages).view(np.int16))
+    g = PP.stress_gbuffer(3, world_size=150.0, resolution=RES,
+                          num_materials=NM_STRESS, reps=REPS)
+    _, mscal, mlists, mslots = PP.prepass_tiles(
+        torch.as_tensor(g), light_dims=(64, 32, 16),
+        field_dims=(64, 32, 16, 8), voxel=150.0 / 64, world_size=150.0,
+        shadow_offset=2.0, atlas=(NM_STRESS, RES, RES.bit_length()))
+    return (g, mslots.numpy(), mscal.numpy(), mlists.numpy(), jpages, pages)
+
+
+def _kind(stress, kind):
+    """The stress fixture's rows of one tile kind: (g, slots, mscal,
+    mlists padded to 8 rows, as the JAX functions take them)."""
+    g, slots, scal, lists = stress[:4]
+    rows = slice(kind * REPS * TILE, (kind + 1) * REPS * TILE)
+    tiles = slice(kind * REPS, (kind + 1) * REPS)
+    padded = np.zeros((-(-REPS // 8) * 8, lists.shape[1]), np.int32)
+    padded[:REPS] = lists[tiles]
+    return np.ascontiguousarray(g[rows]), slots[rows], scal[tiles], padded
+
+
+@pytest.mark.parametrize("kind", range(len(PP.STRESS_KINDS)),
+                         ids=PP.STRESS_KINDS)
+def test_stress_matches_material_ref(stress, kind):
+    """The stress tiles a kind at a time (64 materials, slots clamped, uv
+    up to 1e7, |tu| near 2^24, wrap corners): on the same entries the
+    port's material fetch equals material_tiles_ref to 1e-5."""
+    args = _kind(stress, kind)
+    ref = np.asarray(JMP.material_tiles_ref(*map(jnp.asarray, args),
+                                            stress[4], RES, tile=TILE))
+    out = MT.material_tiles(*map(torch.as_tensor, args[:3]),
+                            torch.as_tensor(args[3][:REPS]), stress[5],
+                            resolution=RES).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
+    if kind == PP.STRESS_KINDS.index("all miss"):
+        assert out.max() == 0.0
+
+
+@pytest.mark.parametrize("kind", ["wrap corner, level 0",
+                                  "wrap corner, R_l = 4"])
+def test_wrap_corner_matches_pallas_interpret(stress, kind):
+    """Pixels on a level's wrap corner (i0 = R_l - 1, j0 = 0: the +u tap
+    crosses the wrap column, the -v tap the wrap row) at level 0 (d = 1)
+    and at the level of R_l = 4: the entries equal the XLA oracle's, and
+    the port is within 2e-2 of the Pallas kernel in interpret mode (its
+    bf16 weights)."""
+    g, slots, scal, lists = _kind(stress, PP.STRESS_KINDS.index(kind))
+    tiled = g.reshape(REPS, TILE, -1)
+    jscal, jlists, jslots = JMP.select_material_bricks(
+        jnp.asarray(tiled[..., 17].astype(np.int32)),
+        jnp.asarray(tiled[..., 15:17]), jnp.asarray(tiled[..., 19] > 0.5),
+        num_materials=NM_STRESS, resolution=RES, num_levels=RES.bit_length())
+    np.testing.assert_array_equal(scal, np.asarray(jscal))
+    np.testing.assert_array_equal(lists, np.asarray(jlists))
+    np.testing.assert_array_equal(slots.reshape(REPS, TILE),
+                                  np.asarray(jslots))
+    rl = np.repeat(RES >> scal[:, 2], TILE)
+    assert (rl == (RES if kind.endswith("level 0") else 4)).all()
+    tu = g[:, 15] * rl - 0.5
+    tv = (1 - g[:, 16]) * rl - 0.5
+    edge = (np.floor(tu) == rl - 1) & (np.floor(tv) == 0)
+    assert edge.mean() > 0.9
+    kern = np.asarray(JMP.material_tiles(
+        *map(jnp.asarray, (g, slots, scal, lists)), stress[4],
+        resolution=RES, interpret=True, tile=TILE))
+    out = MT.material_tiles(*map(torch.as_tensor, (g, slots, scal)),
+                            torch.as_tensor(lists[:REPS]), stress[5],
+                            resolution=RES).numpy()
+    np.testing.assert_allclose(out, kern, atol=2e-2, rtol=0)
+
+
+def _texel_fixtures(atlases, stress):
+    for case in CASES:
+        (g, slots, scal, lists, _), _, _ = _jax(atlases[2], *_case(case))
+        yield case, g, slots, scal, lists
+    for k, kind in enumerate(PP.STRESS_KINDS):
+        yield (kind,) + _kind(stress, k)
+
+
+def test_corner_texels_at_most_8(atlases, stress):
+    """On every fixture, a pixel whose |tu|, |tv| stay below 2^24 reads at
+    most 8 distinct texels and csrc/material.cu loads at most 4 heights
+    beside its main tap; the |tu| near 2^24 tiles go past that, which is
+    why the kernel compares texels at run time."""
+    beyond = {}
+    for name, g, slots, scal, lists in _texel_fixtures(atlases, stress):
+        gt, st = torch.as_tensor(np.array(g)), torch.as_tensor(slots)
+        sc, li = torch.as_tensor(scal), torch.as_tensor(lists[:len(scal)])
+        distinct, loads = MT.corner_texels(gt, st, sc, li, RES)
+        _, lvl, _ = MT._entries(sc, li, st, TILE)
+        rl = (RES >> lvl.clamp(0, RES.bit_length() - 1)).float()
+        near = ((gt[:, 15] * rl).abs() < 2 ** 23) \
+            & (((1 - gt[:, 16]) * rl).abs() < 2 ** 23)
+        assert int(torch.where(near, distinct, 0).max()) <= 8, name
+        assert int(torch.where(near, loads, 0).max()) <= 4, name
+        assert bool(((loads > 0) <= (distinct > 4)).all()), name
+        beyond[name] = int(distinct.max())
+    assert beyond["|tu| near 2^24"] > 8

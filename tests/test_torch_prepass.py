@@ -162,3 +162,36 @@ def test_atlas_matches_select_material_bricks():
     np.testing.assert_array_equal(mlists.numpy(), np.asarray(lists)[:5])
     np.testing.assert_array_equal(mslots.numpy().reshape(5, TILE),
                                   np.asarray(slots))
+
+
+STRESS_RES = 64
+STRESS_ATLAS = (PP.MAX_MATERIALS, STRESS_RES, STRESS_RES.bit_length())
+
+
+@pytest.mark.parametrize("kind", range(len(PP.STRESS_KINDS)),
+                         ids=PP.STRESS_KINDS)
+def test_stress_matches_pallas_prepass(kind):
+    """prepass.stress_gbuffer's tiles (all miss, one hit, all 64 materials
+    so the slots clamp, uv up to 1e7 so the texel bases clip, |tu| near
+    2^24, wrap corners), a kind at a time: all four outputs equal the
+    Pallas kernel's."""
+    reps = 2
+    g = PP.stress_gbuffer(kind, world_size=WS, resolution=STRESS_RES,
+                          reps=reps)
+    rows = slice(kind * reps * TILE, (kind + 1) * reps * TILE)
+    g = np.ascontiguousarray(g[rows])
+    ref = JPP.prepass_tiles(
+        jnp.asarray(g), num_materials=STRESS_ATLAS[0],
+        resolution=STRESS_RES, atlas_levels=STRESS_ATLAS[2],
+        has_atlas=True, interpret=True, tile=TILE, **KW)
+    out = PP.prepass_tiles(torch.as_tensor(g), atlas=STRESS_ATLAS, **KW)
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b)[:a.shape[0]])
+    mscal, mlists = out[1].numpy(), out[2].numpy()
+    if PP.STRESS_KINDS[kind].startswith("every material"):
+        assert (mscal[:, 0] == PP.NSLOT).all()          # slots clamp
+    if kind == PP.STRESS_KINDS.index("every material, huge uv"):
+        assert np.abs(mlists[:, :4 * (PP.NSLOT - 1)].reshape(
+            reps, -1, 4)[..., 2:]).max() == PP.BCLIP    # bases clip
+    if kind == PP.STRESS_KINDS.index("all miss"):
+        assert mscal.max() == 0 and out[3].abs().max() == 0

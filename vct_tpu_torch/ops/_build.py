@@ -64,6 +64,8 @@ SIGNATURES = {
     "vct_raycast_occupancy": (_P,),
     "vct_binrast_occupancy": (_P,),
     "vct_specmarch_occupancy": (_P,),
+    "vct_prepass_occupancy": (_P,),
+    "vct_material_occupancy": (_P,),
 }
 
 

@@ -16,22 +16,33 @@
 //    (mscal: count + slot 0, mlists: slots 1.. as 4 words each), and each
 //    pixel's slot is the number of present materials with a smaller id.
 //
-// What bounds it: reading the G-buffer (128 B per pixel, 12 of 32 columns
-// used); the selection itself is a few hundred flops per tile.  One block
-// of 256 threads per tile: each thread maps its pixel to uvw, the block
-// reduces min/max in shared memory (uvw first, then min/max, as the
-// reference does -- the map is monotone but rounding is not), and one
-// thread runs the coarse-to-fine level loop.  For the material half each
-// warp reduces the uv box of every material it holds with shuffles (a warp
-// skips a material none of its lanes hold, so a one-material tile costs
-// one reduction per warp), then one thread per material merges the 8
-// warps and runs the atlas level loop.  The TPU kernel did the same
-// per-material reductions as lane-vector math and the slot compaction as
-// small matmuls; here a thread per material counts its rank directly.
+// What bounds it: reading the G-buffer.  A pixel uses 13 of its row's 32
+// columns (0-8, 15-17, 19): three of the row's four 32-byte sectors, but
+// both of its 64-byte halves, and the card reads memory in 64-byte pieces
+// (chip_smoke's G-buffer read probe: columns 15-16 cost as much as the
+// whole row), so the floor is reading every row whole; the selection is
+// a few hundred flops per tile.  Design: one block of 256 threads per
+// tile, one barrier.  Each thread reads the used columns of its row up
+// front (columns 0-7 and 16-19 as three 16-byte loads, 8 and 15 alone)
+// and keeps what the material half needs in registers rather than
+// reading it again.  It maps its pixel to uvw (the map before the
+// min/max, as the reference does: the map is monotone but rounding is
+// not); each warp reduces the 12 extents with shuffles and the uv box of
+// each material its lanes hold (one pass per distinct material, not per
+// id), and records those materials as a 64-bit mask and its hits as a
+// ballot.  After the barrier, warp 0 selects the light level and warp 1
+// the field level with one level per lane: the finest fitting level is
+// the lowest set bit of the ballot, which is what the reference's
+// coarse-to-fine loop keeps.  Each present material goes to one warp (id
+// mod 8), whose lanes test one atlas level each the same way; its slot,
+// and every pixel's, is a popcount of the merged mask below its id.  The
+// TPU kernel did the per-material reductions as lane-vector math and the
+// slot compaction as small matmuls.
 //
 // The output must equal the plain version exactly, so every multiply and
 // add rounds on its own (common.cuh) and the host passes the constants
-// voxel*offset and world_size/2 already rounded to float32 once.
+// voxel*offset and world_size/2 already rounded to float32 once; min and
+// max are exact, so the order of the reductions cannot change a result.
 #include "common.cuh"
 
 namespace {
@@ -46,6 +57,8 @@ constexpr int kMaxMat = 64;                        // prepass.MAX_MATERIALS
 constexpr int kNslot = 24, kNscal = 5, kNwords = 128;
 constexpr float kThresh = 14.0f;
 constexpr float kBclip = 4194304.0f;               // 2^22
+constexpr int kQ = 12;      // extents: 0..5 min (light xyz, field xyz), 6..11 max
+constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ float cell(float u, int d) {
     return floorf(fminf(fmaxf(sub_rn(mul_rn(u, static_cast<float>(d)), 0.5f), 0.0f),
@@ -62,21 +75,41 @@ __device__ __forceinline__ float aligned(float lo, int d, int extent) {
     return clipf(b, 0.0f, static_cast<float>(max(d, extent) - extent));
 }
 
-// first-fit-finest level over levels d0 >> l, l < nlev; the coarsest
-// level always fits.  light: x/y footprint <= 14 cells; field: x/y <= 6
-// and z <= 15.  Writes level and origin xyz to dst[0..3].
-__device__ void select_level(const float* umin, const float* umax, int d0,
-                             int nlev, bool light, int* dst) {
-    int level = nlev - 1;
+__device__ __forceinline__ float warp_min(float x) {
+    for (int o = 16; o > 0; o >>= 1) x = fminf(x, __shfl_xor_sync(kAll, x, o));
+    return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+    for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kAll, x, o));
+    return x;
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// present materials with an id below m (m in 0..64)
+__device__ __forceinline__ int rank_below(unsigned long long mask, int m) {
+    return __popcll(m >= 64 ? mask : mask & ((1ull << m) - 1ull));
+}
+
+// one warp, lane l testing level l: the light or field level and origin
+// (the reference's first fit, finest first, over levels d0 >> l, l <
+// nlev; the coarsest level always fits).  light: x/y footprint <= 14
+// cells; field: x/y <= 6 and z <= 15.  umin/umax are the tile's extents.
+__device__ void select_level(const float* umin, const float* umax, int d0, int nlev,
+                             bool light, int lane, int* dst) {
+    const int li = lane;
+    bool fits = false;
     float org[3] = {0.0f, 0.0f, 0.0f};
-    for (int li = nlev - 1; li >= 0; --li) {
+    if (li < nlev) {
         const int d = d0 >> li;
         float lo[3], hi[3];
         for (int ax = 0; ax < 3; ++ax) {
             lo[ax] = cell(umin[ax], d);
             hi[ax] = cell(umax[ax], d);
         }
-        bool fits;
         if (li == nlev - 1) {
             fits = true;
         } else if (light) {
@@ -85,56 +118,53 @@ __device__ void select_level(const float* umin, const float* umax, int d0,
             fits = hi[0] - lo[0] <= kBrickF - 2 && hi[1] - lo[1] <= kBrickF - 2
                 && hi[2] - lo[2] <= kFbz - kAlign - 1;
         }
-        if (!fits) continue;
-        level = li;
         if (light) {
             org[0] = clipf(lo[0], 0.0f, static_cast<float>(d - kBrickL));
             org[1] = aligned(lo[1], d, kLby);
-            org[2] = 0.0f;
         } else {
             org[0] = clipf(lo[0], 0.0f, static_cast<float>(d - kBrickF));
             org[1] = clipf(lo[1], 0.0f, static_cast<float>(d - kBrickF));
             org[2] = aligned(lo[2], d, kFbz);
         }
     }
-    dst[0] = level;
-    for (int ax = 0; ax < 3; ++ax) dst[1 + ax] = static_cast<int>(org[ax]);
+    const unsigned ok = __ballot_sync(kAll, fits);
+    if (li == __ffs(ok) - 1) {
+        dst[0] = li;
+        for (int ax = 0; ax < 3; ++ax) dst[1 + ax] = static_cast<int>(org[ax]);
+    }
 }
 
-// coarse-to-fine atlas level loop for one material's uv box
-// (prepass_pallas._one_tile): writes level, bv, bu
-__device__ void select_atlas(float umin, float umax, float qmin, float qmax, int res,
-                             int nlev, int* dst) {
-    float lvl = static_cast<float>(nlev - 1), bv = 0.0f, bu = 0.0f;
-    for (int lv = nlev - 1; lv >= 0; --lv) {
+// one warp, lane l testing atlas level l for one material's uv box
+// (prepass_pallas._one_tile's coarse-to-fine loop): the winning lane
+// writes material, level, bv, bu to dst
+__device__ void select_atlas(float umin, float umax, float qmin, float qmax, int m,
+                             int res, int nlev, int lane, int* dst) {
+    const int lv = lane;
+    bool fits = false;
+    float base_u = 0.0f, base_v = 0.0f;
+    if (lv < nlev) {
         const float rl = static_cast<float>(max(res >> lv, 1));
         const float d = ldexpf(1.0f, -lv);
-        const float base_u = floorf(sub_rn(mul_rn(umin, rl), 0.5f));
+        base_u = floorf(sub_rn(mul_rn(umin, rl), 0.5f));
         const float hi_u = floorf(add_rn(sub_rn(mul_rn(umax, rl), 0.5f), d));
-        const float base_v = floorf(sub_rn(sub_rn(mul_rn(qmin, rl), 0.5f), d));
+        base_v = floorf(sub_rn(sub_rn(mul_rn(qmin, rl), 0.5f), d));
         const float hi_v = floorf(sub_rn(mul_rn(qmax, rl), 0.5f));
-        const bool fits = lv == nlev - 1
+        fits = lv == nlev - 1
             || (sub_rn(hi_u, base_u) <= kThresh && sub_rn(hi_v, base_v) <= kThresh);
-        if (!fits) continue;
-        lvl = static_cast<float>(lv);
-        bv = mul_rn(static_cast<float>(kAlign),
-                    floorf(div_rn(clipf(base_v, -kBclip, kBclip), static_cast<float>(kAlign))));
-        bu = mul_rn(static_cast<float>(kAlign),
-                    floorf(div_rn(clipf(base_u, -kBclip, kBclip), static_cast<float>(kAlign))));
     }
-    dst[0] = static_cast<int>(lvl);
-    dst[1] = static_cast<int>(bv);
-    dst[2] = static_cast<int>(bu);
-}
-
-__device__ __forceinline__ float warp_min(float x) {
-    for (int o = 16; o > 0; o >>= 1) x = fminf(x, __shfl_xor_sync(0xffffffffu, x, o));
-    return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-    for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-    return x;
+    const unsigned ok = __ballot_sync(kAll, fits);
+    if (lv == __ffs(ok) - 1) {
+        const float bv = mul_rn(static_cast<float>(kAlign),
+                                floorf(div_rn(clipf(base_v, -kBclip, kBclip),
+                                              static_cast<float>(kAlign))));
+        const float bu = mul_rn(static_cast<float>(kAlign),
+                                floorf(div_rn(clipf(base_u, -kBclip, kBclip),
+                                              static_cast<float>(kAlign))));
+        dst[0] = m;
+        dst[1] = lv;
+        dst[2] = static_cast<int>(bv);
+        dst[3] = static_cast<int>(bu);
+    }
 }
 
 __global__ void __launch_bounds__(kTile)
@@ -143,116 +173,121 @@ prepass_kernel(const float* __restrict__ gbuf, int gcols, int ld0, int nl,
                int* __restrict__ scal8, int nm, int res, int nlev,
                int* __restrict__ mscal, int* __restrict__ mlists,
                int* __restrict__ mslots) {
-    __shared__ float red[12][kTile];    // 0..5 min (light xyz, field xyz), 6..11 max
+    __shared__ float part[kWarps][kQ];             // per warp: the 12 extents
     __shared__ float box[kWarps][kMaxMat][4];      // per warp: umin umax qmin qmax
-    __shared__ int held[kWarps][kMaxMat];
-    __shared__ int entry[kMaxMat][4];              // present, level, bv, bu
-    __shared__ int below[kMaxMat + 1];             // present materials with id < m
+    __shared__ unsigned long long wmask[kWarps];   // per warp: materials held
+    __shared__ unsigned whit[kWarps];              // per warp: its lanes' hit ballot
     const int tile = blockIdx.x;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const long long pix = static_cast<long long>(tile) * kTile + threadIdx.x;
     const float* g = gbuf + pix * gcols;
-    const bool hit = g[19] > 0.5f;
+
+    // the used columns up front: pos 0-2, n 3-5, geo 6-8 | u 15 (only with
+    // an atlas) | v 16, mat 17, hit 19
+    const float4 c0 = load4(g), c4 = load4(g + 4), c16 = load4(g + 16);
+    const float geo_z = __ldg(g + 8);
+    const float u = nm > 0 ? __ldg(g + 15) : 0.0f;
+    const bool hit = c16.w > 0.5f;
+    const float pos[3] = {c0.x, c0.y, c0.z};
+    const float nrm[3] = {c0.w, c4.x, c4.y};
+    const float geo[3] = {c4.z, c4.w, geo_z};
+
+    float ext[kQ];
     for (int ax = 0; ax < 3; ++ax) {
-        const float pl = add_rn(g[ax], mul_rn(g[6 + ax], voxel_off));
-        const float pf = add_rn(g[ax], mul_rn(g[3 + ax], voxel));
-        const float ul = world_to_uvw(pl, half_ws);
-        const float uf = world_to_uvw(pf, half_ws);
-        red[ax][threadIdx.x] = hit ? ul : kBig;
-        red[3 + ax][threadIdx.x] = hit ? uf : kBig;
-        red[6 + ax][threadIdx.x] = hit ? ul : -kBig;
-        red[9 + ax][threadIdx.x] = hit ? uf : -kBig;
+        const float ul = world_to_uvw(add_rn(pos[ax], mul_rn(geo[ax], voxel_off)), half_ws);
+        const float uf = world_to_uvw(add_rn(pos[ax], mul_rn(nrm[ax], voxel)), half_ws);
+        ext[ax] = hit ? ul : kBig;
+        ext[3 + ax] = hit ? uf : kBig;
+        ext[6 + ax] = hit ? ul : -kBig;
+        ext[9 + ax] = hit ? uf : -kBig;
     }
-    const int any_hit = __syncthreads_or(hit);
-    for (int half = kTile / 2; half > 0; half >>= 1) {
-        if (threadIdx.x < half) {
-            for (int q = 0; q < 6; ++q)
-                red[q][threadIdx.x] = fminf(red[q][threadIdx.x], red[q][threadIdx.x + half]);
-            for (int q = 6; q < 12; ++q)
-                red[q][threadIdx.x] = fmaxf(red[q][threadIdx.x], red[q][threadIdx.x + half]);
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) ext[q] = q < 6 ? warp_min(ext[q]) : warp_max(ext[q]);
+    if (lane == 0)
+        for (int q = 0; q < kQ; ++q) part[warp][q] = ext[q];
+
+    // material half, per warp: the uv box of each material its lanes hold
+    const int mat = static_cast<int>(c16.y);
+    const float q = sub_rn(1.0f, c16.x);
+    if (nm > 0) {
+        const bool held = hit && mat >= 0 && mat < nm;
+        unsigned long long mine_mask = 0;
+        for (unsigned pending = __ballot_sync(kAll, held); pending != 0u;) {
+            const int m = __shfl_sync(kAll, mat, __ffs(pending) - 1);
+            const bool mine = held && mat == m;
+            const float a = warp_min(mine ? u : kBig);
+            const float b = warp_max(mine ? u : -kBig);
+            const float c = warp_min(mine ? q : kBig);
+            const float e = warp_max(mine ? q : -kBig);
+            if (lane == 0) {
+                box[warp][m][0] = a;
+                box[warp][m][1] = b;
+                box[warp][m][2] = c;
+                box[warp][m][3] = e;
+            }
+            mine_mask |= 1ull << m;
+            pending &= ~__ballot_sync(kAll, mine);
         }
-        __syncthreads();
+        if (lane == 0) wmask[warp] = mine_mask;
     }
-    if (threadIdx.x == 0) {
-        int* out = scal8 + tile * 8;
+    // "any hit" from the warps' ballots, through shared memory: the same
+    // kernel voting with __syncthreads_or(hit) instead gave the no-hit
+    // levels for tiles whose few hits all lay in the last warps (PERF.md)
+    const unsigned hits = __ballot_sync(kAll, hit);
+    if (lane == 0) whit[warp] = hits;
+    __syncthreads();
+    bool any_hit = false;
+    for (int w = 0; w < kWarps; ++w) any_hit = any_hit || whit[w] != 0u;
+
+    // light level (warp 0) and field level (warp 1), a level per lane
+    if (warp < 2) {
+        const bool light = warp == 0;
+        const int levels = light ? nl : nf;
+        int* out = scal8 + tile * 8 + (light ? 0 : 4);
         if (!any_hit) {
-            // no hit pixel: coarsest levels, zero origins
-            for (int q = 0; q < 8; ++q) out[q] = 0;
-            out[0] = nl - 1;
-            out[4] = nf - 1;
+            // no hit pixel: coarsest level, zero origin
+            if (lane < 4) out[lane] = lane == 0 ? levels - 1 : 0;
         } else {
-            const float lmin[3] = {red[0][0], red[1][0], red[2][0]};
-            const float lmax[3] = {red[6][0], red[7][0], red[8][0]};
-            const float fmin[3] = {red[3][0], red[4][0], red[5][0]};
-            const float fmax[3] = {red[9][0], red[10][0], red[11][0]};
-            select_level(lmin, lmax, ld0, nl, true, out);
-            select_level(fmin, fmax, fd0, nf, false, out + 4);
+            const int at = light ? 0 : 3;
+            float lo[3], hi[3];
+            for (int ax = 0; ax < 3; ++ax) {
+                lo[ax] = kBig;
+                hi[ax] = -kBig;
+                for (int w = 0; w < kWarps; ++w) {
+                    lo[ax] = fminf(lo[ax], part[w][at + ax]);
+                    hi[ax] = fmaxf(hi[ax], part[w][6 + at + ax]);
+                }
+            }
+            select_level(lo, hi, light ? ld0 : fd0, levels, light, lane, out);
         }
     }
     if (nm == 0) return;
 
-    // ---- material half ----------------------------------------------
-    const int mat = static_cast<int>(g[17]);
-    const float u = g[15];
-    const float q = sub_rn(1.0f, g[16]);
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    for (int m = 0; m < nm; ++m) {
-        const bool mine = hit && mat == m;
-        const unsigned ballot = __ballot_sync(0xffffffffu, mine);
-        if (ballot == 0u) {
-            if (lane == 0) held[warp][m] = 0;
-            continue;
-        }
-        const float a = warp_min(mine ? u : kBig);
-        const float b = warp_max(mine ? u : -kBig);
-        const float c = warp_min(mine ? q : kBig);
-        const float e = warp_max(mine ? q : -kBig);
-        if (lane == 0) {
-            held[warp][m] = 1;
-            box[warp][m][0] = a;
-            box[warp][m][1] = b;
-            box[warp][m][2] = c;
-            box[warp][m][3] = e;
-        }
-    }
-    if (threadIdx.x < kNwords) mlists[tile * kNwords + threadIdx.x] = 0;
-    __syncthreads();
-    for (int m = threadIdx.x; m < nm; m += kTile) {
+    // ---- material half: slots from the merged mask ---------------------
+    unsigned long long mask = 0;
+    for (int w = 0; w < kWarps; ++w) mask |= wmask[w];
+    const int used = min(__popcll(mask), kNslot);
+    int* ms = mscal + tile * kNscal;
+    int* ml = mlists + static_cast<long long>(tile) * kNwords;
+    if (threadIdx.x < kNscal && (threadIdx.x == 0 || used == 0))
+        ms[threadIdx.x] = threadIdx.x == 0 ? used : 0;
+    // words of empty slots are zero; occupied slots are written below
+    if (threadIdx.x < kNwords && threadIdx.x / 4 + 1 >= used) ml[threadIdx.x] = 0;
+    for (int m = warp; m < nm; m += kWarps) {
+        const int slot = rank_below(mask, m);
+        if (!(mask >> m & 1ull) || slot >= kNslot) continue;
         float umin = kBig, umax = -kBig, qmin = kBig, qmax = -kBig;
-        int present = 0;
         for (int w = 0; w < kWarps; ++w) {
-            if (!held[w][m]) continue;
-            present = 1;
+            if (!(wmask[w] >> m & 1ull)) continue;
             umin = fminf(umin, box[w][m][0]);
             umax = fmaxf(umax, box[w][m][1]);
             qmin = fminf(qmin, box[w][m][2]);
             qmax = fmaxf(qmax, box[w][m][3]);
         }
-        entry[m][0] = present;
-        if (present) select_atlas(umin, umax, qmin, qmax, res, nlev, &entry[m][1]);
+        select_atlas(umin, umax, qmin, qmax, m, res, nlev, lane,
+                     slot == 0 ? ms + 1 : ml + 4 * (slot - 1));
     }
-    __syncthreads();
-    for (int m = threadIdx.x; m <= nm; m += kTile) {
-        int cnt = 0;
-        for (int k = 0; k < m; ++k) cnt += entry[k][0];
-        below[m] = cnt;
-    }
-    __syncthreads();
-    int* ms = mscal + tile * kNscal;
-    if (threadIdx.x == 0) {
-        ms[0] = min(below[nm], kNslot);
-        if (below[nm] == 0)
-            for (int k = 1; k < kNscal; ++k) ms[k] = 0;
-    }
-    for (int m = threadIdx.x; m < nm; m += kTile) {
-        const int slot = below[m];
-        if (!entry[m][0] || slot >= kNslot) continue;
-        int* dst = slot == 0 ? ms + 1 : mlists + tile * kNwords + 4 * (slot - 1);
-        dst[0] = m;
-        dst[1] = entry[m][1];
-        dst[2] = entry[m][2];
-        dst[3] = entry[m][3];
-    }
-    const int rank = below[min(max(mat, 0), nm)];
+    const int rank = rank_below(mask, min(max(mat, 0), nm));
     mslots[pix] = hit ? min(rank, kNslot - 1) : 0;
 }
 
@@ -266,4 +301,9 @@ VCT_EXPORT int vct_prepass(const float* gbuf, int ntiles, int gcols, int ld0, in
                                                  voxel, voxel_off, scal8, nm, res, nlev,
                                                  mscal, mlists, mslots);
     return launch_status();
+}
+
+// the kernel's report (common.cuh occupancy_info)
+VCT_EXPORT int vct_prepass_occupancy(int* info) {
+    return occupancy_info(prepass_kernel, kTile, 0, info);
 }

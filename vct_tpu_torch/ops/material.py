@@ -136,6 +136,45 @@ def material_plain(gbuf: Tensor, slots: Tensor, mscal: Tensor,
     return torch.cat([out, pad], dim=1)
 
 
+def corner_texels(gbuf: Tensor, slots: Tensor, mscal: Tensor,
+                  mlists: Tensor, resolution: int, tile: int = 256):
+    """Per pixel, what its three bilinear taps read, texels named by (row,
+    column) modulo the level's width: (the distinct texels of the 12
+    corners, the corners of the +u and -v taps that are none of the main
+    tap's 4 -- the heights csrc/material.cu loads beside the main tap's 4
+    texels).  Both are 0 for pixels that fetch nothing.  Where |tu| and
+    |tv| are below 2^24 a tap one level-0 texel away moves at most one
+    texel of the level, so the taps read at most 8 texels (the main 4, a
+    new column for +u, a new row for -v) and the kernel loads at most 4
+    heights; beyond 2^24 rounding can move it two."""
+    nlev = resolution.bit_length()
+    _, lvl, cnt = _entries(mscal, mlists, slots, tile)
+    ok = (cnt > 0) & (lvl >= 0) & (lvl < nlev)
+    lvl = torch.clamp(lvl, 0, nlev - 1).long()
+    rl_i = torch.clamp_min(torch.full_like(lvl, resolution) >> lvl, 1)
+    rl = rl_i.to(torch.float32)
+    d = torch.ldexp(torch.ones_like(rl), -lvl.to(torch.int32))
+    tu = gbuf[:, 15] * rl - 0.5
+    tv = (1.0 - gbuf[:, 16]) * rl - 0.5
+
+    def floor_i(x):
+        return torch.floor(x).to(torch.int32).long()
+
+    def key(j, i):
+        return torch.remainder(j, rl_i) * rl_i + torch.remainder(i, rl_i)
+
+    i0, j0, iu, jv = floor_i(tu), floor_i(tv), floor_i(tu + d), floor_i(tv - d)
+    main = torch.stack([key(j0 + a, i0 + b) for a in (0, 1) for b in (0, 1)],
+                       dim=1)
+    bump = torch.stack([key(j0 + a, iu + b) for a in (0, 1) for b in (0, 1)]
+                       + [key(jv + a, i0 + b) for a in (0, 1) for b in (0, 1)],
+                       dim=1)
+    srt = torch.sort(torch.cat([main, bump], dim=1), dim=1).values
+    distinct = 1 + (srt[:, 1:] != srt[:, :-1]).sum(dim=1)
+    loads = (bump[:, :, None] != main[:, None, :]).all(dim=2).sum(dim=1)
+    return torch.where(ok, distinct, 0), torch.where(ok, loads, 0)
+
+
 def material_cuda(gbuf: Tensor, slots: Tensor, mscal: Tensor,
                   mlists: Tensor, pages: Tensor, resolution: int,
                   tile: int = 256) -> Tensor:
@@ -154,9 +193,10 @@ def material_cuda(gbuf: Tensor, slots: Tensor, mscal: Tensor,
                        f"material kernel: expected contiguous {dt} CUDA "
                        f"{shape}, got {tuple(x.shape)} {x.dtype}")
     _build.require(gcols >= 20 and pages.dim() == 3
-                   and pages_resolution(pages) == resolution,
-                   "material kernel: G-buffer (n, >=20) and packed pages "
-                   "of this resolution")
+                   and pages_resolution(pages) == resolution
+                   and pages.data_ptr() % 16 == 0,
+                   "material kernel: G-buffer (n, >=20) and 16-byte aligned "
+                   "packed pages of this resolution")
     out = torch.empty((n, NOUT), dtype=torch.float32, device=gbuf.device)
     status = _build.library().vct_material(
         gbuf.data_ptr(), n, gcols, slots.data_ptr(), mscal.data_ptr(),

@@ -34,6 +34,7 @@ NWORDS = 128      # mlists row: slots 1.. as 4 words each, 4*(NSLOT-1) = 92
 THRESH = 14       # max per-axis texel footprint that fits a brick
 BCLIP = float(2 ** 22)    # texel bases clip here, exact in float32
 MAX_MATERIALS = 64        # the kernel's per-tile material table
+MAX_LEVELS = 32           # the kernel tests one level a lane of a warp
 
 LAUNCHES = 0
 
@@ -155,13 +156,16 @@ def prepass_cuda(gbuf: Tensor, *, light_dims, field_dims, voxel: float,
     global LAUNCHES
     n, gcols = gbuf.shape
     _build.require(gbuf.is_cuda and gbuf.dtype == torch.float32
-                   and gbuf.is_contiguous() and gcols >= 20,
-                   "prepass kernel takes a contiguous float32 (n, >=20) "
-                   "CUDA G-buffer")
+                   and gbuf.is_contiguous() and gcols >= 20 and gcols % 4 == 0
+                   and gbuf.data_ptr() % 16 == 0,
+                   "prepass kernel takes a contiguous, 16-byte aligned "
+                   "float32 (n, >=20) CUDA G-buffer of 4k columns")
     _build.require(n % T.TILE == 0,
                    f"prepass kernel: {T.TILE}-pixel tiles, got n={n}")
     _build.require(_halving(light_dims) and _halving(field_dims),
                    "prepass kernel: level dims must halve level to level")
+    _build.require(max(len(light_dims), len(field_dims)) <= MAX_LEVELS,
+                   f"prepass kernel: at most {MAX_LEVELS} levels (one a lane)")
     ntiles = n // T.TILE
     dev = gbuf.device
     scal8 = torch.empty((ntiles, 8), dtype=torch.int32, device=dev)
@@ -169,9 +173,9 @@ def prepass_cuda(gbuf: Tensor, *, light_dims, field_dims, voxel: float,
     mscal = mlists = mslots = None
     if atlas is not None:
         nm, res, nlev = atlas
-        _build.require(0 < nm <= MAX_MATERIALS,
-                       f"prepass kernel: 1..{MAX_MATERIALS} materials, "
-                       f"got {nm}")
+        _build.require(0 < nm <= MAX_MATERIALS and nlev <= MAX_LEVELS,
+                       f"prepass kernel: 1..{MAX_MATERIALS} materials and "
+                       f"at most {MAX_LEVELS} atlas levels, got {nm}, {nlev}")
         mscal = torch.empty((ntiles, NSCAL), dtype=torch.int32, device=dev)
         mlists = torch.empty((ntiles, NWORDS), dtype=torch.int32, device=dev)
         mslots = torch.empty((n, 1), dtype=torch.int32, device=dev)
@@ -210,3 +214,85 @@ def prepass_tiles(gbuf: Tensor, *, light_dims, field_dims, voxel: float,
     if _build.uses_kernel(gbuf):
         return prepass_cuda(gbuf, **kw)
     return prepass_plain(gbuf, **kw)
+
+
+STRESS_KINDS = ("all miss", "one hit", "every material", "every material, "
+                "huge uv", "|tu| near 2^24", "wrap corner, level 0",
+                "wrap corner, R_l = 4", "random")
+
+
+def stress_gbuffer(seed: int = 0, *, world_size: float,
+                   resolution: int = 64, num_materials: int = MAX_MATERIALS,
+                   reps: int = 2) -> np.ndarray:
+    """A tile-major (len(STRESS_KINDS) * reps * 256, 32) float32 G-buffer,
+    made with numpy from `seed`, of the tiles a real frame rarely holds, to
+    hold the prepass and material kernels to their plain versions.  Tile
+    kind k (STRESS_KINDS[k]) fills tiles k*reps .. (k+1)*reps - 1:
+      0 every pixel a miss;
+      1 a single hit pixel;
+      2 every material present (more than NSLOT: the slots clamp), each in
+        a small uv box in [0, 1];
+      3 the same around uv up to +-1e7, whose texel bases clip at +-BCLIP;
+      4 one material in a small box near u, 1 - v = 2^24 / R (level 0:
+        |tu| near 2^24, where a tap one texel away can round to two);
+      5 one material at level 0 on its page's wrap corner (i0 = R - 1,
+        j0 = 0);
+      6 one material on the wrap corner of the level of R_l = 4, its box
+        held to [0, 2] in u and 1 - v by two pixels;
+      7 random materials and uv in [-1, 2], a tenth of the pixels missing.
+    Positions lie in tile-coherent clusters inside the world, normals and
+    geometric normals are random unit vectors."""
+    rng = np.random.default_rng(seed)
+    r, nm, tile = resolution, num_materials, T.TILE
+    ntiles = len(STRESS_KINDS) * reps
+    n = ntiles * tile
+    g = np.zeros((n, 32), np.float32)
+    base = rng.uniform(-0.4, 0.4, (ntiles, 1, 3)) * world_size
+    spread = rng.uniform(0.1, 8.0, (ntiles, 1, 1))
+    g[:, 0:3] = (base + spread * rng.uniform(-1, 1, (ntiles, tile, 3))
+                 ).reshape(n, 3)
+    for col in (3, 6):
+        v = rng.normal(size=(n, 3))
+        g[:, col:col + 3] = v / np.linalg.norm(v, axis=1, keepdims=True)
+    uq = np.zeros((ntiles, tile, 2))             # (u, 1 - v) per pixel
+    mat = np.zeros((ntiles, tile), np.int64)
+    hit = np.ones((ntiles, tile), np.float32)
+    for t in range(ntiles):
+        kind = t // reps
+        if kind == 0:
+            hit[t] = 0.0
+        elif kind == 1:
+            hit[t] = 0.0
+            hit[t, rng.integers(tile)] = 1.0
+            mat[t] = rng.integers(nm)
+            uq[t] = rng.uniform(0, 1, 2)
+        elif kind in (2, 3):
+            mat[t] = np.arange(tile) % nm
+            if kind == 2:
+                centre = rng.uniform(0, 1, (nm, 2))
+            else:
+                centre = (rng.choice([-1.0, 1.0], (nm, 2))
+                          * 10.0 ** rng.uniform(5, 7, (nm, 2)))
+            uq[t] = centre[mat[t]] + rng.uniform(0, 0.05, (tile, 2))
+        elif kind == 4:
+            mat[t] = rng.integers(nm)
+            uq[t] = (2.0 ** 24 + rng.uniform(0, 3, (tile, 2))) / r
+        elif kind in (5, 6):
+            rl = r if kind == 5 else 4
+            mat[t] = rng.integers(nm)
+            # tu in [R_l - 0.9, R_l - 0.01), tv in [0.01, 0.9): the +u tap
+            # crosses the wrap column, the -v tap the wrap row
+            uq[t, :, 0] = rng.uniform(rl - 0.4, rl + 0.49, tile) / rl
+            uq[t, :, 1] = rng.uniform(0.51, 1.4, tile) / rl
+            if kind == 6:
+                uq[t, 0] = 0.0
+                uq[t, 1] = 2.0
+        else:
+            mat[t] = rng.integers(0, nm, tile)
+            uq[t] = rng.uniform(-1, 2, (tile, 2))
+            hit[t] = (rng.uniform(size=tile) >= 0.1).astype(np.float32)
+    g[:, 15] = uq[..., 0].reshape(n)
+    g[:, 16] = (1.0 - uq[..., 1]).reshape(n)
+    g[:, 17] = mat.reshape(n)
+    g[:, 19] = hit.reshape(n)
+    return g
