@@ -7,10 +7,10 @@ Run from the repository root, on a machine with one CUDA card and nvcc:
 
 Phases, each reported on its own lines:
   (a) the card (nvidia-smi name and power limit), the kernel build with
-      ptxas's registers and spills, and for the tap, raycast, binned
-      raycast, specular march, prepass and material kernels the
-      registers, spill and shared bytes and resident warps per SM the
-      card reports;
+      ptxas's registers and spills, and for the tap, raycast, streamed
+      raycast, binned raycast, specular march, prepass and material
+      kernels the registers, spill and shared bytes and resident warps
+      per SM the card reports;
   (c) four paths at full width, 1920x1080, each through prepare_scene ->
       build_voxel_state -> build_frame_tables -> render_camera_pass with
       every kernel's launch count set to 0 just before and read just
@@ -33,8 +33,13 @@ Phases, each reported on its own lines:
       plain PyTorch path on the CPU, and for Cornell a determinism check,
       the whole-table raycast against its plain version (hit, material id
       and t bit for bit) and the prepass's scal8 against its plain
-      version; at 287k the streamed raycast on that frame's alpha re-cast
-      input, checked, timed and bounded;
+      version; the streamed raycast on three alpha re-cast inputs, at
+      287k and on the atrium: (a) the frame's own first pass at the bench
+      camera (fast.recast_inputs; no candidate there is masked), (b) the
+      stress input, every candidate re-cast (recast_inputs without the
+      alpha test), (c) the frame's own first pass at EDGE_CAMERA, which
+      sees the banners' masked edge; each against its plain version, its
+      kept-row counts against stream_walk_plain's, timed and bounded;
   (b) each kernel against its plain PyTorch version on the card, at the
       shapes the atrium paths give it (the binned raycast at 287,232
       triangles, also against the whole-table kernel; the specular march
@@ -49,7 +54,11 @@ Phases, each reported on its own lines:
       floor beside the bound: the bytes the 32-byte sectors of the
       G-buffer columns they read make them move); the prepass and the
       material fetch also on `prepass.stress_gbuffer`'s tiles (all miss,
-      one hit, 64 materials, huge uv, wrap corners), bit for bit;
+      one hit, 64 materials, huge uv, wrap corners), bit for bit; the
+      streamed raycast timed from a CUDA graph of its launches, since on
+      inputs with few live rays it runs faster than its Python wrapper
+      launches, and by CUDA events around launches from Python beside
+      (the way every other kernel, and the parent's, is timed);
   (d) the result: a JSON line of kernels, then {"ok": true, ...} last.
 Any failure raises: the script exits non-zero and prints no result line.
 It exits non-zero at once when CUDA is unavailable.
@@ -74,6 +83,9 @@ KERNEL_BATCH = 10        # kernel launches per timing sample
 SEED = 0
 CORNELL_CAMERA = dict(position=(3.0, 2.0, 40.0))
 ATRIUM_CAMERA = dict(position=(48.0, -10.0, 0.0), yaw=180.0)  # bench.py:122
+# above the nave: sees the banners' alpha-masked edge, which the bench
+# camera does not (tests/test_torch_atrium.py EDGE_CAMERA)
+EDGE_CAMERA = dict(position=(48.0, 20.0, 0.0), yaw=180.0, pitch=-10.0)
 
 # H100 SXM peaks (NVIDIA data sheet) for the bound: HBM bytes/s and dense
 # float32 outside the tensor cores.  67e12 counts a fused multiply-add as
@@ -127,6 +139,35 @@ def elapsed_ms(fn, reps: int, batch: int = 1) -> list:
         stop.record()
         sync()
         out.append(start.elapsed_time(stop) / batch)
+    return out
+
+
+def graph_ms(fn, reps: int, batch: int) -> list:
+    """Per-call device time of fn() in ms from a CUDA graph of `batch`
+    calls, replayed `reps` times between CUDA events (after a warm-up):
+    for a kernel faster than its Python wrapper, elapsed_ms times the
+    host's launches, and the graph pays them once, at capture."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(batch):
+            fn()
+    graph.replay()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        sync()
+        out.append(start.elapsed_time(stop) / batch)
+    del graph
     return out
 
 
@@ -254,6 +295,7 @@ def main() -> int:
             (f"tap, {8 * nb} channels", "vct_tap_occupancy", (nb, 8 * nb)),
             (f"tap, {4 * nb} channels", "vct_tap_occupancy", (nb, 4 * nb)),
             ("raycast", "vct_raycast_occupancy", ()),
+            ("raycast_stream", "vct_raycast_stream_occupancy", ()),
             ("binrast", "vct_binrast_occupancy", ()),
             ("specmarch", "vct_specmarch_occupancy", ()),
             ("prepass", "vct_prepass_occupancy", ()),
@@ -323,70 +365,148 @@ def main() -> int:
         if not bool(torch.isfinite(img).all()):
             fail(f"{what}: image has non-finite values")
 
+    def camera_rays(origins, dirs):
+        """Tile-ordered rays and their origin, as render_frame makes them."""
+        d = F._tile_order(F._pad_edge(dirs, hp, wp), hp, wp).contiguous()
+        return d, origins.reshape(-1, 3)[0].contiguous()
+
     def primary_gbuf(p):
-        d = F._tile_order(F._pad_edge(p["dirs"], hp, wp), hp, wp).contiguous()
-        origin = p["origins"].reshape(-1, 3)[0].contiguous()
+        d, origin = camera_rays(p["origins"], p["dirs"])
         m = p["mats"]
         isect, attrs = raycast.pack_tables(p["ds"], origin, m.albedo,
                                            m.specular, m.shininess)
         return d, origin, isect, attrs
 
-    def alpha_input(g0, mats):
-        """The alpha re-cast's first pass as alpha_resolve sees it:
-        candidates (hit pixels of maskable materials), how many are masked,
-        the budget, and the candidate pixels."""
-        thresh = cfg.render.alpha_threshold
-        maskable = (mats.atlas.albedo[..., 3] < thresh).flatten(1).any(dim=1)
-        cand = (g0[:, 19] > 0.5) & maskable[g0[:, 17].long()]
-        cidx = torch.nonzero(cand)[:, 0]
-        alpha = TX.sample_atlas(mats.atlas.albedo, g0[cidx, 17].long(),
-                                g0[cidx, 15:17])[:, 3]
-        budget = -(-min(cfg.render.alpha_mask_budget, g0.shape[0])
-                   // raycast.TILE) * raycast.TILE
-        return (int(cidx.numel()), int((alpha < thresh).sum()), budget,
-                cidx)
+    def edge_gbuf(ds, mats, binned):
+        """The G-buffer at EDGE_CAMERA through the whole-table or the binned
+        raycast: (G-buffer, tile-ordered rays, origin)."""
+        origins, dirs = CAM.primary_rays(CAM.Camera(**EDGE_CAMERA), WIDTH,
+                                         HEIGHT, device=dev)
+        d, origin = camera_rays(origins, dirs)
+        if not binned:
+            return raycast.raycast_gbuf24(d, origin, *raycast.pack_tables(
+                ds, origin, mats.albedo, mats.specular,
+                mats.shininess)), d, origin
+        rows, attrs = binrast.pack_rows(ds, origin, mats.albedo,
+                                        mats.specular, mats.shininess)
+        scal, table, _ = binrast.bin_triangles(
+            ds, origin, d, F._pad_edge(dirs, hp, wp), rows)
+        return binrast.raycast_binned(d, origin, scal, table, attrs), d, origin
 
-    def stream_input(g0, cidx, budget, d_t, ds, origin, mats):
-        """Every alpha candidate, padded to the budget, with tmin just
-        past its first hit, in alpha_resolve's direction order: the
-        streamed raycast's arguments."""
-        nc = min(int(cidx.numel()), budget)
-        sidx = torch.zeros(budget, dtype=torch.long, device=dev)
-        sidx[:nc] = cidx[:nc]
-        valid = torch.arange(budget, device=dev) < nc
-        ds_ = d_t[sidx]
-        qd = torch.clamp((ds_ + 1.0) * 15.999, 0.0, 31.0).to(torch.int32)
-        key = (qd[:, 0] << 10) | (qd[:, 1] << 5) | qd[:, 2]
-        order = torch.argsort(torch.where(valid, key, 2 ** 30), stable=True)
-        sidx, valid = sidx[order], valid[order]
-        ds_ = ds_[order].contiguous()
-        tmin = torch.where(valid, g0[sidx, 18] * (1.0 + 1e-5) + 1e-4,
-                           3.0e38)
+    def n_candidates(g0, mats):
+        """The alpha re-cast's candidates: hit pixels of maskable
+        materials."""
+        return int(F._candidates(g0, F._maskable(
+            mats, cfg.render.alpha_threshold)).sum())
+
+    def stream_case(what, g0, d_t, ds, origin, mats, alpha_test=True,
+                    plain_chunk=16384):
+        """The streamed raycast on the first alpha re-cast pass of this
+        G-buffer, as fast.recast_inputs builds it (alpha_test False: every
+        candidate re-cast, through its private _recast_inputs).  The kernel against raycast_stream_plain (hit
+        and material ids equal, max error <= 1e-4, t bit-equal expected);
+        its own kept-row counts against stream_walk_plain's over
+        stream_cull_plain's rows, which must be equal; its time and bound.
+        The bound counts, per warp part (stream_parts), its live rays
+        (stream_live) times its kept rows of the needed chunks: the first
+        listed and every later one whose near bound lies below the final
+        best t of a live ray of the part; and the bytes of the rays and
+        minimum and miss distances in, the G-buffer out, the needed list
+        words and the needed chunks' table rows (the winners' attribute
+        rows left out).  Beside it the tile bound: every ray against every
+        row of the chunks its tile needs by the tile's farthest best t,
+        dead rays included, and the whole table read once.  Returns (args,
+        max error, kernel ms, bytes, hit tests needed)."""
+        _, masked, d_s, tmin = F._recast_inputs(cfg, mats, g0, d_t,
+                                                alpha_test=alpha_test)
         s_isect, s_attrs, spheres = raycast.pack_tables_stream(
             ds, origin, mats.albedo, mats.specular, mats.shininess)
         lists, counts = raycast.select_chunks(
-            ds_.reshape(-1, raycast.TILE, 3), spheres)
-        miss = raycast.miss_distance(ds_, spheres)
-        return nc, (ds_, origin, s_isect, s_attrs, lists, counts, tmin, miss)
+            d_s.reshape(-1, raycast.TILE, 3), spheres)
+        miss = raycast.miss_distance(d_s, spheres)
+        sargs = (d_s, origin, s_isect, s_attrs, lists, counts, tmin, miss)
+        n, gsz = d_s.shape[0], raycast.GROUP
+        ng = n // gsz
+        kept_k = torch.zeros(ng, dtype=torch.int32, device=dev)
+        gs_k = raycast.raycast_stream_cuda(*sargs, kept=kept_k)
+        gs_p = raycast.raycast_stream_plain(*sargs, chunk=plain_chunk)
+        err = maxerr(gs_k, gs_p)
+        same = [torch.equal(gs_k[:, c], gs_p[:, c]) for c in (19, 17, 18)]
+        if not (same[0] and same[1] and err <= 1e-4):
+            fail(f"the streamed raycast disagrees with its plain version on "
+                 f"{what}: hit, material, t equal {same}, max error {err:.3e}")
+        keep = raycast.stream_cull_plain(d_s, s_isect, lists, counts, tmin,
+                                         miss)
+        gs_w, kept_p = raycast.stream_walk_plain(*sargs, keep)
+        same_kept = torch.equal(kept_k, kept_p)
+        if not same_kept:
+            fail(f"the streamed kernel's kept rows differ from "
+                 f"stream_walk_plain's on {what}: "
+                 f"{int((kept_k != kept_p).sum())} groups")
+        ms = graph_ms(lambda: raycast.raycast_stream_cuda(*sargs),
+                      KERNEL_REPS, KERNEL_BATCH)
+        launch_ms = elapsed_ms(lambda: raycast.raycast_stream_cuda(*sargs),
+                               KERNEL_REPS, KERNEL_BATCH)
 
-    def stream_work(gs_p, sargs):
-        """(bytes, hit tests, chunks needed) of the streamed raycast on
-        these inputs, from its plain version's result: the rays in, the
-        G-buffer out, the lists and the chunk table read once, and per tile
-        the first listed chunk and every later one whose near bound is
-        below the tile's final farthest best t (the kernel's stop cannot
-        skip those)."""
-        ds_, _, s_isect, _, lists, counts, _, miss = sargs
+        parts = raycast.stream_parts(d_s, tmin, miss)
+        n_split = int(parts[:, 1].any(dim=1).sum())
+        live = raycast.stream_live(d_s, tmin, miss).reshape(ng, gsz)
+        walks = live[:, None, :] & parts
         best = torch.where(gs_p[:, 19] > 0.5, gs_p[:, 18], miss)
+        length = keep.shape[2]
+        tile = torch.arange(ng, device=dev) // (raycast.TILE // gsz)
+        pos = torch.arange(length, device=dev)[None, :]
+        listed = pos < counts[tile][:, None].long()
+        near = (lists[tile, :length] >> 16).float()
+        top = torch.where(walks, best.reshape(ng, 1, gsz),
+                          -raycast.BIG).amax(dim=2)
+        needed = (listed[:, None] & walks.any(dim=2)[:, :, None]
+                  & ((pos == 0) | (near[:, None] < top[:, :, None])))
+        kept_needed = (keep & needed[..., None]).sum(dim=3)
+        tests = int((walks.sum(dim=2) * kept_needed.sum(dim=2)).sum())
+        chunks = (lists[tile, :length] & 0xFFFF)[needed.any(dim=1)]
+        nbytes = (n * (12 + 4 + 4 + raycast.NOUT * 4) + counts.numel() * 4
+                  + int(needed.any(dim=1).reshape(-1, raycast.TILE // gsz,
+                                                  length)
+                        .any(dim=1).sum()) * 4
+                  + unique_count(chunks) * raycast.CHUNK * raycast.NISECT * 4)
+        # the tile bound
         tmax = best.reshape(-1, raycast.TILE).amax(dim=1)
-        near = (lists >> 16).float()
-        pos = torch.arange(lists.shape[1], device=dev)
-        needed = (pos[None, :] < counts[:, None]) & (
-            (pos[None, :] == 0) | (near < tmax[:, None]))
-        n_needed = int(needed.sum())
-        nbytes = (ds_.shape[0] * (12 + 4 + 4 + 128) + lists.numel() * 4
-                  + s_isect.shape[0] * 4 * (16 + 48))
-        return nbytes, n_needed * raycast.CHUNK * raycast.TILE, n_needed
+        tpos = torch.arange(lists.shape[1], device=dev)[None, :]
+        old_needed = int(((tpos < counts[:, None]) & (
+            (tpos == 0) | ((lists >> 16).float() < tmax[:, None]))).sum())
+        old_bytes = (n * (12 + 4 + 4 + 128) + lists.numel() * 4
+                     + s_isect.shape[0] * 4 * (16 + 48))
+        new_b = bound(nbytes, tests * OPS_PER_HIT_TEST, FP32_RN_OPS_PER_S)
+        old_b = bound(old_bytes, old_needed * raycast.CHUNK * raycast.TILE
+                      * OPS_PER_HIT_TEST, FP32_RN_OPS_PER_S)
+        walking = live.any(dim=1)
+        kept_walk = kept_k[walking].float()
+        say(f"streamed raycast, {what}: {n_candidates(g0, mats)} candidate "
+            f"pixels, {int(masked.sum())} masked and re-cast (alpha test "
+            f"{alpha_test}); {n} rays, {int(live.sum())} live in "
+            f"{int(walking.sum())} of {ng} warps; lists hold "
+            f"{int(counts.sum())} chunks (mean "
+            f"{float(counts.float().mean()):.2f} a tile), the warps' parts "
+            f"need {int(needed.sum())} (part, chunk) pairs; kept rows a "
+            f"walking warp over the chunks it tested: mean "
+            f"{float(kept_walk.mean()) if kept_walk.numel() else 0.0:.3f}, "
+            f"max {int(kept_k.max())}, {int(kept_k.sum())} in all, equal to "
+            f"stream_walk_plain's {same_kept}; hit tests: {tests} needed "
+            f"(live rays x kept rows of needed chunks), "
+            f"{int(kept_k.sum()) * gsz} made; max error {err:.3e} (tolerance "
+            f"1e-4), hit, material, t bit-equal {same}, the walk bit-equal "
+            f"to the plain version {torch.equal(gs_w, gs_p)}; "
+            f"{n_split} warps split; {statistics.median(ms):.4f} ms (CUDA "
+            f"graph of {KERNEL_BATCH} launches, median over {ms}; by events "
+            f"around {KERNEL_BATCH} launches from Python "
+            f"{statistics.median(launch_ms):.4f}); bound "
+            f"{new_b[0]:.4f} ms ({new_b[1]}: {nbytes:.4g} B, "
+            f"{tests * OPS_PER_HIT_TEST:.4g} ops at "
+            f"{FP32_RN_OPS_PER_S:.4g}/s);"
+            f" tile bound {old_b[0]:.4f} ms ({old_b[1]}: {old_needed} "
+            f"(tile, chunk) pairs needed, {old_bytes:.4g} B)")
+        return sargs, err, ms, nbytes, tests
 
     def timings(p, what, builds=True, run_cfg=cfg):
         ms = {}
@@ -534,10 +654,10 @@ def main() -> int:
     # the alpha re-cast's first pass at 1080p, as alpha_resolve sees it
     d_t, origin, isect, attrs = primary_gbuf(p)
     g0 = raycast.raycast_gbuf24(d_t, origin, isect, attrs)
-    n_cand, n_masked, budget, cidx = alpha_input(g0, mats)
+    n_cand = n_candidates(g0, mats)
     say(f"alpha re-cast at {WIDTH}x{HEIGHT}: {n_cand} candidate pixels "
-        f"(hit pixels of maskable materials), {n_masked} masked and "
-        f"re-cast, budget {budget}, streamed-raycast launches "
+        f"(hit pixels of maskable materials), budget "
+        f"{cfg.render.alpha_mask_budget}, streamed-raycast launches "
         f"{launches['raycast_stream']}")
     if n_cand == 0:
         fail("no alpha candidates from the bench camera")
@@ -717,28 +837,23 @@ def main() -> int:
                floor=(g.shape[0], m_cols, m_fixed))
     stress_check(pkw)
 
-    # streamed raycast: every alpha candidate, padded to the budget, with
-    # tmin just past its first hit, in alpha_resolve's direction order
-    nc, sargs = stream_input(g0, cidx, budget, d_t, p["ds"], origin, mats)
-    counts = sargs[5]
-    gs_k = raycast.raycast_stream_cuda(*sargs)
-    gs_p = raycast.raycast_stream_plain(*sargs)
-    if not (torch.equal(gs_k[:, 19], gs_p[:, 19])
-            and torch.equal(gs_k[:, 17], gs_p[:, 17])):
-        fail("streamed raycast hit or material ids differ from the plain "
-             "version")
-    n_behind = int((gs_k[:, 19] > 0.5).sum())
-    s_bytes, tests, n_needed = stream_work(gs_p, sargs)
-    say(f"streamed raycast input: {nc} candidates in {budget} rays, "
-        f"{n_behind} hit a surface behind their first hit; lists hold "
-        f"{int(counts.sum())} chunks, {n_needed} needed")
+    # streamed raycast on the atrium: (a) the frame's own first re-cast
+    # pass, (b) every candidate re-cast (the kernels line's row), (c) the
+    # frame's own pass at EDGE_CAMERA
+    stream_case("atrium (a) the frame's own input, bench camera", g0, d_t,
+                p["ds"], origin, mats)
+    sargs, s_err, s_ms, s_bytes, s_tests = stream_case(
+        "atrium (b) stress: every candidate re-cast, bench camera", g0, d_t,
+        p["ds"], origin, mats, alpha_test=False)
+    g_e, d_e, origin_e = edge_gbuf(p["ds"], mats, binned=False)
+    stream_case("atrium (c) the frame's own input, edge camera", g_e, d_e,
+                p["ds"], origin_e, mats)
+    del g_e, d_e
     kernel_row("raycast_stream", "vct_tpu_torch/ops/csrc/raycast_stream.cu",
-               "vct_tpu/ops/raycast_pallas.py:769", maxerr(gs_k, gs_p), 1e-4,
-               elapsed_ms(lambda: raycast.raycast_stream_cuda(*sargs),
-                          KERNEL_REPS, KERNEL_BATCH),
+               "vct_tpu/ops/raycast_pallas.py:769", s_err, 1e-4, s_ms,
                elapsed_ms(lambda: raycast.raycast_stream_plain(*sargs),
                           PLAIN_REPS),
-               s_bytes, tests * OPS_PER_HIT_TEST, rate=FP32_RN_OPS_PER_S)
+               s_bytes, s_tests * OPS_PER_HIT_TEST, rate=FP32_RN_OPS_PER_S)
 
     # tap: the frame's pixels at their prepass levels
     voxel = cfg.grid.voxel_world_size
@@ -780,7 +895,7 @@ def main() -> int:
         f"{cells['field']}")
     say(f"peak device memory (paths 1-2 and their kernels): "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del g, g0, gs_k, gs_p, outs, plains, m_k, m_p, targs, sargs
+    del g, g0, outs, plains, m_k, m_p, targs, sargs
 
     # ---- (c3) bench.py's frame: the atrium subdivided 4 times -----------
     # the same surfaces in 287,232 triangles, on the base atrium's samples
@@ -889,41 +1004,22 @@ def main() -> int:
         fail("the binned raycast disagrees with the whole-table kernel")
     del gb_w
 
-    # the alpha re-cast at 287k: its candidates, masked pixels and chunks
-    n_cand3, n_masked3, _, cidx3 = alpha_input(gb_k, m3)
-    nc3, sargs3 = stream_input(gb_k, cidx3, budget, d3, ds_hi, origin3, m3)
-    counts3 = sargs3[5]
+    # the alpha re-cast at 287k: inputs (a), (b) and (c), as on the atrium
+    n_cand3 = n_candidates(gb_k, m3)
     say(f"alpha re-cast at {ds_hi.v0.shape[0]} triangles: {n_cand3} "
-        f"candidate pixels, {n_masked3} masked and re-cast, budget "
-        f"{budget}; {sargs3[2].shape[0] // raycast.CHUNK} chunks, the "
-        f"first pass's lists hold {int(counts3.sum())} (mean "
-        f"{float(counts3.float().mean()):.1f} per 256-ray tile); "
+        f"candidate pixels, {-(-ds_hi.v0.shape[0] // raycast.CHUNK)} chunks; "
         f"streamed-raycast launches {launches3['raycast_stream']}")
     expect(launches3, ("mip", "prepass", "tap", "material", "binrast")
            + (("raycast_stream",) if n_cand3 else ()),
            ("raycast", "specmarch"), "atrium x4")
-    # the streamed raycast on this input: checked as on the atrium, timed,
-    # and bounded by the tests its chunks need (the next kernel to redesign
-    # is ranked on these numbers)
-    gs3_k = raycast.raycast_stream_cuda(*sargs3)
-    gs3_p = raycast.raycast_stream_plain(*sargs3, chunk=1024)
-    err3 = maxerr(gs3_k, gs3_p)
-    if not (torch.equal(gs3_k[:, 19], gs3_p[:, 19])
-            and torch.equal(gs3_k[:, 17], gs3_p[:, 17]) and err3 <= 1e-4):
-        fail("the streamed raycast disagrees with its plain version at "
-             "287k triangles")
-    s3_bytes, tests3, needed3 = stream_work(gs3_p, sargs3)
-    s3_ms = elapsed_ms(lambda: raycast.raycast_stream_cuda(*sargs3),
-                       KERNEL_REPS, KERNEL_BATCH)
-    s3_bound = bound(s3_bytes, tests3 * OPS_PER_HIT_TEST, FP32_RN_OPS_PER_S)
-    say(f"streamed raycast at {ds_hi.v0.shape[0]} triangles: {nc3} "
-        f"candidates in {budget} rays, lists hold {int(counts3.sum())} "
-        f"chunks, {needed3} needed ({tests3} hit tests); max error "
-        f"{err3:.3e} (tolerance 1e-4), hit and material ids equal; "
-        f"{statistics.median(s3_ms):.4f} ms (median over {s3_ms}), bound "
-        f"{s3_bound[0]:.4f} ms ({s3_bound[1]}: {s3_bytes:.4g} B, "
-        f"{tests3 * OPS_PER_HIT_TEST:.4g} ops at {FP32_RN_OPS_PER_S:.4g}/s)")
-    del sargs3, gs3_k, gs3_p
+    for what, test in (("(a) the frame's own input", True),
+                       ("(b) stress: every candidate re-cast", False)):
+        stream_case(f"atrium x4 {what}, bench camera", gb_k, d3, ds_hi,
+                    origin3, m3, alpha_test=test, plain_chunk=1024)
+    g_e, d_e, origin_e = edge_gbuf(ds_hi, m3, binned=True)
+    stream_case("atrium x4 (c) the frame's own input, edge camera", g_e, d_e,
+                ds_hi, origin_e, m3, plain_chunk=1024)
+    del g_e, d_e
 
     # binrast's row: the hit tests left after each tile's cull of its
     # strip's walk (walk_cull_plain predicts the kept rows exactly, and the

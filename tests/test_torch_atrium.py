@@ -52,6 +52,10 @@ torch.set_num_threads(1)    # all torch math on the main thread: PERF.md §7 ite
 CPU = torch.device("cpu")
 W, H = 96, 64
 CAMERA = dict(position=(48.0, -10.0, 0.0), yaw=180.0)
+# above the nave, looking down the hall: sees the banners' scalloped,
+# alpha-masked edge, which the bench camera does not (chip_smoke.py's
+# input (c))
+EDGE_CAMERA = dict(position=(48.0, 20.0, 0.0), yaw=180.0, pitch=-10.0)
 
 
 def _cfg(make_preset, name="sponza256"):
@@ -202,6 +206,32 @@ def test_alpha_resolve_recasts_banner_hits(port_run):
     assert bool((changed <= cand).all())
     assert bool(((g1[changed, 18] > g0[changed, 18])
                  | (g1[changed, 19] == 0)).all())
+
+
+def test_alpha_resolve_recasts_masked_edge(port_run):
+    """From EDGE_CAMERA the first pass has masked candidates, and
+    alpha_resolve rewrites exactly their rows: each now hits a surface
+    farther along the same ray."""
+    cfg, ds, mats = port_run[:3]
+    origins, dirs = CAM.primary_rays(CAM.Camera(**EDGE_CAMERA), W, H,
+                                     device=CPU)
+    hp, wp = -(-H // F.TSY) * F.TSY, -(-W // 64) * 64
+    d = F._tile_order(F._pad_edge(dirs, hp, wp), hp, wp).contiguous()
+    origin = origins.reshape(-1, 3)[0].contiguous()
+    g0 = RP.raycast_gbuf24(d, origin, *RP.pack_tables(
+        ds, origin, mats.albedo, mats.specular, mats.shininess))
+    idx, masked, _, _ = F.recast_inputs(cfg, mats, g0, d)
+    n_masked = int(masked.sum())
+    assert n_masked > 0
+    g1 = F.alpha_resolve(cfg, ds, mats, g0, d, origin)
+    changed = (g1 != g0).any(dim=1)
+    assert int(changed.sum()) == n_masked
+    assert bool(changed[idx[masked]].all())
+    assert bool((g1[changed, 19] > 0.5).all())
+    assert bool((g1[changed, 18] > g0[changed, 18]).all())
+    np.testing.assert_allclose(
+        g1[changed, 0:3].numpy(),
+        (origin + g1[changed, 18:19] * d[changed]).numpy(), atol=1e-4)
 
 
 # ---- tests/test_alpha_mask.py's fast-path cases ---------------------------

@@ -46,8 +46,9 @@ SIGNATURES = {
     # rows_per_mat, res, out, stream
     "vct_material": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     # dirs, origin, isect, attrs, lists, ncol, counts, tmin, miss, nrt,
-    # out, stream
-    "vct_raycast_stream": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P),
+    # out, kept (or null), stream
+    "vct_raycast_stream": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
+                           _P),
     # gbuf, ntiles, gcols, scal8, bumpn, campos, light, ld0, field, fd0,
     # cfield, consts, nb, ncones, half_ws, voxel, voxel_off, out, stream
     "vct_tap": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _I,
@@ -62,6 +63,7 @@ SIGNATURES = {
     # bytes a thread, shared bytes a block, resident warps per SM
     "vct_tap_occupancy": (_I, _I, _P),
     "vct_raycast_occupancy": (_P,),
+    "vct_raycast_stream_occupancy": (_P,),
     "vct_binrast_occupancy": (_P,),
     "vct_specmarch_occupancy": (_P,),
     "vct_prepass_occupancy": (_P,),

@@ -63,7 +63,7 @@ binned_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
     const int strip = tile / kTilesPerStrip;
     const long long r = static_cast<long long>(tile) * kBlock + threadIdx.x;
     const float d0 = dirs[3 * r], d1 = dirs[3 * r + 1], d2 = dirs[3 * r + 2];
-    const Cone cone = block_cone(d0, d1, d2, s_part);
+    const Cone cone = group_cone(d0, d1, d2, true, s_part);
 
     const long long off = scal[strip];
     const int gseg = scal[ns + strip];
@@ -89,7 +89,7 @@ binned_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
         cast_survivors(d0, d1, d2, s_tri, s_id, cnt, &best, &win, &bu, &bv);
     }
     if (kept != nullptr && threadIdx.x == 0) kept[tile] = nkept;
-    store_rows(d0, d1, d2, origin, attrs, best, win, bu, bv, s_out, kBlock,
+    store_rows(d0, d1, d2, origin, attrs, best, kBig, win, bu, bv, s_out, kBlock,
                out + static_cast<long long>(tile) * kBlock * kOut);
 }
 

@@ -57,7 +57,7 @@ raycast_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
     const float d0 = live ? dirs[3 * r + 0] : 0.0f;
     const float d1 = live ? dirs[3 * r + 1] : 0.0f;
     const float d2 = live ? dirs[3 * r + 2] : 0.0f;
-    const Cone cone = block_cone(d0, d1, d2, s_part);
+    const Cone cone = group_cone(d0, d1, d2, true, s_part);
 
     float best = kBig;
     int win = -1;
@@ -75,7 +75,7 @@ raycast_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
         const int cnt = compact(keep, row, j, s_tri, s_id, s_cnt);
         cast_survivors(d0, d1, d2, s_tri, s_id, cnt, &best, &win, &bu, &bv);
     }
-    store_rows(d0, d1, d2, origin, attrs, best, win, bu, bv, s_out,
+    store_rows(d0, d1, d2, origin, attrs, best, kBig, win, bu, bv, s_out,
                min(kBlock, n - static_cast<int>(blockIdx.x) * kBlock),
                out + static_cast<long long>(blockIdx.x) * kBlock * kOut);
 }

@@ -4,11 +4,13 @@
 // _finish_gbuf), in exact float32: every multiply and add rounds on its
 // own, because the origin-folded products are ~100x larger than their
 // differences and a fused multiply-add flips `valid` on thin and grazing
-// triangles.  And the per-tile cone cull of the whole-table and binned
-// kernels (ops/raycast.py tile_cones and cull_rows state it in the same
-// float order): the block's direction cone, the half-space test of one row
-// against it, the ballot compaction of a batch's survivors, the hit tests
-// against them and the G-buffer rows' way out through shared memory.
+// triangles.  And the cone cull of all three (ops/raycast.py tile_cones
+// and cull_rows state it in the same float order): a ray group's direction
+// cone, the half-space test of one row against it, the ballot compaction
+// of a batch's survivors, the hit tests against them and the G-buffer
+// rows' way out through shared memory.  A group is W warps: the whole
+// 256-thread block (W = kWarps, with block barriers) in the whole-table and
+// binned kernels, one warp (W = 1, warp-synchronous) in the streamed one.
 #pragma once
 
 #include "common.cuh"
@@ -123,32 +125,55 @@ __device__ __forceinline__ float warp_min(float v) {
     return v;
 }
 
-// the eight warp totals, pairwise: (w0 + w4) + (w2 + w6), (w1 + w5) + (w3 + w7)
-__device__ __forceinline__ float sum8(const float* w) {
-    return add_rn(add_rn(add_rn(w[0], w[4]), add_rn(w[2], w[6])),
-                  add_rn(add_rn(w[1], w[5]), add_rn(w[3], w[7])));
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+}
+
+// W warp totals, pairwise by halves as ops/raycast.py _halve: for eight,
+// (w0 + w4) + (w2 + w6), (w1 + w5) + (w3 + w7)
+template <int W>
+__device__ __forceinline__ float halve_sum(const float* w) {
+    float x[W];
+#pragma unroll
+    for (int i = 0; i < W; ++i) x[i] = w[i];
+#pragma unroll
+    for (int h = W / 2; h > 0; h /= 2)
+#pragma unroll
+        for (int i = 0; i < h; ++i) x[i] = add_rn(x[i], x[i + h]);
+    return x[0];
+}
+
+// a group's barrier: its warp, or the block
+template <int W>
+__device__ __forceinline__ void group_sync() {
+    if constexpr (W == 1) __syncwarp();
+    else __syncthreads();
 }
 
 __device__ __forceinline__ float dot3v(const float* a, const float* b) {
     return add_rn(add_rn(mul_rn(a[0], b[0]), mul_rn(a[1], b[1])), mul_rn(a[2], b[2]));
 }
 
-// The direction cone of the block's kBlock rays (tile_cones): axis, the
-// sine of the half-angle and `wide` (no cone narrower than a half-space).
-// Rays of length 0 do not widen it.  Every thread of the block calls it;
-// s_part is __shared__ float[4][kWarps].
+// The direction cone of a group's 32 W rays (tile_cones with group = 32 W):
+// axis, the sine of the half-angle and `wide` (no cone narrower than a
+// half-space).  Rays of length 0 and rays that are not `live` do not widen
+// it.  Every thread of the group calls it; with W > 1 the group is the
+// block and s_part is __shared__ float[4][W] (unused with W = 1).
 struct Cone {
     float axis[3];
     float sin_a;
     bool wide;
 };
 
-__device__ __forceinline__ Cone block_cone(float d0, float d1, float d2,
-                                           float (*s_part)[kWarps]) {
+template <int W = kWarps>
+__device__ __forceinline__ Cone group_cone(float d0, float d1, float d2, bool live,
+                                           float (*s_part)[W]) {
     const int lane = threadIdx.x % 32;
-    const int warp = threadIdx.x / 32;
+    const int warp = threadIdx.x / 32 % W;
     const float dd = add_rn(add_rn(mul_rn(d0, d0), mul_rn(d1, d1)), mul_rn(d2, d2));
-    const bool aims = dd > 0.0f;
+    const bool aims = live && dd > 0.0f;
     float dn[3] = {0.0f, 0.0f, 0.0f};
     if (aims) {
         const float len = __fsqrt_rn(dd);
@@ -156,24 +181,30 @@ __device__ __forceinline__ Cone block_cone(float d0, float d1, float d2,
         dn[1] = div_rn(d1, len);
         dn[2] = div_rn(d2, len);
     }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-        const float w = warp_sum(dn[i]);
-        if (lane == 0) s_part[i][warp] = w;
-    }
-    __syncthreads();
     Cone c;
 #pragma unroll
-    for (int i = 0; i < 3; ++i) c.axis[i] = sum8(s_part[i]);
+    for (int i = 0; i < 3; ++i) {
+        c.axis[i] = warp_sum(dn[i]);
+        if constexpr (W > 1) {
+            if (lane == 0) s_part[i][warp] = c.axis[i];
+        }
+    }
+    if constexpr (W > 1) {
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 3; ++i) c.axis[i] = halve_sum<W>(s_part[i]);
+    }
     const float len = fmaxf(__fsqrt_rn(dot3v(c.axis, c.axis)), 1e-12f);
 #pragma unroll
     for (int i = 0; i < 3; ++i) c.axis[i] = div_rn(c.axis[i], len);
-    const float m = warp_min(aims ? dot3v(dn, c.axis) : kBig);
-    if (lane == 0) s_part[3][warp] = m;
-    __syncthreads();
-    float min_dot = s_part[3][0];
+    float min_dot = warp_min(aims ? dot3v(dn, c.axis) : kBig);
+    if constexpr (W > 1) {
+        if (lane == 0) s_part[3][warp] = min_dot;
+        __syncthreads();
+        min_dot = s_part[3][0];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) min_dot = fminf(min_dot, s_part[3][w]);
+        for (int w = 1; w < W; ++w) min_dot = fminf(min_dot, s_part[3][w]);
+    }
     c.wide = min_dot <= kWideDot;
     const float cos_a = fminf(fmaxf(sub_rn(min_dot, kConeSlack), kWideDot), 1.0f);
     c.sin_a = __fsqrt_rn(fmaxf(sub_rn(1.0f, mul_rn(cos_a, cos_a)), 0.0f));
@@ -209,6 +240,57 @@ __device__ __forceinline__ bool keep_row(const Cone& cone, const float* row) {
     return keep;
 }
 
+// A necessary condition of keep_row without its four square roots: each
+// norm |n| is replaced by an upper bound, the sum of |n_i| times 1.0001
+// (the L1 norm is at least the L2 norm, and 1.0001 covers both roundings
+// many times over).  With sin_a and kCullMargin >= 0, rounding to nearest
+// is monotone in each replaced term, so every half-space sum is at least
+// keep_row's: a row this drops, keep_row drops too, and a caller that asks
+// keep_row only for the rows this keeps keeps exactly keep_row's rows.
+// That needs keep_row's squared norms to be finite and their rounding
+// relative: a row whose bounds sum above kNormBoundMax (so may overflow
+// when squared; e's bound is at most that sum, up to rounding) or whose
+// least bound lies below kNormBoundMin (its largest term's square may be
+// subnormal and round up) is kept here, for keep_row alone to decide
+// (ops/raycast.py may_keep_rows states this in plain PyTorch).  A row
+// holding a NaN fails every half-space in both.
+constexpr float kNormBoundMin = 1e-18f;
+constexpr float kNormBoundMax = 1e18f;
+
+__device__ __forceinline__ float norm_bound(const float* n) {
+    return mul_rn(add_rn(add_rn(fabsf(n[0]), fabsf(n[1])), fabsf(n[2])), 1.0001f);
+}
+
+__device__ __forceinline__ bool may_keep_row(const Cone& cone, const float* row) {
+    const float k = row[9];
+    if (k == 0.0f) return false;
+    const float s = k > 0.0f ? 1.0f : -1.0f;
+    const float* a = row;
+    const float* b = row + 3;
+    const float* c = row + 6;
+    float e[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) e[i] = sub_rn(sub_rn(a[i], b[i]), c[i]);
+    const float ua = norm_bound(a);
+    const float ub = norm_bound(b);
+    const float uc = norm_bound(c);
+    const float ue = norm_bound(e);
+    const float sum = add_rn(add_rn(ua, ub), uc);
+    if (!(sum <= kNormBoundMax && fminf(fminf(ua, ub), fminf(uc, ue)) >= kNormBoundMin))
+        return true;
+    const float* n[4] = {a, b, c, e};
+    const float nn[4] = {ua, ub, uc, ue};
+    const float scale[4] = {ua, ub, uc, sum};
+    bool keep = true;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float an = mul_rn(s, dot3v(cone.axis, n[i]));
+        keep = keep && add_rn(add_rn(an, mul_rn(cone.sin_a, nn[i])),
+                              mul_rn(kCullMargin, scale[i])) >= 0.0f;
+    }
+    return keep;
+}
+
 // one row of the table (three float4s through the read-only path)
 __device__ __forceinline__ void load_row(const float* __restrict__ src, float* row) {
 #pragma unroll
@@ -221,22 +303,29 @@ __device__ __forceinline__ void load_row(const float* __restrict__ src, float* r
     }
 }
 
-// The survivors of one batch (a row a thread, `keep` its verdict) written
-// in thread order to s_tri (a3 b3 c3 k and two unused) and s_id, by warp
-// ballot and prefix popcount; returns their count.  Every thread calls it.
+// The survivors of one batch (a row a thread of the group, `keep` its
+// verdict) written in thread order to s_tri (a3 b3 c3 k and two unused)
+// and s_id, by warp ballot and prefix popcount; returns their count.
+// Every thread of the group calls it; with W > 1, s_cnt is __shared__
+// int[W].  A warp may call it again with s_tri and s_id advanced past the
+// survivors it holds, to append a further batch.
+template <int W = kWarps>
 __device__ __forceinline__ int compact(bool keep, const float* row, int id,
                                        float4 (*s_tri)[3], int* s_id, int* s_cnt) {
     const int lane = threadIdx.x % 32;
-    const int warp = threadIdx.x / 32;
     const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-    __syncthreads();                 // the previous batch's survivors are read
-    if (lane == 0) s_cnt[warp] = __popc(ballot);
-    __syncthreads();
-    int before = 0, cnt = 0;
+    int before = 0, cnt = __popc(ballot);
+    group_sync<W>();                 // the previous batch's survivors are read
+    if constexpr (W > 1) {
+        const int warp = threadIdx.x / 32;
+        if (lane == 0) s_cnt[warp] = cnt;
+        __syncthreads();
+        cnt = 0;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-        before += w < warp ? s_cnt[w] : 0;
-        cnt += s_cnt[w];
+        for (int w = 0; w < W; ++w) {
+            before += w < warp ? s_cnt[w] : 0;
+            cnt += s_cnt[w];
+        }
     }
     if (keep) {
         const int pos = before + __popc(ballot & ((1u << lane) - 1u));
@@ -246,16 +335,18 @@ __device__ __forceinline__ int compact(bool keep, const float* row, int id,
                                         row[4 * q + 3]);
         s_id[pos] = id;
     }
-    __syncthreads();
+    group_sync<W>();
     return cnt;
 }
 
 // The best hit so far against the batch's survivors, in their order; the
-// best is replaced on a strict '<' only
+// best is replaced on a strict '<' only.  With kTmin, a hit must also lie
+// beyond tmin (the streamed raycast's per-ray minimum distance).
+template <bool kTmin = false>
 __device__ __forceinline__ void cast_survivors(float d0, float d1, float d2,
                                                float4 (*s_tri)[3], const int* s_id,
                                                int cnt, float* best, int* win, float* bu,
-                                               float* bv) {
+                                               float* bv, float tmin = 0.0f) {
     for (int jj = 0; jj < cnt; ++jj) {
         float tr[12];
 #pragma unroll
@@ -267,7 +358,8 @@ __device__ __forceinline__ void cast_survivors(float d0, float d1, float d2,
             tr[4 * q + 3] = v.w;
         }
         float tval, u, v;
-        if (hit_test(d0, d1, d2, tr, &tval, &u, &v) && tval < *best) {
+        if (hit_test(d0, d1, d2, tr, &tval, &u, &v) && (!kTmin || tval > tmin)
+            && tval < *best) {
             *best = tval;
             *win = s_id[jj];
             *bu = u;
@@ -276,18 +368,23 @@ __device__ __forceinline__ void cast_survivors(float d0, float d1, float d2,
     }
 }
 
-// The block's G-buffer rows, finished into s_out (kBlock * kOut floats) and
-// copied out in whole 512-byte runs: `rows` rows from `dst`
+// The group's G-buffer rows (a ray hit when best < miss_at), finished into
+// s_out (32 W * kOut floats) and copied out in whole 512-byte runs: `rows`
+// rows from `dst`.  s_out must be free: nothing of the group reads it.
+template <int W = kWarps>
 __device__ __forceinline__ void store_rows(float d0, float d1, float d2,
                                            const float* __restrict__ origin,
-                                           const float* __restrict__ attrs, float best, int win,
-                                           float u, float v, float4* s_out, int rows,
+                                           const float* __restrict__ attrs, float best,
+                                           float miss_at, int win, float u, float v,
+                                           float4* s_out, int rows,
                                            float* __restrict__ dst) {
-    finish_row(d0, d1, d2, origin, attrs, best, kBig, win, u, v,
-               reinterpret_cast<float*>(s_out + threadIdx.x * (kOut / 4)));
-    __syncthreads();
+    constexpr int kThreads = 32 * W;
+    const int t = threadIdx.x % kThreads;
+    finish_row(d0, d1, d2, origin, attrs, best, miss_at, win, u, v,
+               reinterpret_cast<float*>(s_out + t * (kOut / 4)));
+    group_sync<W>();
     float4* d4 = reinterpret_cast<float4*>(dst);
-    for (int f = threadIdx.x; f < rows * (kOut / 4); f += kBlock) d4[f] = s_out[f];
+    for (int f = t; f < rows * (kOut / 4); f += kThreads) d4[f] = s_out[f];
 }
 
 }  // namespace raycast

@@ -15,7 +15,11 @@ The streamed raycast tests each 256-ray tile against only the
 cone (`pack_tables_stream`, `select_chunks`: plain PyTorch, as in the JAX
 package), front to back, with a per-ray minimum distance for the
 alpha-mask re-cast; `raycast_stream` launches `csrc/raycast_stream.cu`
-for CUDA tensors and runs the plain version for CPU tensors.
+for CUDA tensors and runs the plain version for CPU tensors.  The kernel
+gives each warp of GROUP rays (or each of its two parts, `stream_parts`)
+its own cone, drops the listed chunks' rows that cone misses and skips
+rays that cannot hit (`stream_cull_plain` and `stream_walk_plain` state
+its cull and its walk in plain PyTorch).
 
 G-buffer columns (NOUT = 32): 0:3 position, 3:6 shading normal, 6:9 geo
 normal, 9:12 tangent, 12:15 bitangent, 15:17 uv, 17 material id, 18 t,
@@ -49,6 +53,14 @@ MAX_CHUNKS = 1 << 16    # a list word holds the chunk id in its low 16 bits
 CULL_MARGIN = 1e-4      # half-space margin, relative to the row's scale
 CONE_SLACK = 4e-6       # taken off the cone's least dot product
 WIDE_DOT = 1e-4         # at or below: no bounding cone, keep every row
+# the streamed kernel's walk (csrc/raycast_stream.cu)
+GROUP = 32              # rays a warp, walked as one or two parts
+SPLIT_DOT = 0.9998477   # cos 1 deg: a wider neighbour angle splits the warp
+CULL_PARTS = 512        # warp parts stream_cull_plain culls at a time
+# may_keep_row's norm bounds (csrc/raycast_common.cuh): their sum above the
+# one or the least below the other, a row is left to keep_row alone
+NORM_BOUND_MIN = 1e-18
+NORM_BOUND_MAX = 1e18
 
 LAUNCHES = 0
 STREAM_LAUNCHES = 0
@@ -123,23 +135,29 @@ def _finish_gbuf(d: Tensor, origin: Tensor, tbest: Tensor, u: Tensor,
     ], dim=1)
 
 
-def hit_tests(d: Tensor, isect: Tensor):
-    """The hit test of every ray against every row, (N, T) each: valid,
-    and ud, vd, kk with the signed inverse determinant (t = kk * sinv)."""
+def _hits(d: Tensor, rows: Tensor):
+    """The hit test of rays d (..., 3) against table rows (..., 16),
+    broadcast: valid, and ud, vd, kk with the signed inverse determinant
+    (t = kk * sinv)."""
 
     def dot3(r0):
-        return (d[:, 0:1] * isect[None, :, r0]
-                + d[:, 1:2] * isect[None, :, r0 + 1]
-                + d[:, 2:3] * isect[None, :, r0 + 2])
+        return (d[..., 0] * rows[..., r0] + d[..., 1] * rows[..., r0 + 1]
+                + d[..., 2] * rows[..., r0 + 2])
 
     det, ud, vd = dot3(0), dot3(3), dot3(6)
-    kk = isect[None, :, 9]
+    kk = rows[..., 9]
     sgn = torch.sign(det)
     ad = torch.abs(det)
     sinv = sgn * (1.0 / torch.clamp_min(ad, EPS))
     valid = ((ad > EPS) & (sgn * ud >= 0) & (sgn * vd >= 0)
              & (sgn * (ud + vd) <= ad) & (sgn * kk > TMIN_EPS * ad))
     return valid, ud, vd, kk, sinv
+
+
+def hit_tests(d: Tensor, isect: Tensor):
+    """The hit test of every ray against every row, (N, T) each: valid,
+    and ud, vd, kk with the signed inverse determinant (t = kk * sinv)."""
+    return _hits(d[:, None, :], isect[None])
 
 
 def _halve(x: Tensor, dim: int) -> Tensor:
@@ -151,27 +169,33 @@ def _halve(x: Tensor, dim: int) -> Tensor:
     return x.squeeze(dim)
 
 
-def tile_cones(dirs: Tensor):
-    """The direction cone of each TILE-ray block, in csrc/raycast.cu's
-    float order: dirs (N, 3) -> axis (ntiles, 3), sin of the half-angle
-    (ntiles,) and `wide` (ntiles,) where no cone narrower than a
-    half-space bounds the block.  Rays of length 0 (and the padding of a
-    ragged last block) cannot hit and do not widen the cone.  The half-
+def tile_cones(dirs: Tensor, group: int = TILE,
+               live: Optional[Tensor] = None):
+    """The direction cone of each `group`-ray block (TILE: a block of
+    csrc/raycast.cu and csrc/binrast.cu; GROUP: a warp of
+    csrc/raycast_stream.cu), in the kernels' float order: dirs (N, 3) ->
+    axis (ngroups, 3), sin of the half-angle (ngroups,) and `wide`
+    (ngroups,) where no cone narrower than a half-space bounds the group.
+    Rays of length 0, rays where `live` (N,) is False and the padding of a
+    ragged last group cannot hit and do not widen the cone.  The half-
     angle's cosine is the least ray-axis dot product less CONE_SLACK,
-    which exceeds its rounding error."""
+    which exceeds its rounding error.  `group` is 32 times a power of two:
+    the warps' xor-shuffle sums, then the warp totals pairwise."""
     n = dirs.shape[0]
-    nt = -(-n // TILE)
-    d = torch.cat([dirs, dirs.new_zeros((nt * TILE - n, 3))])
+    ng = -(-n // group)
+    d = torch.cat([dirs, dirs.new_zeros((ng * group - n, 3))])
     dd = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
-    live = dd > 0.0
-    dn = torch.where(live[:, None], d / torch.sqrt(dd)[:, None], 0.0)
-    # warp totals (32 lanes), then the block's 8 warp totals
-    s = _halve(_halve(dn.reshape(nt, TILE // 32, 32, 3), 2), 1)
+    aims = dd > 0.0
+    if live is not None:
+        aims[:n] &= live
+    dn = torch.where(aims[:, None], d / torch.sqrt(dd)[:, None], 0.0)
+    # warp totals (32 lanes), then the group's warp totals
+    s = _halve(_halve(dn.reshape(ng, group // 32, 32, 3), 2), 1)
     norm = torch.sqrt(s[:, 0] * s[:, 0] + s[:, 1] * s[:, 1] + s[:, 2] * s[:, 2])
     axis = s / torch.clamp_min(norm, 1e-12)[:, None]
-    a = axis.repeat_interleave(TILE, dim=0)
+    a = axis.repeat_interleave(group, dim=0)
     dots = dn[:, 0] * a[:, 0] + dn[:, 1] * a[:, 1] + dn[:, 2] * a[:, 2]
-    min_dot = torch.where(live, dots, BIG).reshape(nt, TILE).amin(dim=1)
+    min_dot = torch.where(aims, dots, BIG).reshape(ng, group).amin(dim=1)
     cos_a = torch.clamp(min_dot - CONE_SLACK, WIDE_DOT, 1.0)
     sin_a = torch.sqrt(torch.clamp_min(1.0 - cos_a * cos_a, 0.0))
     return axis, sin_a, min_dot <= WIDE_DOT
@@ -209,6 +233,38 @@ def cull_rows(axis: Tensor, sin_a: Tensor, wide: Tensor,
                     + axis[..., 2] * n[..., 2])
         keep = keep & (an + sin_a * nn + CULL_MARGIN * scale >= 0.0)
     return keep | wide
+
+
+def may_keep_rows(axis: Tensor, sin_a: Tensor, wide: Tensor,
+                  rows: Tensor) -> Tensor:
+    """csrc/raycast_common.cuh may_keep_row in its float order, broadcast
+    as cull_rows: cull_rows with each norm |n| replaced by the upper bound
+    (|n0| + |n1| + |n2|) * 1.0001, no square roots.  Rounding to nearest is
+    monotone in each replaced term, so it keeps every row cull_rows keeps
+    as long as cull_rows's squared norms are finite and rounded relative to
+    their size: a row whose bounds of a, b and c sum above NORM_BOUND_MAX,
+    or whose least bound lies below NORM_BOUND_MIN, is kept, for cull_rows
+    alone to decide.  The streamed kernel asks keep_row only for the rows
+    this keeps."""
+    a, b, c, k = rows[..., 0:3], rows[..., 3:6], rows[..., 6:9], rows[..., 9]
+    sgn = torch.sign(k)
+
+    def bound(v):
+        v = v.abs()
+        return (v[..., 0] + v[..., 1] + v[..., 2]) * 1.0001
+
+    e = a - b - c
+    ua, ub, uc, ue = bound(a), bound(b), bound(c), bound(e)
+    total = ua + ub + uc
+    keep = sgn != 0.0
+    for n, nn, scale in ((a, ua, ua), (b, ub, ub), (c, uc, uc),
+                         (e, ue, total)):
+        an = sgn * (axis[..., 0] * n[..., 0] + axis[..., 1] * n[..., 1]
+                    + axis[..., 2] * n[..., 2])
+        keep = keep & (an + sin_a * nn + CULL_MARGIN * scale >= 0.0)
+    least = torch.fmin(torch.fmin(ua, ub), torch.fmin(uc, ue))
+    in_range = (total <= NORM_BOUND_MAX) & (least >= NORM_BOUND_MIN)
+    return (keep | ((sgn != 0.0) & ~in_range)) | wide
 
 
 def tile_cull_plain(dirs: Tensor, isect: Tensor) -> Tensor:
@@ -408,19 +464,184 @@ def raycast_stream_plain(dirs: Tensor, origin: Tensor, isect: Tensor,
     return torch.cat(out, dim=0)
 
 
+def stream_live(dirs: Tensor, tmin: Tensor, miss: Tensor) -> Tensor:
+    """Which rays of the streamed raycast can hit anything (N,): a
+    candidate needs tmin < t < best <= miss, and a ray of length 0 never
+    hits.  The kernel's cones, stop and early exit count only these."""
+    dd = dirs[:, 0] * dirs[:, 0] + dirs[:, 1] * dirs[:, 1] \
+        + dirs[:, 2] * dirs[:, 2]
+    return (tmin < miss) & (dd > 0.0)
+
+
+def stream_parts(dirs: Tensor, tmin: Tensor, miss: Tensor) -> Tensor:
+    """How the streamed kernel splits each warp of GROUP rays: (ngroups, 2,
+    GROUP) bool, which lanes each of its two parts holds.  A warp whose
+    widest angle between neighbouring live rays (stream_live) has a cosine
+    below SPLIT_DOT splits after the first such pair (alpha_resolve's
+    direction sort puts rays of two cells in it, and one cone over both
+    keeps up to 100x the rows); else part 0 holds all 32 lanes and part 1
+    none.  In the kernel's float order: unit directions, then the pairs'
+    dot products."""
+    n = dirs.shape[0]
+    ng = n // GROUP
+    live = stream_live(dirs, tmin, miss).reshape(ng, GROUP)
+    d = dirs.reshape(ng, GROUP, 3)
+    dd = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    dn = torch.where(live[..., None], d / torch.sqrt(dd)[..., None], 0.0)
+    a, b = dn[:, :-1], dn[:, 1:]
+    pair = (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+            + a[..., 2] * b[..., 2])
+    pair = torch.where(live[:, :-1] & live[:, 1:], pair, 2.0)
+    widest = pair.amin(dim=1, keepdim=True)
+    lane = torch.arange(GROUP, device=dirs.device)[None, :]
+    first = torch.where(pair == widest, lane[:, 1:], GROUP).amin(dim=1)
+    split = torch.where(widest[:, 0] < SPLIT_DOT, first, GROUP)
+    return torch.stack([lane < split[:, None], lane >= split[:, None]], dim=1)
+
+
+def _part_lists(lists: Tensor, counts: Tensor, ng: int):
+    """Each warp part's list, from its tile's (parts 2g and 2g + 1 are warp
+    g's): chunk ids (2 ng, L) (0 past the count), listed (2 ng, L), the
+    count (2 ng,) and the tile (2 ng,), L the longest count."""
+    tile = torch.arange(2 * ng, device=lists.device) // (2 * TILE // GROUP)
+    cnt = counts[tile].long()
+    length = int(counts.max()) if counts.numel() else 0
+    listed = torch.arange(length, device=lists.device)[None, :] < cnt[:, None]
+    chunk = torch.where(listed, (lists[tile, :length] & 0xFFFF).long(), 0)
+    return chunk, listed, cnt, tile
+
+
+def _part_rays(dirs: Tensor, tmin: Tensor, miss: Tensor, parts: Tensor):
+    """Every warp part's rays: dirs (2 ng * GROUP, 3), and which of them
+    walk (live and in the part) (2 ng * GROUP,)."""
+    ng = parts.shape[0]
+    live = stream_live(dirs, tmin, miss).reshape(ng, 1, GROUP)
+    d = dirs.reshape(ng, 1, GROUP, 3).expand(ng, 2, GROUP, 3)
+    return d.reshape(-1, 3), (live & parts).reshape(-1)
+
+
+def stream_cull_plain(dirs: Tensor, isect: Tensor, lists: Tensor,
+                      counts: Tensor, tmin: Tensor, miss: Tensor) -> Tensor:
+    """Which rows of each listed chunk each part of each warp of
+    csrc/raycast_stream.cu keeps (stream_parts): (ngroups, 2, L, CHUNK)
+    bool, L the longest list, in the kernel's float order: the cone of the
+    part's live rays (stream_live, tile_cones) against each row's
+    half-spaces (cull_rows, which states why a dropped row never hits).
+    Positions past a list's count keep nothing, nor does a part with no
+    live ray (the kernel reads no chunk for it); a wide part keeps the
+    rest."""
+    ng = dirs.shape[0] // GROUP
+    parts = stream_parts(dirs, tmin, miss)
+    d, walks = _part_rays(dirs, tmin, miss, parts)
+    axis, sin_a, wide = tile_cones(d, GROUP, walks)
+    walks = walks.reshape(2 * ng, GROUP).any(dim=1)
+    chunk, listed, _, _ = _part_lists(lists, counts, ng)
+    table = isect.reshape(-1, CHUNK, NISECT)
+    keep = torch.zeros((2 * ng, chunk.shape[1], CHUNK), dtype=torch.bool,
+                       device=dirs.device)
+    for u0 in range(0, 2 * ng, CULL_PARTS):
+        u = slice(u0, u0 + CULL_PARTS)
+        k = cull_rows(axis[u, None, None], sin_a[u, None, None],
+                      wide[u, None, None], table[chunk[u]])
+        keep[u] = k & (listed[u] & walks[u, None])[:, :, None]
+    return keep.reshape(ng, 2, chunk.shape[1], CHUNK)
+
+
+def stream_walk_plain(dirs: Tensor, origin: Tensor, isect: Tensor,
+                      attrs: Tensor, lists: Tensor, counts: Tensor,
+                      tmin: Tensor, miss: Tensor, keep: Tensor
+                      ) -> Tuple[Tensor, Tensor]:
+    """csrc/raycast_stream.cu's walk in plain PyTorch: each warp part's
+    rays (stream_parts) against only the rows `keep` (stream_cull_plain)
+    holds for it, list position by list position, best replaced on a
+    strict '<' in (position, row) order, and the part stopping at the
+    first position whose chunk's near bound is at or beyond every live ray
+    of the part's best.  Returns the (N, NOUT) G-buffer, which equals
+    raycast_stream_plain's bit for bit, and each warp's count of kept rows
+    over the positions its parts tested (ngroups,) int32: the kernel's
+    `kept`."""
+    n = dirs.shape[0]
+    ng = n // GROUP
+    dev = dirs.device
+    parts = stream_parts(dirs, tmin, miss)
+    d, walks = _part_rays(dirs, tmin, miss, parts)
+    walks = walks.reshape(2 * ng, GROUP)
+    chunk, _, cnt, tile = _part_lists(lists, counts, ng)
+    keep = keep.reshape(2 * ng, -1, CHUNK)
+    table = isect.reshape(-1, CHUNK, NISECT)
+    d = d.reshape(2 * ng, GROUP, 1, 3)
+    # the other part's lanes never update
+    t_from = torch.where(parts, tmin.reshape(ng, 1, GROUP),
+                         float("inf")).reshape(2 * ng, GROUP, 1)
+    best = miss.reshape(ng, 1, GROUP).expand(ng, 2, GROUP).reshape(
+        2 * ng, GROUP).clone()
+    win = torch.full((2 * ng, GROUP), -1, dtype=torch.long, device=dev)
+    bu = torch.zeros((2 * ng, GROUP), dtype=torch.float32, device=dev)
+    bv = torch.zeros_like(bu)
+    kept = torch.zeros(2 * ng, dtype=torch.long, device=dev)
+    walking = walks.any(dim=1)
+    lane_ids = torch.arange(CHUNK, device=dev)
+    for p in range(chunk.shape[1]):
+        if p > 0:
+            near = (lists[tile, p] >> 16).float()
+            top = torch.where(walks, best, -BIG).amax(dim=1)
+            walking &= ~((p < cnt) & (near >= top))
+        gi = torch.nonzero(walking & (p < cnt))[:, 0]
+        if gi.numel() == 0:
+            continue
+        rows = table[chunk[gi, p]]                           # (k, CHUNK, 16)
+        kp = keep[gi, p]                                     # (k, CHUNK)
+        kept[gi] += kp.sum(dim=1)
+        valid, ud, vd, kk, sinv = _hits(d[gi], rows[:, None])
+        tval = kk * sinv
+        tc = torch.where(valid & kp[:, None] & (tval > t_from[gi]), tval, BIG)
+        tb = tc.amin(dim=2, keepdim=True)
+        first = torch.where(tc == tb, lane_ids, CHUNK).amin(dim=2,
+                                                            keepdim=True)
+        first = first.clamp_max(CHUNK - 1)
+        better = tb[..., 0] < best[gi]
+        best[gi] = torch.where(better, tb[..., 0], best[gi])
+        win[gi] = torch.where(better, chunk[gi, p, None] * CHUNK
+                              + first[..., 0], win[gi])
+        for acc, x in ((bu, ud), (bv, vd)):
+            acc[gi] = torch.where(better, torch.gather(x * sinv, 2,
+                                                       first)[..., 0], acc[gi])
+    def own(x):
+        """Each lane's result from its own part, (N, 1)."""
+        x = x.reshape(ng, 2, GROUP)
+        return torch.where(parts[:, 0], x[:, 0], x[:, 1]).reshape(n, 1)
+
+    best, win, bu, bv = own(best), own(win), own(bu), own(bv)
+    hit = best < miss[:, None]
+    arow = torch.where(hit, attrs[win[:, 0].clamp_min(0)], 0.0)
+    u = torch.where(hit, bu, 0.0)
+    v = torch.where(hit, bv, 0.0)
+    g = _finish_gbuf(dirs, origin, best, u, v, arow, miss_at=miss[:, None])
+    return g, kept.reshape(ng, 2).sum(dim=1).to(torch.int32)
+
+
 def raycast_stream_cuda(dirs: Tensor, origin: Tensor, isect: Tensor,
                         attrs: Tensor, lists: Tensor, counts: Tensor,
-                        tmin: Tensor, miss: Tensor) -> Tensor:
+                        tmin: Tensor, miss: Tensor,
+                        kept: Optional[Tensor] = None) -> Tensor:
+    """Launch csrc/raycast_stream.cu: the (N, NOUT) G-buffer.  kept: an
+    optional (N // GROUP,) int32 tensor that receives each warp's count of
+    kept rows over the chunks it tested (stream_walk_plain's), so that
+    chip_smoke.py can show that the culled bound counts the tests the
+    kernel makes; the frame path passes none."""
     global STREAM_LAUNCHES
     n, tp, nrt = dirs.shape[0], isect.shape[0], counts.shape[0]
-    for x, dt, shape in ((dirs, torch.float32, (n, 3)),
-                         (origin, torch.float32, (3,)),
-                         (isect, torch.float32, (tp, NISECT)),
-                         (attrs, torch.float32, (tp, NATTR)),
-                         (lists, torch.int32, (nrt, lists.shape[1])),
-                         (counts, torch.int32, (nrt,)),
-                         (tmin, torch.float32, (n,)),
-                         (miss, torch.float32, (n,))):
+    checks = [(dirs, torch.float32, (n, 3)),
+              (origin, torch.float32, (3,)),
+              (isect, torch.float32, (tp, NISECT)),
+              (attrs, torch.float32, (tp, NATTR)),
+              (lists, torch.int32, (nrt, lists.shape[1])),
+              (counts, torch.int32, (nrt,)),
+              (tmin, torch.float32, (n,)),
+              (miss, torch.float32, (n,))]
+    if kept is not None:
+        checks.append((kept, torch.int32, (n // GROUP,)))
+    for x, dt, shape in checks:
         _build.require(x.is_cuda and x.dtype == dt and x.is_contiguous()
                        and tuple(x.shape) == shape,
                        f"streamed raycast kernel: expected contiguous {dt} "
@@ -429,12 +650,16 @@ def raycast_stream_cuda(dirs: Tensor, origin: Tensor, isect: Tensor,
                    and lists.shape[1] >= tp // CHUNK,
                    "streamed raycast kernel: one list row per 256 rays and "
                    "a CHUNK-padded table")
+    _build.require(isect.data_ptr() % 16 == 0,
+                   "streamed raycast kernel: isect rows are read as float4s "
+                   "and must be 16-byte aligned")
     out = torch.empty((n, NOUT), dtype=torch.float32, device=dirs.device)
     status = _build.library().vct_raycast_stream(
         dirs.data_ptr(), origin.data_ptr(), isect.data_ptr(),
         attrs.data_ptr(), lists.data_ptr(), lists.shape[1],
         counts.data_ptr(), tmin.data_ptr(), miss.data_ptr(), nrt,
-        out.data_ptr(), _build.stream())
+        out.data_ptr(),
+        None if kept is None else kept.data_ptr(), _build.stream())
     _build.check(status, "vct_raycast_stream")
     STREAM_LAUNCHES += 1
     return out

@@ -271,71 +271,104 @@ def render_frame(cfg: VCTConfig,
     return _shade(cfg, tables, g, camera_position, light_dir, (h, w, hp, wp))
 
 
+def _maskable(mats: MaterialTable, thresh: float) -> Tensor:
+    """Materials with any texel below the alpha threshold (M,)."""
+    return (mats.atlas.albedo[..., 3] < thresh).flatten(1).any(dim=1)
+
+
+def _candidates(rows: Tensor, maskable: Tensor) -> Tensor:
+    """G-buffer rows that hit a maskable material."""
+    return (rows[:, 19] > 0.5) & maskable[rows[:, 17].long()]
+
+
+def recast_inputs(cfg: VCTConfig, mats: MaterialTable, g: Tensor, d: Tensor
+                  ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """One alpha re-cast pass's input to the streamed raycast, from the
+    G-buffer g and the rays d, both in tile order.
+
+    Up to cfg.render.alpha_mask_budget candidates (hit pixels of materials
+    with any masked texel) gather into a fixed-size subset in image order,
+    padded with pixel 0; a candidate is masked when its level-0 atlas alpha
+    is below the threshold; the subset is sorted by direction (stable),
+    masked rays first, so each 256-ray tile keeps a tight cone; masked rays
+    get tmin just past their hit and the rest 3e38, so nothing can be hit.
+    Returns (idx, masked, d_sub, tmin), each of the budget's length rounded
+    up to whole tiles: the slots' pixels, which of them are masked, and
+    their rays and minimum distances."""
+    return _recast_inputs(cfg, mats, g, d, alpha_test=True)
+
+
+def _recast_inputs(cfg: VCTConfig, mats: MaterialTable, g: Tensor,
+                   d: Tensor, alpha_test: bool
+                   ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """recast_inputs; with alpha_test False every candidate counts as
+    masked, the load of a camera that sees only masked texels (chip_smoke.py
+    builds its stress input so, from the frame's own construction)."""
+    thresh = cfg.render.alpha_threshold
+    n = g.shape[0]
+    dev = g.device
+    budget = min(cfg.render.alpha_mask_budget, n)
+    budget = -(-budget // RP.TILE) * RP.TILE
+    slots = torch.arange(budget, device=dev)
+    cand = _candidates(g, _maskable(mats, thresh))
+    # nonzero(size=budget, fill_value=0) without a sync: the k-th
+    # candidate goes to slot k, slots past the count keep pixel 0
+    rank = torch.cumsum(cand.to(torch.int64), 0) - 1
+    dest = torch.where(cand & (rank < budget), rank, budget)
+    idx = torch.zeros(budget + 1, dtype=torch.int64, device=dev)
+    idx.scatter_(0, dest, torch.arange(n, device=dev))
+    idx = idx[:budget]
+    masked = slots < cand.sum()
+    rows = g[idx]
+    if alpha_test:
+        alpha = TX.sample_atlas(mats.atlas.albedo, rows[:, 17].long(),
+                                rows[:, 15:17])[:, 3]
+        masked = masked & (alpha < thresh)
+    # sort the subset by direction (stable) so each 256-ray tile has a
+    # tight bounding cone for the chunk culling
+    d_sub = d[idx]
+    qd = torch.clamp((d_sub + 1.0) * 15.999, 0.0, 31.0).to(torch.int32)
+    key = (qd[:, 0] << 10) | (qd[:, 1] << 5) | qd[:, 2]
+    order = torch.argsort(torch.where(masked, key, 2 ** 30), stable=True)
+    idx, masked, d_sub = idx[order], masked[order], d_sub[order]
+    tmin = torch.where(masked, rows[order, 18] * (1.0 + 1e-5) + 1e-4,
+                       3.0e38)
+    return idx, masked, d_sub.contiguous(), tmin
+
+
 def alpha_resolve(cfg: VCTConfig, ds: DeviceScene, mats: MaterialTable,
                   g: Tensor, d: Tensor, origin: Tensor) -> Tensor:
     """Alpha-mask see-through (fs:169-172 `discard`): hits whose sampled
     albedo alpha is below the threshold re-cast past the masked surface,
     so the geometry behind it shades (fast.alpha_resolve).
 
-    Per pass, up to cfg.render.alpha_mask_budget candidates (hit pixels of
-    materials with any masked texel) gather into a fixed-size subset in
-    image order, padded with pixel 0; the masked ones, sorted by direction
-    so each 256-ray tile keeps a tight cone, re-enter the streamed raycast
-    with tmin just past their hit, and only their rows are written back.
-    A second pass runs only when a re-cast ray landed on a maskable
-    material again, up to cfg.render.alpha_mask_depth passes.  Overflow
-    pixels and deeper stacks keep the background.  The flag that decides
-    a pass is read on the host: one sync per pass."""
-    thresh = cfg.render.alpha_threshold
+    Per pass, the masked ones among up to cfg.render.alpha_mask_budget
+    candidates re-enter the streamed raycast with tmin just past their hit
+    (recast_inputs), and only their rows are written back.  A second pass
+    runs only when a re-cast ray landed on a maskable material again, up
+    to cfg.render.alpha_mask_depth passes.  Overflow pixels and deeper
+    stacks keep the background.  The flag that decides a pass is read on
+    the host: one sync per pass."""
     n = g.shape[0]
-    dev = g.device
-    budget = min(cfg.render.alpha_mask_budget, n)
-    budget = -(-budget // RP.TILE) * RP.TILE
-    maskable = (mats.atlas.albedo[..., 3] < thresh).flatten(1).any(dim=1)
+    maskable = _maskable(mats, cfg.render.alpha_threshold)
     isect, attrs, spheres = RP.pack_tables_stream(
         ds, origin, mats.albedo, mats.specular, mats.shininess)
-    slots = torch.arange(budget, device=dev)
-
-    def candidates(rows):
-        return (rows[:, 19] > 0.5) & maskable[rows[:, 17].long()]
-
-    flag = candidates(g).any()
+    flag = _candidates(g, maskable).any()
     for _ in range(cfg.render.alpha_mask_depth):
         if not bool(flag):                    # host sync: the pass's flag
             break
-        cand = candidates(g)
-        # nonzero(size=budget, fill_value=0) without a sync: the k-th
-        # candidate goes to slot k, slots past the count keep pixel 0
-        rank = torch.cumsum(cand.to(torch.int64), 0) - 1
-        dest = torch.where(cand & (rank < budget), rank, budget)
-        idx = torch.zeros(budget + 1, dtype=torch.int64, device=dev)
-        idx.scatter_(0, dest, torch.arange(n, device=dev))
-        idx = idx[:budget]
-        valid = slots < cand.sum()
-        rows = g[idx]
-        alpha = TX.sample_atlas(mats.atlas.albedo, rows[:, 17].long(),
-                                rows[:, 15:17])[:, 3]
-        masked = valid & (alpha < thresh)
-        # sort the subset by direction (stable) so each 256-ray tile has
-        # a tight bounding cone for the chunk culling
-        d_sub = d[idx]
-        qd = torch.clamp((d_sub + 1.0) * 15.999, 0.0, 31.0).to(torch.int32)
-        key = (qd[:, 0] << 10) | (qd[:, 1] << 5) | qd[:, 2]
-        order = torch.argsort(torch.where(masked, key, 2 ** 30), stable=True)
-        idx, masked, d_sub = idx[order], masked[order], d_sub[order]
-        tmin = torch.where(masked, rows[order, 18] * (1.0 + 1e-5) + 1e-4,
-                           3.0e38)
+        idx, masked, d_sub, tmin = recast_inputs(cfg, mats, g, d)
         lists, counts = RP.select_chunks(
-            d_sub.reshape(budget // RP.TILE, RP.TILE, 3), spheres)
-        g_sub = RP.raycast_stream(d_sub.contiguous(), origin, isect, attrs,
-                                  lists, counts, spheres, tmin=tmin)
+            d_sub.reshape(-1, RP.TILE, 3), spheres)
+        g_sub = RP.raycast_stream(d_sub, origin, isect, attrs, lists, counts,
+                                  spheres, tmin=tmin)
         # write back only the masked rows; index n takes the padding
         out = torch.cat([g, g.new_zeros((1, g.shape[1]))])
         out[torch.where(masked, idx, n)] = g_sub
         g = out[:n]
         # another pass only when a re-cast ray landed on a maskable
         # material again (a stacked mask)
-        flag = (masked & candidates(g_sub)).any()
+        flag = (masked & _candidates(g_sub, maskable)).any()
     return g
 
 
