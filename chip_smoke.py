@@ -11,12 +11,13 @@ Phases, each reported on its own lines:
       raycast, binned raycast, specular march, prepass and material
       kernels the registers, spill and shared bytes and resident warps
       per SM the card reports;
-  (c) four paths at full width, 1920x1080, each through prepare_scene ->
-      build_voxel_state -> build_frame_tables -> render_camera_pass with
-      every kernel's launch count set to 0 just before and read just
-      after, and each naming the kernels it must and must not launch;
-      paths 1-3 run preset("sponza256") (256^3 grid, bf16 dense march,
-      128^3 x 208-channel fields):
+  (c) five paths at full width, each through prepare_scene ->
+      build_voxel_state (-> build_frame_tables on the fast path) ->
+      render_camera_pass with every kernel's launch count set to 0 just
+      before and read just after, and each naming the kernels it must
+      and must not launch; paths 1-4 at 1920x1080, paths 1-3 on
+      preset("sponza256") (256^3 grid, bf16 dense march, 128^3 x
+      208-channel fields):
         1. the Cornell box (40 triangles, no textures): mip, raycast,
            prepass and tap;
         2. the textured atrium (1,122 triangles, 8 materials, a 256^2
@@ -29,6 +30,16 @@ Phases, each reported on its own lines:
         4. preset("sponza256_exact_specular") on the atrium: no specular
            field, a diffuse-only tap (104 channels) and the exact
            per-pixel specular march, once each per frame;
+        5. preset("cornell64_full") unchanged (64^3, 256x256, 6 diffuse
+           and 1 specular cone a pixel) on the Cornell box from (0, 0,
+           140) through the per-cone oracle render_rays: the build
+           launches the mip kernel and the frame none; build and frame
+           times, the stage split, host syncs, peak memory and the
+           profiler's busy share; cornell64 and inverse forward and the
+           atrium under cornell64_full, each timed; a 32^3 render on the
+           card against the CPU; and the fast path against render_rays
+           in field mode (tests/test_fast.py's bounds) and field against
+           percone (tests/test_field_mode.py's bounds), at field_dim 64;
       then per path: timings, a small render on the card against the
       plain PyTorch path on the CPU, and for Cornell a determinism check,
       the whole-table raycast against its plain version (hit, material id
@@ -86,6 +97,9 @@ ATRIUM_CAMERA = dict(position=(48.0, -10.0, 0.0), yaw=180.0)  # bench.py:122
 # above the nave: sees the banners' alpha-masked edge, which the bench
 # camera does not (tests/test_torch_atrium.py EDGE_CAMERA)
 EDGE_CAMERA = dict(position=(48.0, 20.0, 0.0), yaw=180.0, pitch=-10.0)
+# the per-cone oracle's camera on the Cornell box (tests/test_renderer.py,
+# __graft_entry__._tiny_setup)
+ORACLE_CAMERA = dict(position=(0.0, 0.0, 140.0))
 
 # H100 SXM peaks (NVIDIA data sheet) for the bound: HBM bytes/s and dense
 # float32 outside the tensor cores.  67e12 counts a fused multiply-add as
@@ -245,13 +259,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    from vct_tpu_torch.config import preset
     from vct_tpu_torch.core import camera as CAM
     from vct_tpu_torch.core import cones as C
     from vct_tpu_torch.core import grid as G
     from vct_tpu_torch.ops import (_build, binrast, material, mip, prepass,
                                    raycast, specmarch, tap)
-    from vct_tpu_torch.profile_stages import count_syncs, stage_ms
+    from vct_tpu_torch.profile_stages import count_syncs, profile, stage_ms
     from vct_tpu_torch.render import fast as F
+    from vct_tpu_torch.render import gbuffer as GB
     from vct_tpu_torch.render import renderer as R
     from vct_tpu_torch.render import shading
     from vct_tpu_torch.scene import textures as TX
@@ -315,15 +331,18 @@ def main() -> int:
                     world_size=cfg.grid.world_size,
                     shadow_offset=cfg.shadow.normal_offset, atlas=atlas)
 
-    def run_path(scene, camera, samples=None, run_cfg=cfg):
-        """The main path once, counts set to 0 just before, read after."""
+    def run_path(scene, camera, samples=None, run_cfg=cfg, fast=True):
+        """The main path once, counts set to 0 just before, read after.
+        fast=False: the per-cone oracle's path, which builds no frame
+        tables (render_camera_pass takes render_rays)."""
         reset_counts()
         t0 = time.perf_counter()
         ds, mats, samples = R.prepare_scene(run_cfg, scene, samples=samples,
                                             device=dev)
         voxels = R.build_voxel_state(run_cfg, samples, mats)
-        tables = F.build_frame_tables(run_cfg, voxels, mats)
-        origins, dirs = CAM.primary_rays(camera, WIDTH, HEIGHT, device=dev)
+        tables = F.build_frame_tables(run_cfg, voxels, mats) if fast else None
+        origins, dirs = CAM.primary_rays(camera, run_cfg.render.width,
+                                         run_cfg.render.height, device=dev)
         cam = torch.as_tensor(camera.position, dtype=torch.float32,
                               device=dev)
         img = R.render_camera_pass(run_cfg, ds, voxels, mats, origins, dirs,
@@ -359,8 +378,8 @@ def main() -> int:
                  f"the {what} frame")
         return err
 
-    def check_image(img, what):
-        if tuple(img.shape) != (HEIGHT, WIDTH, 3):
+    def check_image(img, what, size=(WIDTH, HEIGHT)):
+        if tuple(img.shape) != (size[1], size[0], 3):
             fail(f"{what}: image shape {tuple(img.shape)}")
         if not bool(torch.isfinite(img).all()):
             fail(f"{what}: image has non-finite values")
@@ -1221,10 +1240,182 @@ def main() -> int:
     small_check(scene, camera, 96, 64, "exact specular",
                 name="sponza256_exact_specular")
 
+    # ---- (c5) the per-cone oracle renderer: preset cornell64_full -------
+    # the percone cone modes take render_rays: the build launches the mip
+    # kernel and the frame none (its raycast and march are plain PyTorch,
+    # as they are XLA in the JAX package: the oracle checks the kernels)
+    del p4, t4, margs
+    ocfg = preset("cornell64_full")
+    osize = (ocfg.render.width, ocfg.render.height)
+    ocam = CAM.Camera(**ORACLE_CAMERA)
+    not_oracle = ("raycast", "raycast_stream", "binrast", "prepass",
+                  "material", "tap", "specmarch")
+
+    def oracle_frame(q, run_cfg):
+        return lambda: R.render_camera_pass(
+            run_cfg, q["ds"], q["voxels"], q["mats"], q["origins"],
+            q["dirs"], q["cam"])
+
+    def oracle_run(scene_, camera_, run_cfg, what):
+        launches_, first, q = run_path(scene_, camera_, run_cfg=run_cfg,
+                                       fast=False)
+        say(f"launches in the {what} oracle run:", json.dumps(launches_))
+        if R.use_fast_path(run_cfg):
+            fail(f"{what} routes to the fast path")
+        expect(launches_, ("mip",), not_oracle, what)
+        check_image(q["img"], what, (run_cfg.render.width,
+                                     run_cfg.render.height))
+        return launches_, first, q
+
+    steps5 = {k: fn(ocfg).num_steps for k, fn in (
+        ("diffuse", shading.diffuse_schedule),
+        ("specular", shading.specular_schedule),
+        ("shadow", shading.shadow_schedule))}
+    launches5, first_s, p5 = oracle_run(cornell, ocam, ocfg, "cornell64_full")
+    img5 = p5["img"]
+    # the mip kernel at this path's shapes, 64^3 x 4 down to 1^3: each
+    # level of the path's own pyramids (the unlit one in max-alpha mode,
+    # the lit one in mean mode) through the kernel and its plain version,
+    # and the path's next level against the plain one
+    mip5 = 0.0
+    for mips5, mode5 in ((p5["voxels"].unlit_mips, "max"),
+                         (p5["voxels"].radiance_mips, "mean")):
+        for fine5, coarse5 in zip(mips5, mips5[1:]):
+            plain5 = mip.downsample2x_plain(fine5, mode5)
+            mip5 = max(mip5, maxerr(mip.downsample2x_cuda(fine5, mode5),
+                                    plain5), maxerr(coarse5, plain5))
+    say(f"mip kernel at path 5's shapes ({ocfg.grid.dim}^3 x 4 to 1^3, "
+        f"max and mean): max_abs_err {mip5:.3e} (tolerance 1e-6) beside the "
+        f"path's {launches5['mip']} mip launches")
+    if not mip5 <= 1e-6:
+        fail("kernel mip disagrees with its plain version at path 5's shapes")
+    say(f"main path 5: cornell64_full on the Cornell box through render_rays "
+        f"({ocfg.grid.dim}^3, {osize[0]}x{osize[1]}, "
+        f"{ocfg.cones.num_diffuse_cones} diffuse cones and 1 specular cone "
+        f"a pixel, shadow mode {ocfg.shadow.mode}, {ocfg.light.gi_bounces} "
+        f"bounces); march steps a cone {json.dumps(steps5)} (the shadow "
+        f"schedule runs in the build's dense light volume); first run "
+        f"{first_s:.2f} s")
+    # the repo's plausibility check (tests/test_renderer.py): the red wall
+    # tints the left of the image, the green wall the right
+    row0 = osize[1] // 2 - 16
+    left = img5[row0:row0 + 32, 8:32]
+    right = img5[row0:row0 + 32, osize[0] - 32:osize[0] - 8]
+    say(f"cornell64_full image: finite, mean {float(img5.mean()):.6f}, min "
+        f"{float(img5.min()):.6f}; left rgb "
+        f"{[round(float(x), 4) for x in left.mean(dim=(0, 1))]}, right "
+        f"{[round(float(x), 4) for x in right.mean(dim=(0, 1))]}")
+    if not (0.01 < float(img5.mean()) < 1.0 and float(img5.min()) >= 0.0
+            and float(left[..., 0].mean()) > float(left[..., 1].mean())
+            and float(right[..., 1].mean()) > float(right[..., 0].mean())):
+        fail("the cornell64_full image is not the Cornell box")
+    frame5 = oracle_frame(p5, ocfg)
+    build5 = elapsed_ms(lambda: R.build_voxel_state(ocfg, p5["samples"],
+                                                    p5["mats"]), BUILD_REPS)
+    frame5_ms = elapsed_ms(frame5, FRAME_REPS)
+    sync()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    st5, st5_total = stage_ms(frame5, 3)
+    peak5 = torch.cuda.max_memory_allocated()
+    say(f"cornell64_full build_voxel_state ms: median "
+        f"{statistics.median(build5):.3f} over {build5}")
+    say(f"cornell64_full render_camera_pass (render_rays, chunks of 16384) "
+        f"ms: median {statistics.median(frame5_ms):.3f} over {frame5_ms}")
+    say("cornell64_full frame stages, device ms (medians of 3, each summed "
+        "over the frame's chunks):",
+        json.dumps({k: round(v, 4) for k, v in st5.items()}),
+        f"total {st5_total}")
+    say(f"cornell64_full frame: host syncs {count_syncs(frame5)}, peak "
+        f"device memory {peak5 / 2**30:.3f} GiB ({held / 2**30:.3f} GiB "
+        f"held before it)")
+    prof5 = profile(frame5, 3)
+    say("cornell64_full frame under torch.profiler (3 frames): busy share "
+        f"{prof5['busy_share']:.4f}, device ms a frame "
+        f"{prof5['device_ms_per_frame']:.3f} of wall ms "
+        f"{prof5['wall_ms_per_frame']:.3f}, kernels a frame "
+        f"{prof5['kernels_per_frame']:.0f}; top: " + json.dumps(
+            [(t["name"][:48], round(t["ms_per_frame"], 4))
+             for t in prof5["top"][:5]]))
+
+    # the other presets that only render_rays serves, forward, full size
+    other5 = {}
+    for name in ("cornell64", "inverse"):
+        c5 = preset(name)
+        _, _, q5 = oracle_run(cornell, ocam, c5, name)
+        other5[name] = elapsed_ms(oracle_frame(q5, c5), FRAME_REPS)
+        say(f"{name} ({c5.grid.dim}^3, {c5.render.width}x{c5.render.height},"
+            f" {c5.cones.num_diffuse_cones} diffuse cones, specular "
+            f"{c5.cones.trace_specular}) render_camera_pass ms through "
+            f"render_rays: median {statistics.median(other5[name]):.3f} over "
+            f"{other5[name]}")
+        del q5
+
+    # the textured atrium at the bench camera: the alpha re-cast and the
+    # bump normal through the oracle
+    _, _, pa = oracle_run(scene, camera, ocfg, "cornell64_full atrium")
+    oa = pa["origins"].reshape(-1, 3)[0]
+    ga = GB.raycast_chunk_pinhole(pa["ds"], GB.pinhole_constants(pa["ds"],
+                                                                 oa),
+                                  oa, pa["dirs"].reshape(-1, 3))
+    masked5 = int((ga.hit & (pa["mats"].sample_albedo(ga.material, ga.uv)
+                             [:, 3] < ocfg.render.alpha_threshold)).sum())
+    atrium5_ms = elapsed_ms(oracle_frame(pa, ocfg), FRAME_REPS)
+    say(f"cornell64_full on the atrium ({pa['ds'].v0.shape[0]} triangles, "
+        f"atlas {tuple(pa['mats'].atlas.albedo.shape)}), bench camera: "
+        f"{int(ga.hit.sum())} hit pixels of {ga.hit.numel()}, {masked5} "
+        f"masked in the first pass; image mean "
+        f"{float(pa['img'].mean()):.6f}; render_camera_pass ms: median "
+        f"{statistics.median(atrium5_ms):.3f} over {atrium5_ms}")
+    del pa, ga
+    small_check(cornell, ocam, 64, 64, "cornell64_full oracle",
+                name="cornell64_full")
+
+    # the fast path against the oracle on the card, paired as the repo's
+    # tests pair them, at field_dim 64 with float32 dense marches:
+    # tests/test_fast.py holds the fast path to render_rays at the same
+    # field-mode config (mean < 0.01, p99 < 0.06: per-tile levels, bf16
+    # tables), tests/test_field_mode.py field mode to percone (mean <
+    # 0.02, p95 < 0.08: the basis fields' own error); the percone image is
+    # path 5's (field_dim and compute do not enter it); cornell64_full's
+    # dense marches are float32 already
+    fcfg = dataclasses.replace(
+        ocfg, cones=dataclasses.replace(ocfg.cones, field_dim=64,
+                                        diffuse_mode="field",
+                                        specular_mode="field"))
+    if not R.use_fast_path(fcfg):
+        fail("the field config does not take the fast path")
+    v5 = R.build_voxel_state(fcfg, p5["samples"], p5["mats"])
+    fast5 = R.render_camera_pass(fcfg, p5["ds"], v5, p5["mats"],
+                                 p5["origins"], p5["dirs"], p5["cam"])
+    rays5 = R.render_rays(fcfg, p5["ds"], v5, p5["mats"], p5["origins"],
+                          p5["dirs"], p5["cam"], chunk_size=16384)
+    pairs = {}
+    for what, a5, b5 in (("fast path vs render_rays, field mode", fast5,
+                          rays5),
+                         ("fast path (field) vs render_rays (percone)",
+                          fast5, img5)):
+        e5 = (a5 - b5).abs().flatten()
+        pairs[what] = {k: float(v) for k, v in (
+            ("mean", e5.mean()), ("p95", torch.quantile(e5, 0.95)),
+            ("p99", torch.quantile(e5, 0.99)), ("max", e5.max()))}
+        say(f"{what} on the card, cornell64_full {osize[0]}x{osize[1]}, "
+            f"field_dim 64, {fcfg.grid.compute}: " + json.dumps(
+                {k: float(f"{v:.4e}") for k, v in pairs[what].items()}))
+    like, modes = pairs.values()
+    if not (like["mean"] < 0.01 and like["p99"] < 0.06):
+        fail("the fast path disagrees with render_rays at its config "
+             "(tests/test_fast.py bounds)")
+    if not (modes["mean"] < 0.02 and modes["p95"] < 0.08):
+        fail("field mode disagrees with the percone oracle "
+             "(tests/test_field_mode.py bounds)")
+    del p5, v5, fast5, rays5
+
     say(f"frame ms medians on {card}: atrium "
         f"{statistics.median(atrium_ms['render_frame']):.3f}, atrium x4 "
         f"{statistics.median(atrium4_ms['render_frame']):.3f}, exact "
-        f"specular {statistics.median(x_ms['render_frame']):.3f}")
+        f"specular {statistics.median(x_ms['render_frame']):.3f}, "
+        f"cornell64_full oracle {statistics.median(frame5_ms):.3f}")
 
     # ---- (d) the result ------------------------------------------------
     print(json.dumps({"kernels": report}))

@@ -4,7 +4,8 @@ vct_tpu_torch and renders the tiny slices on the CPU from the port's own
 config and scenes (sponza256 cut to a 32^3 grid, float32 compute: the
 Cornell box at 64x48, the textured atrium at 96x64, the atrium
 subdivided once, 4,488 triangles through the binned raycast, at 128x64,
-and sponza256_exact_specular cut the same way on the atrium at 96x64).
+sponza256_exact_specular cut the same way on the atrium at 96x64, and
+cornell64_full at 16^3 / 32x32 through the per-cone oracle renderer).
 No source of the port or of chip_smoke.py imports either.
 Also the ops' device rule and the entry points' default device, which
 need no card to check."""
@@ -81,6 +82,16 @@ SCRIPT = textwrap.dedent("""
         assert float(img.mean()) > 0.01
         print("rendered", name, tuple(img.shape), mats.atlas is not None,
               ds.v0.shape[0], float(img.mean()))
+    # the per-cone oracle renderer: preset cornell64_full cut to 16^3
+    cfg = preset("cornell64_full")
+    cfg = dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, dim=16),
+        render=dataclasses.replace(cfg.render, width=32, height=32))
+    img = R.render_image(cfg, cornell_box(size=100.0),
+                         CAM.Camera(position=(0.0, 0.0, 140.0)), device=cpu)
+    assert img.shape == (32, 32, 3) and bool(torch.isfinite(img).all())
+    assert float(img.mean()) > 0.01
+    print("rendered cornell64_full", tuple(img.shape), float(img.mean()))
     assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
 """)
 
@@ -94,6 +105,7 @@ def test_imports_and_renders_without_jax():
     assert "rendered sponza256 (64, 128, 3) True 4488 " in res.stdout  # binned
     assert ("rendered sponza256_exact_specular (64, 96, 3) True 1122 "
             in res.stdout)
+    assert "rendered cornell64_full (32, 32, 3) " in res.stdout  # render_rays
 
 
 def _sources():
@@ -133,8 +145,12 @@ def _scene():
     lambda: R.SamplesDevice.from_samples(V.generate_surface_samples(
         _scene(), 150.0 / 8)).positions,
     lambda: R.prepare_scene(preset("cornell64"), _scene())[0].v0,
+    lambda: R.render_image(preset("cornell64"), _scene()),
+    lambda: GB.raycast(GB.DeviceScene.from_scene(_scene()),
+                       [[0.0, 0.0, 140.0]], [[0.0, 0.0, -1.0]]).hit,
 ], ids=["primary_rays", "light_direction", "material_table",
-        "device_scene", "samples", "prepare_scene"])
+        "device_scene", "samples", "prepare_scene", "render_image",
+        "raycast"])
 def test_entry_points_default_to_the_card(call):
     """Named no device, an entry point puts its tensors on the card; on a
     machine without CUDA it raises rather than run on the CPU."""
@@ -149,7 +165,8 @@ def test_entry_point_defaults_name_cuda():
     import inspect
     for fn in (R.prepare_scene, R.MaterialTable.from_scene,
                R.SamplesDevice.from_samples, R.light_direction,
-               GB.DeviceScene.from_scene, CAM.primary_rays):
+               GB.DeviceScene.from_scene, CAM.primary_rays, R.render_image,
+               GB.raycast):
         assert inspect.signature(fn).parameters["device"].default == \
             "cuda", fn.__qualname__
 

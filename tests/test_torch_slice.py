@@ -215,7 +215,13 @@ def test_off_slice_inputs_raise(jax_run, port_run, monkeypatch):
                                                                **no_spec))
         frames.append(F.render_frame(c, ds, t, mats, origins, dirs, cam))
     assert torch.equal(frames[0], frames[1])
+    # percone diffuse is off the fast path: the camera pass is the per-cone
+    # oracle, render_rays
     oracle = dataclasses.replace(cfg, cones=dataclasses.replace(
         cfg.cones, diffuse_mode="percone"))
-    with pytest.raises(NotImplementedError, match="per-cone"):
-        R.render_camera_pass(oracle, ds, voxels, mats, origins, dirs, cam)
+    assert not R.use_fast_path(oracle)
+    img_o = R.render_camera_pass(oracle, ds, voxels, mats, origins, dirs, cam,
+                                 chunk_size=4096)
+    assert torch.equal(img_o, R.render_rays(oracle, ds, voxels, mats, origins,
+                                            dirs, cam, chunk_size=4096))
+    assert img_o.shape == (48, 64, 3) and np.abs(img_o.numpy() - ref).max() > 0

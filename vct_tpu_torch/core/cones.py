@@ -1,6 +1,7 @@
 """Cone-set constants and tangent-frame math (port of vct_tpu/core/cones.py).
 
-Ref: Shader/VoxelConeTracing.fs:46-57 (weights/directions).
+Ref: Shader/VoxelConeTracing.fs:46-57 (weights/directions), :175-177 (TBN
+construction), :198 (world-space rotation at trace time).
 """
 
 from __future__ import annotations
@@ -29,6 +30,24 @@ CONE_DIRECTIONS = np.array(
 def normalize(v: Tensor, eps: float = 1e-12) -> Tensor:
     n = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
     return v / torch.clamp_min(n, eps)
+
+
+def tbn_matrix(tangent: Tensor, bitangent: Tensor, normal: Tensor) -> Tensor:
+    """TBN = inverse(transpose(mat3(T, B, N))) — fs:175.  Inputs (..., 3);
+    returns (..., 3, 3) applying as out = mat @ v.
+
+    `inv_ex` neither checks nor raises: a singular frame gives non-finite
+    entries, as jnp.linalg.inv does, and the card is not synchronized to
+    read an error flag."""
+    m = torch.stack([tangent, bitangent, normal], dim=-1)   # columns T,B,N
+    return torch.linalg.inv_ex(m.transpose(-1, -2)).inverse
+
+
+def rotate_cones(tbn: Tensor, directions: Tensor) -> Tensor:
+    """World-space cone directions: normalize(TBN @ dir) — fs:198.
+
+    tbn (..., 3, 3); directions (K, 3) -> (..., K, 3)."""
+    return normalize(torch.einsum("...ij,kj->...ki", tbn, directions))
 
 
 def orthonormal_frame(normal: Tensor) -> tuple[Tensor, Tensor]:

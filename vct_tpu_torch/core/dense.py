@@ -1,4 +1,5 @@
-"""Direction-major dense cone marching (port of vct_tpu/core/dense.py:41-338).
+"""Direction-major dense cone marching and the direction basis (port of
+vct_tpu/core/dense.py:41-357).
 
 March a cone from EVERY field voxel center along a fixed direction: each
 step samples the mip level at (voxel center + dist_k * dir), a constant
@@ -24,6 +25,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from vct_tpu_torch.core import grid as G
 from vct_tpu_torch.core import march as M
 
 Tensor = torch.Tensor
@@ -126,8 +128,8 @@ def directional_march_multi(
     so only one direction's carry is live at a time."""
     if any(m.dim() != 4 for m in mips):
         raise NotImplementedError(
-            "anisotropic mips are not ported (ROADMAP Queue 1 item 8: "
-            "core/aniso.py)")
+            "anisotropic mips are not ported: ROADMAP Queue 1 item 6 "
+            "(core/aniso.py)")
     d0 = mips[0].shape[0]
     df = field_dim or d0
     dev = mips[0].device
@@ -218,3 +220,20 @@ def direction_basis(n: int = 26) -> np.ndarray:
         raise ValueError(f"unsupported basis size {n}")
     d = np.asarray(dirs, np.float64)
     return (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def basis_weights(dirs: Tensor, basis: np.ndarray, power: float = 8.0
+                  ) -> Tensor:
+    """Spherical interpolation weights of query dirs (..., 3) over the
+    basis (B, 3): max(cos, 0)^power normalized to sum 1.  Power-of-two
+    exponents (the config's 8 and 32) use repeated squaring, as the
+    reference does."""
+    cos = dirs @ G.constant(basis, dirs.device, dirs.dtype).T
+    w = torch.clamp_min(cos, 0.0)
+    p = float(power)
+    if p > 0 and p == int(p) and (int(p) & (int(p) - 1)) == 0:
+        for _ in range(int(np.log2(int(p)))):
+            w = w * w
+    else:
+        w = w ** power
+    return w / torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), 1e-8)

@@ -8,8 +8,10 @@ as tuples with level 0 finest.
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -22,6 +24,18 @@ def scalar_like(x: Tensor, value: float) -> Tensor:
     tensor / python-scalar as a multiply by the reciprocal, which rounds
     differently from the IEEE division the reference performs."""
     return torch.full((), value, dtype=x.dtype, device=x.device)
+
+
+def constant(x, device, dtype=torch.float32) -> Tensor:
+    """A host constant (numbers, tuples, numpy) as a tensor on `device`.
+
+    On the card the copy goes through pinned memory without blocking, so
+    it does not wait for the queue: a plain host-to-device copy of
+    pageable memory is a host synchronization."""
+    t = torch.as_tensor(np.asarray(x), dtype=dtype)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def world_to_uvw(p: Tensor, world_size: float) -> Tensor:
@@ -56,6 +70,32 @@ def trilinear_sample(grid: Tensor, uvw: Tensor) -> Tensor:
     c0 = c00 * (1 - fy) + c01 * fy
     c1 = c10 * (1 - fy) + c11 * fy
     return c0 * (1 - fx) + c1 * fx
+
+
+def lod_levels(lod: float, num_levels: int) -> Tuple[int, int, float]:
+    """(l0, l1, w) of a static lod clamped into a stack of `num_levels`:
+    the two levels around it and the weight of the upper one."""
+    lod = min(max(float(lod), 0.0), num_levels - 1)
+    l0 = min(int(math.floor(lod)), num_levels - 1)
+    l1 = min(l0 + 1, num_levels - 1)
+    return l0, l1, lod - l0
+
+
+def sample_lod(mips: Sequence[Tensor], uvw: Tensor, lod: float) -> Tensor:
+    """Quadrilinear textureLod with a static lod, a Python float
+    (VoxelConeTracing.fs:65): trilinear in the two levels around it and a
+    lerp between them."""
+    l0, l1, w = lod_levels(lod, len(mips))
+    s0 = trilinear_sample(mips[l0], uvw)
+    if w == 0.0 or l1 == l0:
+        return s0
+    return s0 * (1 - w) + trilinear_sample(mips[l1], uvw) * w
+
+
+def sample_voxels(mips: Sequence[Tensor], p_world: Tensor, lod: float,
+                  world_size: float) -> Tensor:
+    """SampleVoxels(worldPosition, lod) — VoxelConeTracing.fs:59-66."""
+    return sample_lod(mips, world_to_uvw(p_world, world_size), lod)
 
 
 def downsample2x(grid: Tensor, alpha_mode: str = "mean") -> Tensor:

@@ -1,16 +1,25 @@
-"""Static cone-march schedules (port of vct_tpu/core/march.py:47-113).
+"""The cone march as an array program (port of vct_tpu/core/march.py).
 
 The reference loop (VoxelConeTracing.fs:82-107) advances by the cone
 diameter, and diameter/lod depend only on config constants, so the whole
-step schedule is static.  Pure Python: identical to the JAX package's
-schedule (tests/test_torch_host.py pins the equality).
+step schedule is static.  The schedule is pure Python, identical to the
+JAX package's (tests/test_torch_host.py pins the equality).  The march
+is then a fixed set of quadrilinear gathers at known mip levels, batched
+per level, and a front-to-back composite written as an exclusive
+cumulative product with the loop's early-out as a monotone mask.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+
+from vct_tpu_torch.core import grid as G
+
+Tensor = torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,11 +72,109 @@ def march_schedule(
 
 def _static_lod_plan(lods: Sequence[float], num_levels: int):
     """For each step: (l0, l1, w) with lod clamped into the available stack."""
-    plan = []
-    for lod in lods:
-        lod = min(max(lod, 0.0), num_levels - 1)
-        l0 = min(int(math.floor(lod)), num_levels - 1)
-        l1 = min(l0 + 1, num_levels - 1)
-        w = lod - l0
-        plan.append((l0, l1, w))
-    return plan
+    return [G.lod_levels(lod, num_levels) for lod in lods]
+
+
+def sample_schedule(mips: Sequence[Tensor], points: Tensor,
+                    lods: Sequence[float], world_size: float,
+                    direction: Tensor | None = None) -> Tensor:
+    """Quadrilinear samples of all K steps, points (..., K, 3) in world
+    space -> (..., K, C).  Steps that share a mip level are gathered in one
+    trilinear_sample call.  `direction` is the travel direction an
+    anisotropic stack needs; the port has isotropic stacks only."""
+    if len(mips) > 1 and mips[1].dim() == 5:
+        raise NotImplementedError(
+            "anisotropic mip stacks are not ported: ROADMAP Queue 1 item 6 "
+            "(core/aniso.py)")
+    k = points.shape[-2]
+    assert k == len(lods)
+    plan = _static_lod_plan(lods, len(mips))
+    uvw = G.world_to_uvw(points, world_size)
+
+    need: Dict[int, List[int]] = {}
+    for step, (l0, l1, w) in enumerate(plan):
+        need.setdefault(l0, []).append(step)
+        if w > 0.0 and l1 != l0:
+            need.setdefault(l1, []).append(step)
+
+    per_level: Dict[int, Dict[int, Tensor]] = {}
+    for lvl, steps in need.items():
+        pts = torch.stack([uvw[..., s, :] for s in steps], dim=-2)
+        res = G.trilinear_sample(mips[lvl], pts)            # (..., n, C)
+        per_level[lvl] = {s: res[..., i, :] for i, s in enumerate(steps)}
+
+    out = []
+    for step, (l0, l1, w) in enumerate(plan):
+        s0 = per_level[l0][step]
+        if w > 0.0 and l1 != l0:
+            out.append(s0 * (1.0 - w) + per_level[l1][step] * w)
+        else:
+            out.append(s0)
+    return torch.stack(out, dim=-2)
+
+
+def composite(colors: Tensor, alphas: Tensor, diameters: Sequence[float],
+              max_alpha: float = 0.95, occlusion_falloff: float = 0.03,
+              step_factor: float = 1.0) -> Tuple[Tensor, Tensor, Tensor]:
+    """Front-to-back composite of colors (..., K, 3) and alphas (..., K)
+    matching fs:100-103; step_factor != 1 applies the opacity correction
+    a' = 1 - (1 - a)^step_factor.  Returns (color, occlusion, alpha)."""
+    if step_factor != 1.0:
+        keep = (1.0 - alphas) ** step_factor
+        scale = torch.where(
+            alphas > 1e-6, (1.0 - keep) / torch.clamp_min(alphas, 1e-6),
+            step_factor)
+        colors = colors * scale[..., None]
+        alphas = 1.0 - keep
+    one_m = 1.0 - alphas
+    # exclusive cumprod: T_k = prod_{j<k} (1 - a_j); T_0 = 1
+    t_incl = torch.cumprod(one_m, dim=-1)
+    t_excl = torch.cat([torch.ones_like(t_incl[..., :1]), t_incl[..., :-1]],
+                       dim=-1)
+    # loop-top early-out: step k runs iff alpha-so-far < MAX_ALPHA (fs:94)
+    active = (1.0 - t_excl) < max_alpha
+    w = torch.where(active, t_excl, 0.0)
+    color = torch.sum(w[..., None] * colors, dim=-2)
+    atten = 1.0 + occlusion_falloff * G.constant(diameters, colors.device,
+                                                 colors.dtype)
+    occlusion = torch.sum(w * alphas / atten, dim=-1)
+    alpha = 1.0 - torch.prod(torch.where(active, one_m, 1.0), dim=-1)
+    return color, occlusion, alpha
+
+
+def cone_march(mips: Sequence[Tensor], start: Tensor, direction: Tensor,
+               schedule: MarchSchedule, world_size: float,
+               max_alpha: float = 0.95, occlusion_falloff: float = 0.03
+               ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Voxel_Cone_Tracing(direction, tanHalfAngle) — fs:82-107.  `start`
+    (..., 3) already carries the normal offset (fs:92); direction (..., 3)
+    is a unit vector.  Returns (color, occlusion, alpha)."""
+    if schedule.num_steps == 0:
+        shp = start.shape[:-1]
+        z = start.new_zeros(shp)
+        return start.new_zeros(shp + (3,)), z, z
+    dists = G.constant(schedule.dists, start.device, start.dtype)
+    points = start[..., None, :] + dists[:, None] * direction[..., None, :]
+    samples = sample_schedule(mips, points, schedule.lods, world_size,
+                              direction=direction)
+    return composite(samples[..., :3], samples[..., 3], schedule.diameters,
+                     max_alpha=max_alpha,
+                     occlusion_falloff=occlusion_falloff,
+                     step_factor=schedule.step_factor)
+
+
+def cone_march_multi(mips: Sequence[Tensor], start: Tensor,
+                     directions: Tensor, weights: Sequence[float],
+                     schedule: MarchSchedule, world_size: float,
+                     max_alpha: float = 0.95,
+                     occlusion_falloff: float = 0.03
+                     ) -> Tuple[Tensor, Tensor]:
+    """Weighted multi-cone gather sum_i w_i * ConeTrace(dir_i) — fs:196-199:
+    start (..., 3), directions (..., K, 3), K static weights.  Returns
+    (color (..., 3), occlusion (...))."""
+    color, occ, _ = cone_march(mips, start[..., None, :], directions,
+                               schedule, world_size, max_alpha=max_alpha,
+                               occlusion_falloff=occlusion_falloff)
+    w = G.constant(weights, color.device, color.dtype)
+    return (torch.sum(w[:, None] * color, dim=-2),
+            torch.sum(w * occ, dim=-1))

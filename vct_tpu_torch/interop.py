@@ -13,7 +13,7 @@ import torch
 
 from vct_tpu_torch.render import fast as F
 from vct_tpu_torch.render import renderer as R
-from vct_tpu_torch.render.gbuffer import DeviceScene
+from vct_tpu_torch.render.gbuffer import DeviceScene, GBuffer
 from vct_tpu_torch.ops import specmarch as SM
 from vct_tpu_torch.ops import tap as TP
 from vct_tpu_torch.scene.textures import TextureAtlas
@@ -31,6 +31,13 @@ def tensor(x, device="cuda") -> torch.Tensor:
 def device_scene(ds, device="cuda") -> DeviceScene:
     return DeviceScene(**{f: tensor(getattr(ds, f), device)
                           for f in DeviceScene.__dataclass_fields__})
+
+
+def gbuffer(g, device="cuda") -> GBuffer:
+    """The JAX package's GBuffer -> the port's, dtypes kept (hit bool,
+    material and tri int32)."""
+    return GBuffer(**{f: tensor(getattr(g, f), device)
+                      for f in GBuffer.__dataclass_fields__})
 
 
 def material_table(m, device="cuda") -> R.MaterialTable:

@@ -60,7 +60,9 @@ def _scene(name):
 
 
 def stage_ms(fn, reps: int):
-    """({stage: median device ms}, [total ms per rep]) of fn()."""
+    """({stage: median device ms}, [total ms per rep]) of fn().  A stage
+    marked more than once in a run (render_rays marks each chunk's) counts
+    the sum of its pieces."""
     per, totals = {}, []
     for rep in range(reps + 1):               # the first run warms up
         events = []
@@ -80,8 +82,11 @@ def stage_ms(fn, reps: int):
         torch.cuda.synchronize()
         if rep == 0:
             continue
+        run = {}
         for (_, a), (name, b) in zip(events, events[1:]):
-            per.setdefault(name, []).append(a.elapsed_time(b))
+            run[name] = run.get(name, 0.0) + a.elapsed_time(b)
+        for name, ms in run.items():
+            per.setdefault(name, []).append(ms)
         totals.append(events[0][1].elapsed_time(events[-1][1]))
     return {k: statistics.median(v) for k, v in per.items()}, totals
 

@@ -1,13 +1,27 @@
-"""Scene geometry on the device (port of vct_tpu/render/gbuffer.py:54-112).
+"""Primary visibility for the per-cone oracle renderer, and the scene's
+geometry on the device (port of vct_tpu/render/gbuffer.py).
 
-Triangles are stored in the JAX package's Morton order: the raycast's
-winner is the first minimum by triangle index, so another order would
-change tie-breaks and material ids.
+Rays intersect the triangle soup and the hit's barycentrics interpolate
+the attributes the reference's vertex shader hands the fragment stage
+(VoxelConeTracing.vs:25-36).  Two paths, both plain PyTorch on every
+device: they are the oracle the fast path's kernels are checked against,
+so they do not run through those kernels.
+  * `raycast`, Möller–Trumbore over all triangles for rays of any
+    origins, in chunks of rays;
+  * the pinhole path for camera rays (one shared origin): with the
+    origin fixed, det, u*det and v*det are linear in the ray direction,
+    so the test is three (N, 3) x (3, T) float32 matmuls, a sign-folded
+    mask and an argmin.
+
+Triangles are stored in the JAX package's Morton order: the winner is
+the first minimum by triangle index (torch.argmin, as jnp.argmin), so
+another order would change tie-breaks and material ids.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -15,6 +29,28 @@ import torch
 from vct_tpu_torch.scene.mesh import Scene
 
 Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class GBuffer:
+    """Per-pixel surface attributes; invalid where ~hit."""
+
+    hit: Tensor            # (...,) bool
+    t: Tensor              # (...,) ray parameter
+    position: Tensor       # (..., 3) world
+    normal: Tensor         # (..., 3) shading normal (vertex-interpolated)
+    geo_normal: Tensor     # (..., 3) face normal
+    tangent: Tensor        # (..., 3)
+    bitangent: Tensor      # (..., 3)
+    uv: Tensor             # (..., 2)
+    material: Tensor       # (...,) int32
+    tri: Tensor            # (...,) int32
+
+
+def map_gbuffer(fn: Callable, *gbufs: GBuffer) -> GBuffer:
+    """GBuffer of fn applied field by field (jax.tree_util.tree_map)."""
+    return GBuffer(**{f.name: fn(*(getattr(g, f.name) for g in gbufs))
+                      for f in dataclasses.fields(GBuffer)})
 
 
 @dataclasses.dataclass
@@ -73,3 +109,130 @@ def _morton_order(centroids: np.ndarray) -> np.ndarray:
     code = ((spread(q[:, 0]) << np.uint64(2))
             | (spread(q[:, 1]) << np.uint64(1)) | spread(q[:, 2]))
     return np.argsort(code, kind="stable")
+
+
+def _pick(x: Tensor, tri: Tensor) -> Tensor:
+    """x[rows, tri] of an (N, T) array."""
+    return x.gather(1, tri[:, None])[:, 0]
+
+
+def _intersect_chunk(origins: Tensor, dirs: Tensor, ds: DeviceScene,
+                     eps: float = 1e-7
+                     ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Möller–Trumbore, all rays (N, 3) x all triangles.  Returns
+    (t, u, v, tri) of the closest hit, t = inf for a miss."""
+    pvec = torch.linalg.cross(dirs[:, None, :], ds.e2[None], dim=-1)
+    det = torch.sum(pvec * ds.e1[None], dim=-1)                  # (N, T)
+    inv_det = torch.where(det.abs() > eps, 1.0 / det, 0.0)
+    tvec = origins[:, None, :] - ds.v0[None]
+    u = torch.sum(tvec * pvec, dim=-1) * inv_det
+    qvec = torch.linalg.cross(tvec, ds.e1[None], dim=-1)
+    v = torch.sum(dirs[:, None, :] * qvec, dim=-1) * inv_det
+    t = torch.sum(ds.e2[None] * qvec, dim=-1) * inv_det
+    valid = ((det.abs() > eps) & (u >= 0) & (v >= 0) & (u + v <= 1)
+             & (t > 1e-4))
+    t = torch.where(valid, t, torch.inf)
+    tri = torch.argmin(t, dim=-1)
+    return _pick(t, tri), _pick(u, tri), _pick(v, tri), tri
+
+
+def raycast_chunk(ds: DeviceScene, o: Tensor, d: Tensor) -> GBuffer:
+    """Closest-hit G-buffer for one flat chunk of rays (N, 3)."""
+    t, u, v, tri = _intersect_chunk(o, d, ds)
+    return _interp_gbuffer(ds, o, d, t, u, v, tri)
+
+
+@dataclasses.dataclass
+class PinholeConstants:
+    """Per-triangle constants for a fixed ray origin (see module doc)."""
+
+    a: Tensor       # (T, 3)  det    = d . a,  a = e2 x e1
+    b: Tensor       # (T, 3)  u*det  = d . b,  b = e2 x tvec
+    c: Tensor       # (T, 3)  v*det  = d . c,  c = tvec x e1
+    k: Tensor       # (T,)    t*det  = e2 . c
+
+
+def pinhole_constants(ds: DeviceScene, origin: Tensor) -> PinholeConstants:
+    """O(T) prep folding the shared origin (3,) into the triangle data."""
+    tvec = origin[None, :] - ds.v0
+    c = torch.linalg.cross(tvec, ds.e1, dim=-1)
+    return PinholeConstants(a=torch.linalg.cross(ds.e2, ds.e1, dim=-1),
+                            b=torch.linalg.cross(ds.e2, tvec, dim=-1), c=c,
+                            k=torch.sum(ds.e2 * c, dim=-1))
+
+
+def _intersect_chunk_pinhole(dirs: Tensor, pc: PinholeConstants,
+                             eps: float = 1e-7,
+                             tmin: Optional[Tensor] = None
+                             ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Closest hit for one chunk of same-origin rays (N, 3): three float32
+    matmuls, a sign-folded mask and an argmin.  Returns (t, tri, det of
+    the winner).  tmin: optional per-ray (N,) least hit distance, for the
+    alpha-mask re-cast past a masked hit (renderer.alpha_mask_recast)."""
+    det = dirs @ pc.a.T                                          # (N, T)
+    ud = dirs @ pc.b.T
+    vd = dirs @ pc.c.T
+    s = torch.sign(det)
+    ad = det.abs()
+    sk = s * pc.k[None, :]
+    # u, v, t conditions multiplied through by |det| (sign-safe)
+    valid = ((ad > eps) & (s * ud >= 0) & (s * vd >= 0)
+             & (s * (ud + vd) <= ad) & (sk > 1e-4 * ad))
+    tval = sk / torch.clamp_min(ad, eps)
+    if tmin is not None:
+        valid = valid & (tval > tmin[:, None])
+    t = torch.where(valid, tval, torch.inf)
+    tri = torch.argmin(t, dim=-1)
+    return _pick(t, tri), tri, _pick(det, tri)
+
+
+def raycast_chunk_pinhole(ds: DeviceScene, pc: PinholeConstants,
+                          origin: Tensor, d: Tensor,
+                          tmin: Optional[Tensor] = None) -> GBuffer:
+    """raycast_chunk for rays (N, 3) from one origin (3,).  The winner's
+    barycentrics are recomputed against its triangle alone (3 dots a
+    ray)."""
+    t, tri, det = _intersect_chunk_pinhole(d, pc, tmin=tmin)
+    inv = torch.where(det.abs() > 1e-12, 1.0 / det, 0.0)
+    u = torch.sum(d * pc.b[tri], dim=-1) * inv
+    v = torch.sum(d * pc.c[tri], dim=-1) * inv
+    return _interp_gbuffer(ds, origin[None, :].expand_as(d), d, t, u, v, tri)
+
+
+def raycast(ds: DeviceScene, origins, dirs, chunk_size: int = 4096,
+            device="cuda") -> GBuffer:
+    """Closest-hit G-buffer for rays of any batch shape (..., 3).  The
+    rays (tensors or host arrays) are put on `device`, where `ds` must
+    lie; chunks of `chunk_size` rays bound the (N, T) intermediates."""
+    origins = torch.as_tensor(origins, dtype=torch.float32, device=device)
+    dirs = torch.as_tensor(dirs, dtype=torch.float32, device=device)
+    shape = origins.shape[:-1]
+    o = origins.reshape(-1, 3)
+    d = dirs.reshape(-1, 3)
+    n = o.shape[0]
+    parts = [_intersect_chunk(o[s:s + chunk_size], d[s:s + chunk_size], ds)
+             for s in range(0, n, chunk_size)]
+    t, u, v, tri = (torch.cat(x) for x in zip(*parts))
+    g = _interp_gbuffer(ds, o, d, t, u, v, tri)
+    return map_gbuffer(lambda x: x.reshape(shape + x.shape[1:]), g)
+
+
+def _interp_gbuffer(ds: DeviceScene, o: Tensor, d: Tensor, t: Tensor,
+                    u: Tensor, v: Tensor, tri: Tensor) -> GBuffer:
+    hit = torch.isfinite(t)
+    ts = torch.where(hit, t, 0.0)
+    w0 = (1.0 - u - v)[:, None]
+    uu, vv = u[:, None], v[:, None]
+
+    def interp(attr):   # (T, 3, C) -> (N, C)
+        a = attr[tri]
+        return w0 * a[:, 0] + uu * a[:, 1] + vv * a[:, 2]
+
+    normal = interp(ds.vn)
+    normal = normal / torch.clamp_min(
+        torch.linalg.vector_norm(normal, dim=-1, keepdim=True), 1e-12)
+    return GBuffer(hit=hit, t=ts, position=o + ts[:, None] * d,
+                   normal=normal, geo_normal=ds.face_normal[tri],
+                   tangent=interp(ds.vt), bitangent=interp(ds.vb),
+                   uv=interp(ds.vuv), material=ds.material[tri],
+                   tri=tri.to(torch.int32))

@@ -1,10 +1,17 @@
-"""Scene prep, the voxel build and the camera pass (port of
-vct_tpu/render/renderer.py:48-299, 577-612).
+"""Scene prep, the voxel build, the per-cone oracle renderer and the
+camera pass (port of vct_tpu/render/renderer.py).
 
 One `build_voxel_state`: splat albedo -> max-alpha occupancy mips ->
-dense light-transmittance volume -> per-sample shadow -> splat radiance
--> radiance mips -> diffuse and specular basis fields.  PyTorch runs
-eagerly, so the JAX package's staged-jit split has no counterpart.
+per-sample shadow (dense light-transmittance volume, or a shadow cone
+per sample) -> splat radiance -> radiance mips -> extra GI bounces ->
+diffuse and specular basis fields where the cone modes need them.
+PyTorch runs eagerly, so the JAX package's staged-jit split has no
+counterpart.
+
+The camera pass takes the fast path (render/fast.py, the hand-written
+kernels) where `use_fast_path` allows, and otherwise the per-cone oracle
+`render_rays`: raycast, alpha-mask re-cast and shading per chunk of
+rays, all in plain PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -16,10 +23,15 @@ import numpy as np
 import torch
 
 from vct_tpu_torch.config import VCTConfig
+from vct_tpu_torch.core import camera as CAM
+from vct_tpu_torch.core import cones as C
+from vct_tpu_torch.core import grid as G
 from vct_tpu_torch.scene.mesh import Scene
 from vct_tpu_torch.ops import mip
 from vct_tpu_torch.render import shading
-from vct_tpu_torch.render.gbuffer import DeviceScene
+from vct_tpu_torch.render.gbuffer import (DeviceScene, GBuffer, map_gbuffer,
+                                          pinhole_constants, raycast_chunk,
+                                          raycast_chunk_pinhole)
 from vct_tpu_torch.render.voxelize import (SurfaceSamples,
                                            generate_surface_samples, splat)
 from vct_tpu_torch.scene import textures as TX
@@ -120,36 +132,69 @@ def prepare_scene(cfg: VCTConfig, scene: Scene,
 
 def light_direction(cfg: VCTConfig, device="cuda") -> Tensor:
     """L = normalize(LightDirection) — fs:181."""
-    l = torch.as_tensor(cfg.light.direction, dtype=torch.float32,
-                        device=device)
+    l = G.constant(cfg.light.direction, device)
     return l / torch.sqrt(torch.sum(l * l))
+
+
+def _refuse_unported(cfg: VCTConfig):
+    if cfg.shadow.mode == "map":
+        raise NotImplementedError(
+            "shadow mode 'map' (the rasterized shadow map) is not ported: "
+            "ROADMAP Queue 1 item 5 (render/shadowmap.py)")
+    if cfg.grid.anisotropic:
+        raise NotImplementedError(
+            "anisotropic mips are not ported: ROADMAP Queue 1 item 6 "
+            "(core/aniso.py)")
+
+
+def sample_indirect_diffuse(cfg: VCTConfig, radiance_mips,
+                            positions: Tensor, normals: Tensor
+                            ) -> Tuple[Tensor, Tensor]:
+    """The K-cone indirect-diffuse gather at surface points through the
+    current radiance pyramid, for bounces past the reference's two
+    (README.md:14).  Cone frames come from a stable ONB around the face
+    normal.  Returns (rgb (S, 3), occlusion (S,))."""
+    t, bt = C.orthonormal_frame(normals)
+    cone_dirs = shading.pixel_cone_dirs(cfg, normals, t, bt)
+    if cfg.cones.diffuse_mode == "field":
+        field = shading.build_cone_field(cfg, radiance_mips,
+                                         shading.diffuse_schedule(cfg))
+        return shading.indirect_diffuse_field(cfg, field, positions,
+                                              normals, cone_dirs)
+    return shading.indirect_diffuse_percone(cfg, radiance_mips, positions,
+                                            normals, cone_dirs)
+
+
+def _inject_bounce(cfg: VCTConfig, samples: SamplesDevice,
+                   albedo_rgb: Tensor, direct_radiance: Tensor,
+                   weights: Tensor, radiance_mips) -> Tuple[Tensor, ...]:
+    """One extra GI bounce: gather indirect at every surface sample, add
+    the Lambertian re-emission albedo * occlusion * indirect (fs:205 at
+    the voxel sample), re-splat and rebuild the mips."""
+    ind_rgb, ind_occ = sample_indirect_diffuse(
+        cfg, radiance_mips, samples.positions, samples.normals)
+    bounce = albedo_rgb * (1.0 - ind_occ)[:, None] * ind_rgb
+    lit = splat(samples.positions, direct_radiance + bounce, weights,
+                cfg.grid.dim, cfg.grid.world_size, mode=cfg.voxelize.mode)
+    return mip.build_mips(lit, cfg.grid.num_levels)
 
 
 def build_voxel_state(cfg: VCTConfig, samples: SamplesDevice,
                       mats: MaterialTable) -> VoxelState:
     """Voxelization + radiance injection + mip build + fields.
 
-    Supports what the fast path needs: volume shadows, isotropic mips,
-    two-bounce GI (the reference's), field-mode cones."""
-    if cfg.shadow.mode != "volume":
-        raise NotImplementedError(
-            f"shadow mode {cfg.shadow.mode!r} is not ported: ROADMAP Queue "
-            "1 item 8 (shadow map, per-cone oracle renderer)")
-    if cfg.grid.anisotropic:
-        raise NotImplementedError(
-            "anisotropic mips are not ported: ROADMAP Queue 1 item 8 "
-            "(core/aniso.py)")
-    if cfg.light.gi_bounces > 2:
-        raise NotImplementedError(
-            "extra GI bounces need the per-sample cone gather: ROADMAP "
-            "Queue 1 item 8 (per-cone oracle renderer)")
+    Shadows come from the dense light volume (shadow mode "volume") or
+    from a shadow cone per sample ("percone"), toward the config's light.
+    light.gi_bounces > 2 re-gathers and re-injects once per extra bounce.
+    Isotropic mips only."""
+    _refuse_unported(cfg)
     dim, ws = cfg.grid.dim, cfg.grid.world_size
+    dev = samples.positions.device
+    light_color = G.constant(cfg.light.color, dev)
     albedo = mats.sample_albedo(samples.material_ids, samples.uvs)
     emissive = mats.emissive[samples.material_ids.long()]
     weights = torch.ones(samples.positions.shape[0], dtype=albedo.dtype,
-                         device=albedo.device)
-    light_color = torch.as_tensor(cfg.light.color, dtype=torch.float32,
-                                  device=albedo.device)
+                         device=dev)
 
     unlit = splat(samples.positions, albedo[:, :3], weights, dim, ws,
                   mode=cfg.voxelize.mode)
@@ -159,17 +204,28 @@ def build_voxel_state(cfg: VCTConfig, samples: SamplesDevice,
     unlit_mips = mip.build_mips(unlit, cfg.grid.num_levels, alpha_mode="max")
     mark("occupancy_mips")
 
-    light_volume = shading.build_light_volume(cfg, unlit_mips)
-    mark("light_volume")
-    shadow = shading.shadow_volume_tap_packed(
-        cfg, shading.pack_light_corners(light_volume), dim,
-        samples.positions, samples.normals)
+    light_volume = None
+    if cfg.shadow.mode == "volume":
+        light_volume = shading.build_light_volume(cfg, unlit_mips)
+        mark("light_volume")
+        shadow = shading.shadow_volume_tap_packed(
+            cfg, shading.pack_light_corners(light_volume), dim,
+            samples.positions, samples.normals)
+    else:
+        shadow = shading.shadow_cone_value(
+            unlit_mips, samples.positions, samples.normals,
+            light_direction(cfg, dev), shading.shadow_schedule(cfg), cfg)
+        mark("shadow_cones")
     radiance = albedo[:, :3] * light_color * shadow[:, None] + emissive
     lit = splat(samples.positions, radiance, weights, dim, ws,
                 mode=cfg.voxelize.mode)
     mark("shadow_and_radiance_splat")
     radiance_mips = mip.build_mips(lit, cfg.grid.num_levels)
     mark("radiance_mips")
+    for _ in range(max(0, cfg.light.gi_bounces - 2)):
+        radiance_mips = _inject_bounce(cfg, samples, albedo[:, :3], radiance,
+                                       weights, radiance_mips)
+        mark("bounce")
 
     diffuse_field = specular_field = None
     if cfg.cones.diffuse_mode == "field":
@@ -185,10 +241,141 @@ def build_voxel_state(cfg: VCTConfig, samples: SamplesDevice,
                       specular_field=specular_field)
 
 
+def shade_gbuffer(cfg: VCTConfig, voxels: VoxelState, gbuf: GBuffer,
+                  mats: MaterialTable, camera_position: Tensor,
+                  light_dir: Optional[Tensor] = None) -> Tensor:
+    """The fragment stage: G-buffer -> linear RGB (..., 3)."""
+    _refuse_unported(cfg)
+    if light_dir is None:
+        light_dir = light_direction(cfg, gbuf.position.device)
+    albedo4 = mats.sample_albedo(gbuf.material, gbuf.uv)
+    spec = shading.spec_gray_fallback(
+        mats.sample_specular(gbuf.material, gbuf.uv))
+    # shading normal: bump-mapped when a texture atlas is present
+    # (N = CalcBumpNormal(TBN), fs:177); cone TBN keeps the vertex frame
+    if mats.atlas is not None:
+        shade_normal = TX.bump_normal(mats.atlas, gbuf.material, gbuf.uv,
+                                      gbuf.tangent, gbuf.bitangent,
+                                      gbuf.normal)
+    else:
+        shade_normal = gbuf.normal
+
+    if cfg.shadow.mode == "volume":
+        shadow = shading.shadow_volume_tap(cfg, voxels.light_volume,
+                                           gbuf.position, gbuf.geo_normal)
+    else:
+        shadow = shading.shadow_cone_value(
+            voxels.unlit_mips, gbuf.position, gbuf.geo_normal, light_dir,
+            shading.shadow_schedule(cfg), cfg)
+
+    cone_dirs = shading.pixel_cone_dirs(cfg, gbuf.normal, gbuf.tangent,
+                                        gbuf.bitangent)
+    if cfg.cones.diffuse_mode == "field":
+        ind_d_rgb, ind_d_occ = shading.indirect_diffuse_field(
+            cfg, voxels.diffuse_field, gbuf.position, gbuf.normal, cone_dirs)
+    else:
+        ind_d_rgb, ind_d_occ = shading.indirect_diffuse_percone(
+            cfg, voxels.radiance_mips, gbuf.position, gbuf.normal, cone_dirs)
+
+    eye = C.normalize(camera_position - gbuf.position)          # fs:183
+    if cfg.cones.trace_specular:
+        refl = shading.reflect_eye(shade_normal, eye)   # reflect(-E, N)
+        if cfg.cones.specular_mode == "field":
+            ind_s_rgb, ind_s_occ = shading.indirect_specular_field(
+                cfg, voxels.specular_field, gbuf.position, gbuf.normal, refl)
+        else:
+            ind_s_rgb, ind_s_occ = shading.indirect_specular_percone(
+                cfg, voxels.radiance_mips, gbuf.position, gbuf.normal, refl)
+    else:
+        ind_s_rgb = torch.zeros_like(ind_d_rgb)
+        ind_s_occ = torch.zeros_like(ind_d_occ)
+
+    rgb = shading.combine(
+        cfg, albedo=albedo4[..., :3], spec_color=spec, normal=shade_normal,
+        light_dir=light_dir, eye_dir=eye, shadow=shadow,
+        ind_diffuse_rgb=ind_d_rgb, ind_diffuse_occ=ind_d_occ,
+        ind_spec_rgb=ind_s_rgb, ind_spec_occ=ind_s_occ,
+        shininess=mats.shininess[gbuf.material.long()])
+    # alpha-mask discard (fs:169-172) + miss -> background
+    bg = G.constant(cfg.render.background, rgb.device, rgb.dtype)
+    visible = gbuf.hit & (albedo4[..., 3] >= cfg.render.alpha_threshold)
+    return torch.where(visible[..., None], rgb, bg)
+
+
+def alpha_mask_recast(cfg: VCTConfig, ds: DeviceScene, pc, origin0: Tensor,
+                      dc: Tensor, gbuf: GBuffer,
+                      mats: MaterialTable) -> GBuffer:
+    """Alpha-mask see-through (fs:169-172): a discarded fragment shows the
+    surface behind it, so rays whose hit's albedo alpha is below the
+    threshold are re-cast with a per-ray tmin just past the hit, a fixed
+    cfg.render.alpha_mask_depth times (deeper masked stacks fall back to
+    the background).  Only with a texture atlas: the reference reads
+    alpha from DiffuseTexture (fs:167)."""
+    depth = cfg.render.alpha_mask_depth
+    if depth <= 0 or mats.atlas is None:
+        return gbuf
+    thresh = cfg.render.alpha_threshold
+    for _ in range(depth):
+        alpha = mats.sample_albedo(gbuf.material, gbuf.uv)[..., 3]
+        masked = gbuf.hit & (alpha < thresh)
+        # epsilon relative and absolute, so that the same surface (t
+        # within float rounding) cannot win again
+        tmin = torch.where(masked, gbuf.t * (1.0 + 1e-5) + 1e-4, -1.0)
+        g2 = raycast_chunk_pinhole(ds, pc, origin0, dc, tmin=tmin)
+
+        def pick(a, b):
+            m = masked.reshape(masked.shape + (1,) * (a.dim() - 1))
+            return torch.where(m, b, a)
+
+        gbuf = map_gbuffer(pick, gbuf, g2)
+    return gbuf
+
+
+def render_rays(cfg: VCTConfig, ds: DeviceScene, voxels: VoxelState,
+                mats: MaterialTable, origins: Tensor, dirs: Tensor,
+                camera_position: Tensor, light_dir: Optional[Tensor] = None,
+                chunk_size: int = 4096, pinhole: bool = True) -> Tensor:
+    """The per-cone oracle: raycast + alpha re-cast + shade per chunk of
+    `chunk_size` rays, so that the G-buffer and the cone samples stay
+    chunk-sized.  Rays pad to whole chunks (origins 0, directions 1), as
+    the JAX package's lax.map does.  pinhole=True (camera rays, all from
+    origins[0]) takes the matmul raycast; False the general one, without
+    the alpha re-cast.  No step reads a value back to the host.
+    Returns origins.shape[:-1] + (3,) linear RGB."""
+    shape = origins.shape[:-1]
+    o = origins.reshape(-1, 3)
+    d = dirs.reshape(-1, 3)
+    n = o.shape[0]
+    pad = (-n) % chunk_size
+    if pad:
+        o = torch.cat([o, o.new_zeros((pad, 3))])
+        d = torch.cat([d, d.new_ones((pad, 3))])
+    if light_dir is None:
+        light_dir = light_direction(cfg, d.device)
+    if pinhole:
+        origin0 = o[0]
+        pc = pinhole_constants(ds, origin0)
+    out = []
+    for s in range(0, n + pad, chunk_size):
+        dc = d[s:s + chunk_size]
+        if pinhole:
+            gbuf = raycast_chunk_pinhole(ds, pc, origin0, dc)
+            mark("raycast")
+            gbuf = alpha_mask_recast(cfg, ds, pc, origin0, dc, gbuf, mats)
+            mark("alpha_recast")
+        else:
+            gbuf = raycast_chunk(ds, o[s:s + chunk_size], dc)
+            mark("raycast")
+        out.append(shade_gbuffer(cfg, voxels, gbuf, mats, camera_position,
+                                 light_dir))
+        mark("shade")
+    return torch.cat(out)[:n].reshape(shape + (3,))
+
+
 def use_fast_path(cfg: VCTConfig) -> bool:
-    """Does the camera pass route through render/fast.py?  On this port
-    the fast path is the only camera pass; it runs its kernels on CUDA
-    tensors and their plain versions on CPU tensors."""
+    """Does the camera pass route through render/fast.py?  The same rule
+    on every device: the fast path runs its kernels on CUDA tensors and
+    their plain versions on CPU tensors."""
     from vct_tpu_torch.render import fast as F
     return cfg.use_pallas and F.supported(cfg)
 
@@ -203,17 +390,33 @@ def render_camera_pass(
     camera_position: Tensor,
     light_dir: Optional[Tensor] = None,
     frame_tables=None,
+    chunk_size: int = 16384,
 ) -> Tensor:
-    """The per-frame camera pass -> (H, W, 3) linear RGB.
+    """The per-frame camera pass -> (H, W, 3) linear RGB: the fast path
+    where use_fast_path allows, else render_rays in chunks of chunk_size.
 
     frame_tables: pass fast.build_frame_tables(cfg, voxels, mats) to
     amortize the table build across frames; None builds them inline."""
     if not use_fast_path(cfg):
-        raise NotImplementedError(
-            "this config needs the per-cone oracle renderer (render_rays), "
-            "which is not ported: ROADMAP Queue 1 item 8")
+        return render_rays(cfg, ds, voxels, mats, origins, dirs,
+                           camera_position, light_dir,
+                           chunk_size=chunk_size)
     from vct_tpu_torch.render import fast as F
     if frame_tables is None:
         frame_tables = F.build_frame_tables(cfg, voxels, mats)
     return F.render_frame(cfg, ds, frame_tables, mats, origins, dirs,
                           camera_position, light_dir)
+
+
+def render_image(cfg: VCTConfig, scene: Scene,
+                 camera: Optional[CAM.Camera] = None,
+                 device="cuda") -> Tensor:
+    """One shot: prepare, voxelize, render -> (H, W, 3) on `device`."""
+    if camera is None:
+        camera = CAM.Camera()
+    ds, mats, samples = prepare_scene(cfg, scene, device=device)
+    origins, dirs = CAM.primary_rays(camera, cfg.render.width,
+                                     cfg.render.height, device=device)
+    voxels = build_voxel_state(cfg, samples, mats)
+    return render_camera_pass(cfg, ds, voxels, mats, origins, dirs,
+                              G.constant(camera.position, device))

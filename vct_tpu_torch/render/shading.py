@@ -1,9 +1,17 @@
-"""Schedules, the dense light volume and cone fields, and the combine of
-VoxelConeTracing.fs:165-228 (port of vct_tpu/render/shading.py:29-269,
-324-389, without the brick-sharded and per-cone branches).
+"""Schedules, the shadow providers, the dense light volume and cone
+fields, the per-pixel indirect providers and the combine of
+VoxelConeTracing.fs:165-228 (port of vct_tpu/render/shading.py, without
+the brick-sharded branches).
+
+The per-pixel providers serve the per-cone oracle renderer
+(renderer.render_rays) and the build's extra GI bounces: "percone" ones
+march each cone through the radiance pyramid (core/march.py), "field"
+ones tap the basis fields and weight them by basis_weights.
 """
 
 from __future__ import annotations
+
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +91,40 @@ def build_light_volume(cfg: VCTConfig, unlit_mips, light_dir=None) -> Tensor:
         transmittance_only=True, compute_dtype=march_compute_dtype(cfg))
 
 
+def shadow_cone_value(mips: Sequence[Tensor], position: Tensor,
+                      normal: Tensor, light_dir: Tensor,
+                      schedule: M.MarchSchedule, cfg: VCTConfig) -> Tensor:
+    """Per-query shadow cone (shadow mode "percone"): the transmittance of
+    a narrow cone toward the light (3,) through the occupancy pyramid from
+    position (..., 3) offset along normal, with per-sample opacity gain
+    and the step-density correction.  Returns shadow in [0, 1], 1 = lit."""
+    voxel = cfg.grid.voxel_world_size
+    start = position + normal * (voxel * cfg.shadow.normal_offset)
+    d = light_dir.expand_as(start)
+    if schedule.num_steps == 0:
+        return position.new_ones(position.shape[:-1])
+    dists = G.constant(schedule.dists, position.device, position.dtype)
+    points = start[..., None, :] + dists[:, None] * d[..., None, :]
+    samples = M.sample_schedule(mips, points, schedule.lods,
+                                cfg.grid.world_size, direction=d)
+    a = torch.clamp_max(samples[..., 3] * cfg.shadow.opacity_gain, 1.0)
+    if schedule.step_factor != 1.0:
+        keep = (1.0 - a) ** schedule.step_factor
+    else:
+        keep = 1.0 - a
+    return torch.prod(keep, dim=-1)
+
+
+def shadow_volume_tap(cfg: VCTConfig, light_volume: Tensor,
+                      position: Tensor, normal: Tensor) -> Tensor:
+    """One trilinear tap of the transmittance volume (D, D, D, 1) at the
+    offset surface point (the unpacked form of shadow_volume_tap_packed)."""
+    voxel = cfg.grid.voxel_world_size
+    p = position + normal * (voxel * cfg.shadow.normal_offset)
+    uvw = G.world_to_uvw(p, cfg.grid.world_size)
+    return G.trilinear_sample(light_volume, uvw)[..., 0]
+
+
 def pack_light_corners(light_volume: Tensor) -> Tensor:
     """(D, D, D, 1) -> (D^3, 8): each cell's 2x2x2 trilinear corner
     neighborhood (edge-replicated +1 shifts).  Corner order: bit2=dx,
@@ -134,6 +176,78 @@ def build_cone_field(cfg: VCTConfig, mips, schedule: M.MarchSchedule
         max_alpha=cfg.cones.max_alpha,
         occlusion_falloff=cfg.cones.occlusion_falloff,
         compute_dtype=march_compute_dtype(cfg))
+
+
+# ---------------------------------------------------------------------------
+# per-pixel indirect providers
+# ---------------------------------------------------------------------------
+
+def pixel_cone_dirs(cfg: VCTConfig, normal: Tensor, tangent: Tensor,
+                    bitangent: Tensor) -> Tensor:
+    """World-space diffuse cone directions per pixel: normalize(TBN @
+    dir_i) — fs:175,198.  Returns (..., K, 3)."""
+    tbn = C.tbn_matrix(tangent, bitangent, normal)
+    return C.rotate_cones(tbn, G.constant(
+        C.CONE_DIRECTIONS[:cfg.cones.num_diffuse_cones], tbn.device))
+
+
+def indirect_diffuse_percone(cfg: VCTConfig, mips: Sequence[Tensor],
+                             position: Tensor, normal: Tensor,
+                             cone_dirs: Tensor) -> Tuple[Tensor, Tensor]:
+    """Exact per-pixel K-cone gather (fs:196-199) -> (rgb, occlusion)."""
+    ca = cfg.cones
+    start = position + normal * cfg.grid.voxel_world_size    # fs:92
+    weights = tuple(float(w) for w in C.CONE_WEIGHTS[:ca.num_diffuse_cones])
+    return M.cone_march_multi(
+        mips, start, cone_dirs, weights, diffuse_schedule(cfg),
+        cfg.grid.world_size, max_alpha=ca.max_alpha,
+        occlusion_falloff=ca.occlusion_falloff)
+
+
+def indirect_specular_percone(cfg: VCTConfig, mips: Sequence[Tensor],
+                              position: Tensor, normal: Tensor,
+                              refl_dir: Tensor) -> Tuple[Tensor, Tensor]:
+    """The mirror cone (tan 0.07, fs:218) marched per pixel ->
+    (rgb, occlusion)."""
+    ca = cfg.cones
+    start = position + normal * cfg.grid.voxel_world_size
+    rgb, occ, _ = M.cone_march(
+        mips, start, refl_dir, specular_schedule(cfg), cfg.grid.world_size,
+        max_alpha=ca.max_alpha, occlusion_falloff=ca.occlusion_falloff)
+    return rgb, occ
+
+
+def _field_tap(cfg: VCTConfig, field: Tensor, position: Tensor,
+               normal: Tensor) -> Tensor:
+    """Trilinear tap of the stacked fields at the offset point: (..., B, 4)."""
+    p = position + normal * cfg.grid.voxel_world_size
+    out = G.trilinear_sample(field, G.world_to_uvw(p, cfg.grid.world_size))
+    return out.reshape(out.shape[:-1] + (cfg.cones.field_basis, 4))
+
+
+def indirect_diffuse_field(cfg: VCTConfig, field: Tensor, position: Tensor,
+                           normal: Tensor, cone_dirs: Tensor
+                           ) -> Tuple[Tensor, Tensor]:
+    """Field-mode K-cone gather: the cone weights and the basis weights
+    fold into one (..., B) weight vector over one field tap."""
+    basis = D.direction_basis(cfg.cones.field_basis)
+    ca = cfg.cones
+    wb = D.basis_weights(cone_dirs, basis, ca.basis_power_diffuse)
+    cw = G.constant(C.CONE_WEIGHTS[:ca.num_diffuse_cones], wb.device)
+    w = torch.einsum("k,...kb->...b", cw, wb)
+    out = torch.einsum("...b,...bc->...c", w,
+                       _field_tap(cfg, field, position, normal))
+    return out[..., :3], out[..., 3]
+
+
+def indirect_specular_field(cfg: VCTConfig, field: Tensor, position: Tensor,
+                            normal: Tensor, refl_dir: Tensor
+                            ) -> Tuple[Tensor, Tensor]:
+    basis = D.direction_basis(cfg.cones.field_basis)
+    w = D.basis_weights(refl_dir, basis, cfg.cones.basis_power_specular)
+    out = torch.einsum("...b,...bc->...c", w,
+                       _field_tap(cfg, field, position, normal))
+    return out[..., :3], out[..., 3]
 
 
 # ---------------------------------------------------------------------------

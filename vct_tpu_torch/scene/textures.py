@@ -1,12 +1,12 @@
 """Material textures: the per-material atlas, bilinear REPEAT sampling and
-bump normals (port of vct_tpu/scene/textures.py:36-150, 250-262).
+bump normals (port of vct_tpu/scene/textures.py:36-174, 250-262).
 
 The atlas pages are built on the host in numpy, with the JAX package's
 code (bilinear resize, mask folded into albedo alpha), and then move to
 the device.  `sample_atlas` is a plain gather, as in the JAX package: the
 frame path reads textures through the material kernel (ops/material.py);
-this gather serves the voxel build's per-sample albedo and the alpha
-re-cast's alpha test.
+this gather serves the voxel build's per-sample albedo, the alpha
+re-cast's alpha test and the per-cone oracle renderer (`bump_normal`).
 """
 
 from __future__ import annotations
@@ -135,6 +135,19 @@ def sample_atlas(atlas_pages: Tensor, material_id: Tensor, uv: Tensor
 def _norm3(v: Tensor) -> Tensor:
     return v / torch.clamp_min(torch.linalg.vector_norm(v, dim=-1,
                                                         keepdim=True), 1e-12)
+
+
+def bump_normal(atlas: TextureAtlas, material_id: Tensor, uv: Tensor,
+                tangent: Tensor, bitangent: Tensor, normal: Tensor) -> Tensor:
+    """CalcBumpNormal (VoxelConeTracing.fs:108-126) on the atlas: three
+    bilinear taps of the height page, one texel apart in u and in v."""
+    off = 1.0 / atlas.resolution
+    h0 = sample_atlas(atlas.height, material_id, uv)[..., 0]
+    du = torch.stack([torch.full_like(uv[..., 0], off),
+                      torch.zeros_like(uv[..., 0])], dim=-1)
+    hx = sample_atlas(atlas.height, material_id, uv + du)[..., 0]
+    hy = sample_atlas(atlas.height, material_id, uv + du.flip(-1))[..., 0]
+    return bump_normal_from_heights(h0, hx, hy, tangent, bitangent, normal)
 
 
 def bump_normal_from_heights(h0: Tensor, hx: Tensor, hy: Tensor,
