@@ -5,8 +5,10 @@ config and scenes (sponza256 cut to a 32^3 grid, float32 compute: the
 Cornell box at 64x48, the textured atrium at 96x64, the atrium
 subdivided once, 4,488 triangles through the binned raycast, at 128x64,
 sponza256_exact_specular cut the same way on the atrium at 96x64, and
-cornell64_full at 16^3 / 32x32 through the per-cone oracle renderer).
-No source of the port or of chip_smoke.py imports either.
+cornell64_full at 16^3 / 32x32 through the per-cone oracle renderer),
+and takes one inverse-rendering step (vct_tpu_torch.diff, preset inverse
+at 16^3 / 16x16, on CPU tensors).  No source of the port or of
+chip_smoke.py imports either.
 Also the ops' device rule and the entry points' default device, which
 need no card to check."""
 
@@ -92,6 +94,19 @@ SCRIPT = textwrap.dedent("""
     assert img.shape == (32, 32, 3) and bool(torch.isfinite(img).all())
     assert float(img.mean()) > 0.01
     print("rendered cornell64_full", tuple(img.shape), float(img.mean()))
+    # inverse rendering: one Adam step of preset inverse cut to 16^3
+    from vct_tpu_torch.diff import InverseConfig, optimize
+    cfg = preset("inverse")
+    cfg = dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, dim=16),
+        render=dataclasses.replace(cfg.render, width=16, height=16))
+    target = torch.full((16, 16, 3), 0.2)
+    state, history = optimize(
+        InverseConfig(optimize=("albedo",), num_steps=1, chunk_size=256),
+        cfg, cornell_box(size=100.0), target, CAM.Camera())
+    assert state.step == 1 and len(history) == 1
+    assert state.params["albedo"].device == cpu
+    print("inverse step", state.step, history[0])
     assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
 """)
 
@@ -106,6 +121,7 @@ def test_imports_and_renders_without_jax():
     assert ("rendered sponza256_exact_specular (64, 96, 3) True 1122 "
             in res.stdout)
     assert "rendered cornell64_full (32, 32, 3) " in res.stdout  # render_rays
+    assert "inverse step 1 " in res.stdout                      # diff/
 
 
 def _sources():

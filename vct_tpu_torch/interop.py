@@ -71,6 +71,35 @@ def voxel_state(v, device="cuda") -> R.VoxelState:
         specular_field=opt(v.specular_field))
 
 
+def inverse_params(np_params, device="cuda") -> dict:
+    """The JAX package's inverse-rendering parameter dict -> leaf float32
+    tensors on `device` that require grad (diff/inverse.py Params)."""
+    return {k: tensor(v, device).to(torch.float32).requires_grad_()
+            for k, v in np_params.items()}
+
+
+def optim_state(np_state, device="cuda", learning_rate: float = 5e-2):
+    """The JAX package's OptimState (params, optax.adam's state, step) ->
+    the port's: the parameters as inverse_params, and a torch.optim.Adam at
+    `learning_rate` over them whose per-parameter state is optax's
+    ScaleByAdamState(count, mu, nu) as (step, exp_avg, exp_avg_sq), so the
+    next step of each package lands in the same place."""
+    from vct_tpu_torch.diff import inverse as I
+    params = inverse_params(np_state.params, device)
+    opt = I.adam(learning_rate)(params)
+    adam = next(s for s in np_state.opt_state if hasattr(s, "mu"))
+    count = float(np.asarray(adam.count))
+    saved = opt.state_dict()
+    saved["state"] = {
+        i: {"step": torch.tensor(count),
+            "exp_avg": tensor(adam.mu[k], device).to(torch.float32),
+            "exp_avg_sq": tensor(adam.nu[k], device).to(torch.float32)}
+        for i, k in enumerate(params)}
+    opt.load_state_dict(saved)
+    return I.OptimState(params=params, opt_state=opt,
+                        step=int(np_state.step))
+
+
 SPEC_PAGE_ROWS = 24   # specmarch_pallas BY: y rows padded past each level
 
 

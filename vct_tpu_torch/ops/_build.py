@@ -36,6 +36,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # src, dst, h, c, max_alpha, stream
     "vct_mip_downsample": (_P, _P, _I, _I, _I, _P),
+    # gout, alpha (or null), gin, h, c, max_alpha, stream
+    "vct_mip_downsample_bwd": (_P, _P, _P, _I, _I, _I, _P),
     # dirs, origin, isect, attrs, n, t, out, stream
     "vct_raycast": (_P, _P, _P, _P, _I, _I, _P, _P),
     # gbuf, ntiles, gcols, ld0, nl, fd0, nf, half_ws, voxel, voxel_off,
@@ -169,6 +171,35 @@ def uses_kernel(*tensors: torch.Tensor) -> bool:
         return False
     raise ValueError(f"operands must all be on CUDA or all on the CPU, "
                      f"got {sorted(kinds)}")
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where a kernel without a backward would drop a gradient: grad
+    mode is on and a floating input requires grad.  Every device refuses,
+    as the JAX package, whose kernel has no VJP, fails to differentiate
+    it on every backend."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in tensors if t.is_floating_point()):
+        raise RuntimeError(
+            f"{name} has no backward: its output cannot carry gradients to "
+            f"inputs that require grad (run it under torch.no_grad(), or "
+            f"detach them)")
+
+
+def replay_grads(plain, args, wanted, gout: torch.Tensor) -> tuple:
+    """The backward of a kernel whose function `plain` computes: plain(*args)
+    replayed under autograd on detached copies of the args, and its
+    vector-Jacobian product with `gout`.  Returns one entry per arg: the
+    gradient where `wanted` is true (None where an arg does not reach the
+    output), None elsewhere.  This is how the JAX package's custom VJPs
+    differentiate its kernels: by their jnp references."""
+    with torch.enable_grad():
+        xs = [a.detach().requires_grad_() if w else a
+              for a, w in zip(args, wanted)]
+        leaves = [x for x, w in zip(xs, wanted) if w]
+        grads = iter(torch.autograd.grad(plain(*xs), leaves, gout,
+                                         allow_unused=True))
+    return tuple(next(grads) if w else None for w in wanted)
 
 
 def require(cond: bool, what: str) -> None:

@@ -20,7 +20,9 @@ triangles:
      into the walk.  The kernel walks each 16x16 tile of a strip on its
      own and first drops the rows the tile's direction cone cannot hit
      (`walk_cull_plain` states which, in the kernel's float order); the
-     plain walk tests every row, with the same result.
+     plain walk tests every row, with the same result.  It has no
+     backward, as binrast_pallas has no VJP: with grad mode on, inputs
+     that require grad are refused on every device.
 
 Testing a superset of a strip's triangles is always safe, since the
 winner is the minimum: a gang that runs past its segment into the next
@@ -462,7 +464,10 @@ def raycast_binned(dflat: Tensor, origin: Tensor, scal: Tensor,
                    table: Tensor, attrs: Tensor) -> Tensor:
     """Binned closest hit -> (n, NOUT) G-buffer, from bin_triangles's
     scal and table and pack_rows's attrs."""
-    if _build.uses_kernel(dflat, origin, scal, table, attrs):
+    kernel = _build.uses_kernel(dflat, origin, scal, table, attrs)
+    _build.refuse_grad("the binned raycast (raycast_binned)", dflat, origin,
+                       table, attrs)
+    if kernel:
         return raycast_binned_cuda(dflat, origin, scal, table, attrs)
     return finish_binned(dflat, origin,
                          raycast_binned_plain(dflat, scal, table), attrs)

@@ -16,8 +16,9 @@ VoxelConeTracing.fs:108-126).  The function is material_tiles_ref's:
 float32 weights on the bfloat16-stored texels.  The TPU kernel rounds its
 two-hot weights to bfloat16 as well; it stays within 2e-2 of this.
 
-CUDA tensors launch `csrc/material.cu`; CPU tensors take the plain
-version.
+CUDA tensors launch `csrc/material.cu` inside the autograd Function
+`Material`, whose backward replays the plain version; CPU tensors take
+the plain version.
 """
 
 from __future__ import annotations
@@ -207,6 +208,28 @@ def material_cuda(gbuf: Tensor, slots: Tensor, mscal: Tensor,
     return out
 
 
+class Material(torch.autograd.Function):
+    """material_tiles by `fwd` (the kernel on the card; the tests inject
+    material_plain on the CPU), differentiated by replaying material_plain
+    under autograd with respect to the G-buffer and the pages
+    (material_pallas.py:484-498); the prepass's integer tables get none."""
+
+    @staticmethod
+    def forward(ctx, gbuf, slots, mscal, mlists, pages, resolution, tile,
+                fwd):
+        ctx.save_for_backward(gbuf, slots, mscal, mlists, pages)
+        ctx.statics = (resolution, tile)
+        return fwd(gbuf, slots, mscal, mlists, pages, resolution, tile)
+
+    @staticmethod
+    def backward(ctx, gout):
+        args = ctx.saved_tensors
+        dg, _, _, _, dpages = _build.replay_grads(
+            lambda *a: material_plain(*a, *ctx.statics), args,
+            ctx.needs_input_grad[:5], gout)
+        return dg, None, None, None, dpages, None, None, None
+
+
 def material_tiles(gbuf: Tensor,             # (ntiles*tile, >=20) tile-major
                    slots: Tensor,            # (ntiles*tile, 1) int32
                    mscal: Tensor,            # (ntiles, NSCAL) int32
@@ -216,7 +239,7 @@ def material_tiles(gbuf: Tensor,             # (ntiles*tile, >=20) tile-major
     """(n, NOUT) float32 rows [albedo rgba, specular rgb, h0, hx, hy, pad];
     rows of tiles without a hit pixel are zero."""
     if _build.uses_kernel(gbuf, slots, mscal, mlists, pages):
-        return material_cuda(gbuf, slots, mscal, mlists, pages, resolution,
-                             tile)
+        return Material.apply(gbuf, slots, mscal, mlists, pages, resolution,
+                              tile, material_cuda)
     return material_plain(gbuf, slots, mscal, mlists, pages, resolution,
                           tile)

@@ -8,7 +8,12 @@ for CPU tensors.  Both take the first minimum by triangle index, and both
 round every multiply and add separately, as the reference does.  The
 kernel first drops, per 256-ray block, the rows no ray of the block can
 hit (`tile_cull_plain` is that predicate in plain PyTorch); the plain
-version tests every row, with the same result.
+version tests every row, with the same result.  On CUDA tensors the
+kernel runs inside the autograd Function `Raycast`, whose backward gives
+the attribute table its gradient by replaying the plain version over
+chunks of BWD_CHUNK rays (raycast_pallas._raycast_bwd); the streamed
+raycast has no backward and refuses inputs that need one, as the binned
+raycast (ops/binrast.py) does.
 
 The streamed raycast tests each 256-ray tile against only the
 128-triangle chunks whose bounding sphere touches the tile's direction
@@ -57,6 +62,7 @@ WIDE_DOT = 1e-4         # at or below: no bounding cone, keep every row
 GROUP = 32              # rays a warp, walked as one or two parts
 SPLIT_DOT = 0.9998477   # cos 1 deg: a wider neighbour angle splits the warp
 CULL_PARTS = 512        # warp parts stream_cull_plain culls at a time
+BWD_CHUNK = 8192        # rays a chunk of the whole-table backward's replay
 # may_keep_row's norm bounds (csrc/raycast_common.cuh): their sum above the
 # one or the least below the other, a row is left to keep_row alone
 NORM_BOUND_MIN = 1e-18
@@ -321,11 +327,49 @@ def raycast_cuda(dirs: Tensor, origin: Tensor, isect: Tensor,
     return out
 
 
+def raycast_bwd_plain(dirs: Tensor, origin: Tensor, isect: Tensor,
+                      attrs: Tensor, gout: Tensor) -> Tensor:
+    """The gradient to the attribute table (raycast_pallas._raycast_bwd):
+    raycast_plain replayed under autograd over chunks of BWD_CHUNK rays,
+    the chunks' gradients summed (a ray's row depends on its own hit
+    only, so the sum over chunks is the whole batch's gradient).  A
+    chunk's replay holds (BWD_CHUNK, T) intermediates, whatever the image
+    size.  The last chunk is cut short, which gives what the JAX
+    package's zero cotangents on padded rays give."""
+    dattrs = torch.zeros_like(attrs)
+    for s in range(0, dirs.shape[0], BWD_CHUNK):
+        dattrs += _build.replay_grads(
+            lambda at: raycast_plain(dirs[s:s + BWD_CHUNK], origin, isect,
+                                     at), (attrs,), (True,),
+            gout[s:s + BWD_CHUNK])[0]
+    return dattrs
+
+
+class Raycast(torch.autograd.Function):
+    """The whole-table raycast by `fwd` (the kernel on the card; the tests
+    inject raycast_plain on the CPU).  Gradients reach `attrs` only: the
+    directions, the origin and the hit tests get none, as hit topology is
+    a step function (raycast_pallas.py:271-315)."""
+
+    @staticmethod
+    def forward(ctx, dirs, origin, isect, attrs, fwd):
+        ctx.save_for_backward(dirs, origin, isect, attrs)
+        return fwd(dirs, origin, isect, attrs)
+
+    @staticmethod
+    def backward(ctx, gout):
+        dirs, origin, isect, attrs = ctx.saved_tensors
+        dattrs = None
+        if ctx.needs_input_grad[3]:
+            dattrs = raycast_bwd_plain(dirs, origin, isect, attrs, gout)
+        return None, None, None, dattrs, None
+
+
 def raycast_gbuf24(dirs: Tensor, origin: Tensor, isect: Tensor,
                    attrs: Tensor) -> Tensor:
     """(N, 3) same-origin rays -> (N, NOUT) packed G-buffer."""
     if _build.uses_kernel(dirs, origin, isect, attrs):
-        return raycast_cuda(dirs, origin, isect, attrs)
+        return Raycast.apply(dirs, origin, isect, attrs, raycast_cuda)
     return raycast_plain(dirs, origin, isect, attrs)
 
 
@@ -676,6 +720,9 @@ def raycast_stream(dirs: Tensor, origin: Tensor, isect: Tensor,
     mask re-cast continues rays past a masked hit); none by default."""
     kernel = _build.uses_kernel(dirs, origin, isect, attrs, lists, counts,
                                 spheres)
+    _build.refuse_grad("the streamed raycast (raycast_stream)", dirs,
+                       origin, isect, attrs, spheres, *(
+                           () if tmin is None else (tmin,)))
     n = dirs.shape[0]
     if n % TILE:
         raise ValueError(f"streamed raycast: {TILE}-ray tiles, got n={n}")

@@ -18,8 +18,10 @@ per (tile, step group) one mip level is chosen for the whole tile:
     operations so every floor lands the same way;
   * step_table — per (tile, step) the level and the constants (distance,
     mip weight times "level is the schedule's", AO attenuation);
-  * spec_march_tiles — csrc/specmarch.cu on CUDA tensors, the plain version
-    (spec_march_plain, the function of spec_march_ref) on CPU tensors.
+  * spec_march_tiles — csrc/specmarch.cu on CUDA tensors, inside the
+    autograd Function `SpecMarch` (its backward replays the plain
+    version), the plain version (spec_march_plain, the function of
+    spec_march_ref) on CPU tensors.
 
 Not carried over: the per-tile brick origins, the row table, the two-hot
 weights and expansion matrices.  They feed the TPU's DMAs and selection
@@ -377,6 +379,30 @@ def spec_march_cuda(start4: Tensor, refl4: Tensor, step_levels: Tensor,
     return out
 
 
+class SpecMarch(torch.autograd.Function):
+    """spec_march_tiles by `fwd` (the kernel on the card; the tests inject
+    spec_march_plain on the CPU), differentiated by replaying
+    spec_march_plain under autograd with respect to start4, refl4 and the
+    pyramid's levels (specmarch_pallas.py:722-736); the step table gets
+    none, as the JAX package's row table does."""
+
+    @staticmethod
+    def forward(ctx, kw, fwd, start4, refl4, step_levels, weights, *pyramid):
+        ctx.save_for_backward(start4, refl4, step_levels, weights, *pyramid)
+        ctx.kw = kw
+        return fwd(start4, refl4, step_levels, weights, pyramid, **kw)
+
+    @staticmethod
+    def backward(ctx, gout):
+        def plain(s4, r4, lv, wt, *pyr):
+            return spec_march_plain(s4, r4, lv, wt, pyr, **ctx.kw)
+
+        wanted = list(ctx.needs_input_grad[2:])
+        wanted[3] = False
+        grads = _build.replay_grads(plain, ctx.saved_tensors, wanted, gout)
+        return (None, None) + grads
+
+
 def spec_march_tiles(start4: Tensor,        # (n, 4): start xyz, hit mask
                      refl4: Tensor,         # (n, 4): reflection xyz, 0
                      step_levels: Tensor,   # (ntiles, nsteps) int32
@@ -386,7 +412,7 @@ def spec_march_tiles(start4: Tensor,        # (n, 4): start xyz, hit mask
     (step_levels, weights) from step_table, pyramid from pack_spec_mips;
     keywords world_size, max_alpha."""
     if _build.uses_kernel(start4, refl4, step_levels, weights, *pyramid):
-        return spec_march_cuda(start4, refl4, step_levels, weights, pyramid,
-                               **kw)
+        return SpecMarch.apply(kw, spec_march_cuda, start4, refl4,
+                               step_levels, weights, *pyramid)
     return spec_march_plain(start4, refl4, step_levels, weights, pyramid,
                             **kw)

@@ -8,8 +8,10 @@ back to back in one buffer (light levels (D, D, D), field levels
 (D, D, D, C)), which is what the kernel reads.  The JAX package pads
 levels for TPU DMA alignment; interop.py un-pads them into this layout.
 
-`tap_tiles` launches `csrc/tap.cu` for CUDA tensors and runs the plain
-version (the semantics of tap_pallas.tap_tiles_ref) for CPU tensors.
+`tap_tiles` launches `csrc/tap.cu` for CUDA tensors, inside the autograd
+Function `Tap` (its backward replays the plain version, as the JAX
+package's custom VJP replays tap_tiles_ref), and runs the plain version
+(the semantics of tap_pallas.tap_tiles_ref) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -268,6 +270,33 @@ def tap_cuda(gbuf: Tensor, scalars: Tensor, bumpn: Tensor, campos: Tensor,
     return out
 
 
+class Tap(torch.autograd.Function):
+    """tap_tiles by `fwd` (the kernel on the card; the tests inject
+    tap_plain on the CPU), differentiated by replaying tap_plain under
+    autograd with respect to the G-buffer, the bump normals, the camera
+    position and every light and field level (tap_pallas.py:643-660).
+    The levels are views into one pack_mips buffer, so their gradients
+    reach the float32 mips through its bfloat16 cast."""
+
+    @staticmethod
+    def forward(ctx, kw, nlight, fwd, gbuf, scalars, bumpn, campos, *levels):
+        ctx.save_for_backward(gbuf, scalars, bumpn, campos, *levels)
+        ctx.kw, ctx.nlight = kw, nlight
+        return fwd(gbuf, scalars, bumpn, campos, levels[:nlight],
+                   levels[nlight:], **kw)
+
+    @staticmethod
+    def backward(ctx, gout):
+        nl = ctx.nlight
+
+        def plain(g, sc, bn, cp, *lv):
+            return tap_plain(g, sc, bn, cp, lv[:nl], lv[nl:], **ctx.kw)
+
+        grads = _build.replay_grads(plain, ctx.saved_tensors,
+                                    ctx.needs_input_grad[3:], gout)
+        return (None, None, None) + grads[:1] + (None,) + grads[2:]
+
+
 def tap_tiles(gbuf: Tensor,                 # (ntiles*tile, >=15) tile-major
               scalars: Tensor,              # (ntiles, 8) int32 from prepass
               bumpn: Tensor,                # (n, 4) bump normal xyz
@@ -279,7 +308,7 @@ def tap_tiles(gbuf: Tensor,                 # (ntiles*tile, >=15) tile-major
     basis)."""
     if _build.uses_kernel(gbuf, scalars, bumpn, campos, *light_mips,
                           *field_mips):
-        return tap_cuda(gbuf, scalars, bumpn, campos, light_mips,
-                        field_mips, **kw)
+        return Tap.apply(kw, len(light_mips), tap_cuda, gbuf, scalars,
+                         bumpn, campos, *light_mips, *field_mips)
     return tap_plain(gbuf, scalars, bumpn, campos, light_mips, field_mips,
                      **kw)

@@ -35,6 +35,7 @@ import torch
 from vct_tpu_torch.config import VCTConfig
 from vct_tpu_torch.core import cones as C
 from vct_tpu_torch.core import dense as D
+from vct_tpu_torch.core import grid as G
 from vct_tpu_torch.ops import binrast as BR
 from vct_tpu_torch.ops import material as MT
 from vct_tpu_torch.ops import mip
@@ -439,8 +440,7 @@ def _shade(cfg: VCTConfig, tables: FrameTables, g: Tensor,
         ind_diffuse_rgb=taps[:, 1:4], ind_diffuse_occ=taps[:, 4],
         ind_spec_rgb=ind_spec[:, 0:3], ind_spec_occ=ind_spec[:, 3],
         shininess=g[:, 27])
-    bg = torch.as_tensor(cfg.render.background, dtype=rgb.dtype,
-                         device=rgb.device)
+    bg = G.constant(cfg.render.background, rgb.device, rgb.dtype)
     visible = hit & (albedo4[:, 3] >= cfg.render.alpha_threshold)
     rgb = torch.where(visible[:, None], rgb, bg)
     out = _untile(rgb, hp, wp)[:h, :w]

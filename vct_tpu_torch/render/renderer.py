@@ -176,21 +176,32 @@ def _inject_bounce(cfg: VCTConfig, samples: SamplesDevice,
     bounce = albedo_rgb * (1.0 - ind_occ)[:, None] * ind_rgb
     lit = splat(samples.positions, direct_radiance + bounce, weights,
                 cfg.grid.dim, cfg.grid.world_size, mode=cfg.voxelize.mode)
+    return _radiance_mips(cfg, lit)
+
+
+def _radiance_mips(cfg: VCTConfig, lit: Tensor) -> Tuple[Tensor, ...]:
+    """The radiance pyramid: isotropic box mips (glGenerateMipmap,
+    Voxel_Cone_Tracing.h:248).  The anisotropic pyramid is not ported."""
+    _refuse_unported(cfg)
     return mip.build_mips(lit, cfg.grid.num_levels)
 
 
 def build_voxel_state(cfg: VCTConfig, samples: SamplesDevice,
-                      mats: MaterialTable) -> VoxelState:
+                      mats: MaterialTable,
+                      light_color: Optional[Tensor] = None) -> VoxelState:
     """Voxelization + radiance injection + mip build + fields.
 
     Shadows come from the dense light volume (shadow mode "volume") or
     from a shadow cone per sample ("percone"), toward the config's light.
-    light.gi_bounces > 2 re-gathers and re-injects once per extra bounce.
-    Isotropic mips only."""
+    light_color (3,) replaces cfg.light.color in the radiance injection
+    (the inverse loop's "light" parameter).  light.gi_bounces > 2
+    re-gathers and re-injects once per extra bounce.  Isotropic mips
+    only."""
     _refuse_unported(cfg)
     dim, ws = cfg.grid.dim, cfg.grid.world_size
     dev = samples.positions.device
-    light_color = G.constant(cfg.light.color, dev)
+    if light_color is None:
+        light_color = G.constant(cfg.light.color, dev)
     albedo = mats.sample_albedo(samples.material_ids, samples.uvs)
     emissive = mats.emissive[samples.material_ids.long()]
     weights = torch.ones(samples.positions.shape[0], dtype=albedo.dtype,
@@ -220,7 +231,7 @@ def build_voxel_state(cfg: VCTConfig, samples: SamplesDevice,
     lit = splat(samples.positions, radiance, weights, dim, ws,
                 mode=cfg.voxelize.mode)
     mark("shadow_and_radiance_splat")
-    radiance_mips = mip.build_mips(lit, cfg.grid.num_levels)
+    radiance_mips = _radiance_mips(cfg, lit)
     mark("radiance_mips")
     for _ in range(max(0, cfg.light.gi_bounces - 2)):
         radiance_mips = _inject_bounce(cfg, samples, albedo[:, :3], radiance,
