@@ -11,7 +11,7 @@ Phases, each reported on its own lines:
       raycast, binned raycast, specular march, prepass and material
       kernels the registers, spill and shared bytes and resident warps
       per SM the card reports;
-  (c) six paths at full width, each through prepare_scene ->
+  (c) seven paths at full width, each through prepare_scene ->
       build_voxel_state (-> build_frame_tables on the fast path) ->
       render_camera_pass with every kernel's launch count set to 0 just
       before and read just after, and each naming the kernels it must
@@ -61,6 +61,22 @@ Phases, each reported on its own lines:
            autograd of its plain version at the path's shapes, timed, and
            the mip backward kernel against downsample2x_bwd_plain on the
            path's own grids, exact;
+        7. the shadow map and the anisotropic mips, counts read after the
+           build and after the frame: 7a preset("reference") unchanged
+           (128^3, 1280x720, a 4096^2 map, 5x5 PCF with the /9 quirk) on
+           the atrium from the bench camera through render_rays (mip 14
+           launches in the build, every other kernel 0), its map on the
+           card against the CPU's from the same samples (bit for bit),
+           the per-sample PCF flips counted, and a 32^3, 64x64, map-256
+           render against the CPU's plain run over the pixels whose PCF
+           did not flip; 7b preset("aniso128") unchanged (128^3
+           anisotropic mips, 512x512) on the Cornell box from (0, 0, 140)
+           (mip 7, the unlit chain), its pyramid against the CPU's, the
+           dense anisotropic march against cone_march at voxel centers
+           at 32^3 (tests/test_aniso.py's bounds); 7c aniso128 with
+           field cones through the fast path (raycast, prepass, tap);
+           build split, frame ms, host syncs, peak memory and the
+           profiler's busy and gather shares of 7a and 7b;
       then per path: timings, a small render on the card against the
       plain PyTorch path on the CPU, and for Cornell a determinism check,
       the whole-table raycast against its plain version (hit, material id
@@ -744,6 +760,374 @@ def inverse_path(h, base_cfg, dev):
         {k: round(v, 4) for k, v in bwd_ms.items()}))
 
 
+# ---- path 7: the shadow map and the anisotropic mips ------------------
+FLIP_SHARE = 1e-3         # PCF flips allowed, tests/test_torch_shadowmap.py
+CHUNK = 16384             # render_camera_pass's render_rays chunk
+SMALL_MAP = 256           # the card-vs-CPU render's map (32^3, 64x64)
+
+
+def pcf_taps(cfg, value, normalization):
+    """PCF values -> lit taps (the reference quirk scales by 0.111)."""
+    if normalization == "main" and cfg.shadow.pcf_normalization == "reference":
+        return torch.round(value.double() / 0.111)
+    return torch.round(value.double() * (2 * cfg.shadow.pcf_radius + 1) ** 2)
+
+
+def map_aniso_path(h, dev):
+    """Path 7: 7a preset("reference") unchanged (the shadow map, 4096^2,
+    5x5 PCF with the /9 quirk) on the atrium from the bench camera, 7b
+    preset("aniso128") unchanged (the anisotropic pyramid) on the Cornell
+    box from (0, 0, 140), both through render_camera_pass, which takes
+    render_rays; 7c aniso128 with field diffuse and field specular cones
+    through the fast path.  Counts set to 0 just before the build and
+    again before the frame, read just after each.  h carries chip_smoke's
+    helpers (say, expect, maxerr, reset_counts, read_counts, check_image,
+    sync, counters, raycast_equal, small_check)."""
+    from vct_tpu_torch.config import preset
+    from vct_tpu_torch.core import aniso as A
+    from vct_tpu_torch.core import camera as CAM
+    from vct_tpu_torch.core import dense as D
+    from vct_tpu_torch.core import march as M
+    from vct_tpu_torch.ops import mip
+    from vct_tpu_torch.ops import prepass as PP
+    from vct_tpu_torch.ops import raycast as RC
+    from vct_tpu_torch.ops import tap as TP
+    from vct_tpu_torch.profile_stages import count_syncs, profile, stage_ms
+    from vct_tpu_torch.render import fast as F
+    from vct_tpu_torch.render import gbuffer as GB
+    from vct_tpu_torch.render import renderer as R
+    from vct_tpu_torch.render import shadowmap as SM
+    from vct_tpu_torch.scene.atrium import atrium
+    from vct_tpu_torch.scene.cornell import cornell_box
+
+    cpu = torch.device("cpu")
+    only_mip = tuple(k for k in h.counters if k != "mip")
+    result = {}
+
+    def drive(cfg, scene, camera, what, fast=False):
+        """prepare -> build (counted) -> frame (counted), as a user calls
+        them; returns the run's tensors and both launch counts."""
+        h.sync()
+        t0 = time.perf_counter()
+        ds, mats, samples = R.prepare_scene(cfg, scene, device=dev)
+        h.reset_counts()
+        voxels = R.build_voxel_state(cfg, samples, mats)
+        tables = F.build_frame_tables(cfg, voxels, mats) if fast else None
+        h.sync()
+        build_launches = h.read_counts()
+        built = "build and frame tables" if fast else "build"
+        origins, dirs = CAM.primary_rays(camera, cfg.render.width,
+                                         cfg.render.height, device=dev)
+        cam = torch.as_tensor(camera.position, dtype=torch.float32,
+                              device=dev)
+        h.reset_counts()
+        img = R.render_camera_pass(cfg, ds, voxels, mats, origins, dirs, cam,
+                                   frame_tables=tables)
+        h.sync()
+        frame_launches = h.read_counts()
+        first_s = time.perf_counter() - t0
+        h.say(f"{what}: launches in the {built} {json.dumps(build_launches)}, "
+              f"in the frame {json.dumps(frame_launches)}; first run "
+              f"{first_s:.2f} s")
+        h.check_image(img, what, (cfg.render.width, cfg.render.height))
+        if not (0.01 < float(img.mean()) < 1.0 and float(img.min()) >= 0.0):
+            fail(f"{what}: image mean {float(img.mean())}, min "
+                 f"{float(img.min())}")
+        return (dict(ds=ds, mats=mats, samples=samples, voxels=voxels,
+                     tables=tables, origins=origins, dirs=dirs, cam=cam,
+                     img=img), build_launches, frame_launches)
+
+    def measure(cfg, q, what, chunks=None):
+        """Build split, frame split and ms (medians of 3 after a warm-up),
+        host syncs and peak memory, and under the profiler the busy share
+        and the gather kernels' share of the device time: of 3 frames, or
+        with `chunks` of render_rays' first chunks of the frame, the same
+        calls on fewer rays (a frame of ~10^5 kernels takes the profiler
+        minutes to sum)."""
+        def build():
+            return R.build_voxel_state(cfg, q["samples"], q["mats"])
+
+        def frame():
+            return R.render_camera_pass(cfg, q["ds"], q["voxels"], q["mats"],
+                                        q["origins"], q["dirs"], q["cam"])
+
+        def part():
+            n = chunks * CHUNK
+            return R.render_rays(cfg, q["ds"], q["voxels"], q["mats"],
+                                 q["origins"].reshape(-1, 3)[:n],
+                                 q["dirs"].reshape(-1, 3)[:n], q["cam"],
+                                 chunk_size=CHUNK)
+
+        h.sync()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        split, build_total = stage_ms(build, 3)
+        build_peak = torch.cuda.max_memory_allocated()
+        h.sync()
+        torch.cuda.reset_peak_memory_stats()
+        fsplit, frame_ms = stage_ms(frame, 3)
+        frame_peak = torch.cuda.max_memory_allocated()
+        syncs = (count_syncs(build), count_syncs(frame))
+        out = dict(build_ms=statistics.median(build_total),
+                   frame_ms=statistics.median(frame_ms), syncs=syncs,
+                   build_peak_gib=build_peak / 2**30,
+                   frame_peak_gib=frame_peak / 2**30)
+        h.say(f"{what} build_voxel_state device ms by stage (medians of 3): "
+              + json.dumps({k: round(v, 4) for k, v in split.items()})
+              + f", whole build median {out['build_ms']:.3f} over "
+              f"{[round(x, 3) for x in build_total]}")
+        h.say(f"{what} render_camera_pass (render_rays, chunks of {CHUNK}) ms: "
+              f"median {out['frame_ms']:.3f} over "
+              f"{[round(x, 3) for x in frame_ms]}; stages "
+              + json.dumps({k: round(v, 4) for k, v in fsplit.items()}))
+        h.say(f"{what}: host syncs build {syncs[0]}, frame {syncs[1]}; peak "
+              f"device memory build {out['build_peak_gib']:.3f} GiB, frame "
+              f"{out['frame_peak_gib']:.3f} GiB ({held / 2**30:.3f} GiB held "
+              f"before)")
+        if chunks is None:
+            prof, run = profile(frame, 3), "3 frames, per frame"
+        else:
+            n_chunks = -(-q["dirs"][..., 0].numel() // CHUNK)
+            prof = profile(part, 1)
+            run = f"the frame's first {chunks} of {n_chunks} chunks"
+        h.say(f"{what} under torch.profiler ({run}): busy share "
+              f"{prof['busy_share']:.4f}, device ms "
+              f"{prof['device_ms_per_frame']:.3f} of wall ms "
+              f"{prof['wall_ms_per_frame']:.3f}, kernels "
+              f"{prof['kernels_per_frame']:.0f}; top: " + json.dumps(
+                  [(r["name"][:48], round(r["ms_per_frame"], 4))
+                   for r in prof["top"][:5]]))
+        gather = sum(r["ms_per_frame"] for r in prof["top"]
+                     if "gather" in r["name"].lower())
+        out["busy"] = prof["busy_share"]
+        out["gather_share"] = gather / max(prof["device_ms_per_frame"], 1e-9)
+        h.say(f"{what}: gather kernels {gather:.3f} of "
+              f"{prof['device_ms_per_frame']:.3f} device ms (share "
+              f"{out['gather_share']:.4f})")
+        return out
+
+    def mip_check(chains, what):
+        """The mip kernel at this path's shapes, as path 5 holds it: each
+        level of the path's own pyramids (mips, alpha mode) through the
+        kernel and its plain version, and the path's next level against
+        the plain one."""
+        err, n = 0.0, 0
+        for mips, mode in chains:
+            for fine, coarse in zip(mips, mips[1:]):
+                plain = mip.downsample2x_plain(fine, mode)
+                err = max(err, h.maxerr(mip.downsample2x_cuda(fine, mode),
+                                        plain), h.maxerr(coarse, plain))
+                n += 1
+        h.say(f"{what}: mip kernel on the {n} levels of the path's own "
+              f"pyramids ({', '.join(f'{m[0].shape[0]}^3 x {m[0].shape[-1]} '
+                                     f'{mode}' for m, mode in chains)}) "
+              f"against its plain version: max_abs_err {err:.3e} "
+              f"(tolerance 1e-6)")
+        if not err <= 1e-6:
+            fail(f"{what}: kernel mip disagrees with its plain version at "
+                 f"this path's shapes")
+
+    def flips(cfg, a, b, normalization, what):
+        """Points whose PCF differs between a and b: at most 0.1%, each by
+        whole taps (the values are whole taps by construction)."""
+        fa, fb = pcf_taps(cfg, a, normalization), pcf_taps(cfg, b,
+                                                           normalization)
+        flipped = fa != fb
+        share = float(flipped.double().mean())
+        h.say(f"{what}: {int(flipped.sum())} of {flipped.numel()} points "
+              f"flip (share {share:.3e}, bound {FLIP_SHARE:g}), by at most "
+              f"{float((fa - fb).abs().max()):g} taps")
+        if share > FLIP_SHARE:
+            fail(f"{what}: too many PCF flips")
+        return flipped
+
+    # ---- 7a: preset reference on the atrium ----------------------------
+    t7 = time.perf_counter()
+    rcfg = preset("reference")
+    bench = CAM.Camera(**ATRIUM_CAMERA)
+    qa, build_a, frame_a = drive(rcfg, atrium(), bench, "7a reference")
+    levels = rcfg.grid.num_levels - 1
+    if build_a["mip"] != 2 * levels or frame_a["mip"] != 0:
+        fail(f"7a: mip launches {build_a['mip']} in the build (expected "
+             f"{2 * levels}: unlit and lit chains) and {frame_a['mip']} in "
+             f"the frame (expected 0)")
+    h.expect(build_a, (), only_mip, "7a build")
+    h.expect(frame_a, (), only_mip, "7a frame")
+    mip_check(((qa["voxels"].unlit_mips, "max"),
+               (qa["voxels"].radiance_mips, "mean")), "7a")
+    smap = qa["voxels"].shadow_map
+    pos = qa["samples"].positions
+    smap_cpu = SM.build_shadow_map(rcfg, pos.cpu())
+    same = torch.equal(smap.cpu(), smap_cpu)
+    err = h.maxerr(smap.cpu(), smap_cpu)
+    covered = float((smap < 1.0).float().mean())
+    h.say(f"7a shadow map {tuple(smap.shape)} from {pos.shape[0]} surface "
+          f"samples: card against the CPU from the same samples bit-equal "
+          f"{same}, max error {err:.3e} (tolerance 0); {covered:.4f} of the "
+          f"texels covered")
+    if not same:
+        fail("7a: the card's shadow map differs from the CPU's")
+    flips(rcfg, SM.pcf_shadow(rcfg, smap, pos, "voxelize").cpu(),
+          SM.pcf_shadow(rcfg, smap_cpu, pos.cpu(), "voxelize"),
+          "voxelize", "7a per-sample PCF, card vs CPU")
+    result["7a"] = measure(rcfg, qa, "7a reference", chunks=2)
+    del qa, smap, smap_cpu, pos
+
+    # a small render on the card against the CPU's plain run, the PCF
+    # flips of the main pass counted and left out of the image bound
+    small = dataclasses.replace(
+        rcfg, grid=dataclasses.replace(rcfg.grid, dim=32),
+        shadow=dataclasses.replace(rcfg.shadow, map_size=SMALL_MAP),
+        render=dataclasses.replace(rcfg.render, width=64, height=64))
+    imgs, pcfs = [], []
+    for d in (dev, cpu):
+        s_ds, s_mats, s_samples = R.prepare_scene(small, atrium(), device=d)
+        s_vox = R.build_voxel_state(small, s_samples, s_mats)
+        s_o, s_d = CAM.primary_rays(bench, 64, 64, device=d)
+        imgs.append(R.render_camera_pass(
+            small, s_ds, s_vox, s_mats, s_o, s_d,
+            torch.as_tensor(bench.position, dtype=torch.float32,
+                            device=d)).cpu())
+        o = s_o.reshape(-1, 3)[0]
+        g = GB.raycast_chunk_pinhole(s_ds, GB.pinhole_constants(s_ds, o), o,
+                                     s_d.reshape(-1, 3))
+        g = R.alpha_mask_recast(small, s_ds, GB.pinhole_constants(s_ds, o),
+                                o, s_d.reshape(-1, 3), g, s_mats)
+        pcfs.append(SM.pcf_shadow(small, s_vox.shadow_map, g.position,
+                                  "main").cpu())
+    flipped = flips(small, pcfs[0], pcfs[1], "main",
+                    "7a small render (32^3, 64x64, map 256) main-pass PCF, "
+                    "card vs CPU").reshape(64, 64)
+    err = (imgs[0] - imgs[1]).abs()[~flipped]
+    h.say(f"7a small render card vs CPU plain over the unflipped pixels: "
+          f"mean err {float(err.mean()):.3e}, max {float(err.max()):.3e} "
+          f"(bound 1e-3)")
+    if float(err.max()) > 1e-3:
+        fail("7a: the card's small render disagrees with the CPU plain path")
+
+    # ---- 7b: preset aniso128 on the Cornell box ------------------------
+    acfg = preset("aniso128")
+    ocam = CAM.Camera(**ORACLE_CAMERA)
+    qb, build_b, frame_b = drive(acfg, cornell_box(size=100.0), ocam,
+                                 "7b aniso128")
+    levels = acfg.grid.num_levels - 1
+    if build_b["mip"] != levels or frame_b["mip"] != 0:
+        fail(f"7b: mip launches {build_b['mip']} in the build (expected "
+             f"{levels}: the unlit chain) and {frame_b['mip']} in the frame")
+    h.expect(build_b, (), only_mip, "7b build")
+    h.expect(frame_b, (), only_mip, "7b frame")
+    mip_check(((qb["voxels"].unlit_mips, "max"),), "7b")
+    rad = qb["voxels"].radiance_mips
+    if not A.is_aniso_stack(rad):
+        fail("7b: the radiance pyramid is not anisotropic")
+    ref = A.build_aniso_mips(rad[0].cpu(), acfg.grid.num_levels)
+    err = max(h.maxerr(a.cpu(), b) for a, b in zip(rad, ref))
+    h.say(f"7b anisotropic pyramid {[tuple(m.shape) for m in rad[:2]]}... "
+          f"({len(rad)} levels) on the card against the CPU's from the same "
+          f"level 0: max error {err:.3e} (tolerance 1e-6)")
+    if not err <= 1e-6:
+        fail("7b: the card's anisotropic pyramid differs from the CPU's")
+    del ref
+    result["7b"] = measure(acfg, qb, "7b aniso128")
+    del qb, rad
+
+    # the dense anisotropic march against the per-point march at voxel
+    # centers, 32^3, tests/test_aniso.py TestDenseAniso's bounds
+    rng = np.random.default_rng(SEED + 7)
+    dim, ws = 32, 150.0
+    mips32 = A.build_aniso_mips(torch.as_tensor(
+        rng.uniform(0, 0.5, (dim, dim, dim, 4)).astype(np.float32),
+        device=dev))
+    sched = M.march_schedule(0.577, ws / dim, 75.0)
+    dirv = np.array([0.6, -0.64, 0.48])
+    dirv /= np.linalg.norm(dirv)
+    field = D.directional_march(mips32, dirv, sched, ws)
+    idx = np.stack(np.meshgrid(*[np.arange(dim)] * 3, indexing="ij"), -1)
+    centers = torch.as_tensor(((idx + 0.5) / dim * ws - ws / 2).astype(
+        np.float32), device=dev)
+    color, occ, _ = M.cone_march(
+        mips32, centers, torch.as_tensor(dirv, dtype=torch.float32,
+                                         device=dev).expand(centers.shape),
+        sched, ws)
+    excess = max(float(((field[..., :3] - color).abs()
+                        - (1e-5 + 1e-4 * color.abs())).max()),
+                 float(((field[..., 3] - occ).abs()
+                        - (1e-5 + 1e-4 * occ.abs())).max()))
+    h.say(f"7b dense anisotropic march (32^3, {sched.num_steps} steps) "
+          f"against cone_march at the voxel centers on the card: max "
+          f"error {h.maxerr(field[..., :3], color):.3e} color, "
+          f"{h.maxerr(field[..., 3], occ):.3e} occlusion; largest excess "
+          f"over atol 1e-5 + rtol 1e-4: {excess:.3e} (must be <= 0)")
+    if excess > 0:
+        fail("7b: the dense anisotropic march disagrees with cone_march")
+    del mips32, field, centers, color, occ
+
+    # ---- 7c: aniso128 in field mode through the fast path --------------
+    fcfg = dataclasses.replace(acfg, cones=dataclasses.replace(
+        acfg.cones, diffuse_mode="field", specular_mode="field"))
+    if not R.use_fast_path(fcfg):
+        fail("7c: the anisotropic field config does not take the fast path")
+    qc, build_c, frame_c = drive(fcfg, cornell_box(size=100.0), ocam,
+                                 "7c aniso128 field", fast=True)
+    h.expect(build_c, ("mip",), (), "7c build")
+    h.expect(frame_c, ("raycast", "prepass", "tap"), (), "7c frame")
+    # each kernel of 7c at the path's own shapes: the pyramids of the
+    # build and of the frame tables, and the frame's G-buffer, prepass and
+    # taps on its own tables (paths 1-4's comparisons)
+    vc, tc = qc["voxels"], qc["tables"]
+    mip_check(((vc.unlit_mips, "max"),
+               (F._mips_to(vc.light_volume, TP.BRICK_L), "mean"),
+               (F._mips_to(torch.cat([vc.diffuse_field, vc.specular_field],
+                                     dim=-1), TP.BRICK_F), "mean")), "7c")
+    width, height = fcfg.render.width, fcfg.render.height
+    hp, wp = -(-height // F.TSY) * F.TSY, -(-width // 64) * 64
+    d_t = F._tile_order(F._pad_edge(qc["dirs"], hp, wp), hp,
+                        wp).contiguous()
+    origin = qc["origins"].reshape(-1, 3)[0].contiguous()
+    mats = qc["mats"]
+    rargs = (d_t, origin) + RC.pack_tables(qc["ds"], origin, mats.albedo,
+                                           mats.specular, mats.shininess)
+    g = RC.raycast_cuda(*rargs)
+    h.raycast_equal(g, RC.raycast_plain(*rargs), "7c aniso128 field")
+    pkw = dict(light_dims=tuple(m.shape[0] for m in tc.light_mips),
+               field_dims=tuple(m.shape[0] for m in tc.field_mips),
+               voxel=fcfg.grid.voxel_world_size,
+               world_size=fcfg.grid.world_size,
+               shadow_offset=fcfg.shadow.normal_offset)
+    scal = PP.prepass_cuda(g, **pkw)
+    same = torch.equal(scal, PP.prepass_plain(g, **pkw))
+    nb = fcfg.cones.field_basis
+    tkw = dict(cfield=8 * nb, nb=nb, world_size=fcfg.grid.world_size,
+               voxel=fcfg.grid.voxel_world_size,
+               shadow_offset=fcfg.shadow.normal_offset,
+               power_diffuse=int(fcfg.cones.basis_power_diffuse),
+               power_specular=int(fcfg.cones.basis_power_specular),
+               cones_static=F._cones_static(fcfg))
+    bumpn = torch.cat([g[:, 3:6], torch.zeros_like(g[:, :1])],
+                      dim=1).contiguous()
+    targs = (g, scal, bumpn, qc["cam"], tc.light_mips, tc.field_mips)
+    t_err = h.maxerr(TP.tap_cuda(*targs, **tkw), TP.tap_plain(*targs, **tkw))
+    h.say(f"7c prepass on the frame ({g.shape[0] // TP.TILE} tiles): scal8 "
+          f"bit-equal to the plain version {same}; tap ({8 * nb} channels, "
+          f"anisotropic fields) max_abs_err {t_err:.3e} (tolerance 1e-4)")
+    if not same:
+        fail("7c: the prepass kernel differs from its plain version")
+    if not t_err <= 1e-4:
+        fail("7c: the tap kernel disagrees with its plain version")
+    del qc, vc, tc, g, scal, targs, rargs
+    small = slice_config(32, 64, 64, compute="float32", name="aniso128")
+    h.small_check(cornell_box(size=100.0), ocam, 64, 64, "7c aniso128 field",
+                  small=dataclasses.replace(small, cones=dataclasses.replace(
+                      small.cones, diffuse_mode="field",
+                      specular_mode="field")))
+    seconds = time.perf_counter() - t7
+    h.say(f"path 7 took {seconds:.1f} s")
+    h.say("path 7 summary: " + json.dumps(
+        {k: {m: (round(v, 4) if isinstance(v, float) else v)
+             for m, v in r.items()} for k, r in result.items()}))
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1032,8 +1416,11 @@ def main() -> int:
             say(f"{what} {k} ms: median {statistics.median(v):.3f} over {v}")
         return ms
 
-    def small_check(scene, camera, w, h, what, name="sponza256"):
-        small = slice_config(32, w, h, compute="float32", name=name)
+    def small_check(scene, camera, w, h, what, name="sponza256", small=None):
+        """A 32^3 render on the card against the CPU's plain run; `small`
+        replaces the preset `name` cut to that size."""
+        if small is None:
+            small = slice_config(32, w, h, compute="float32", name=name)
         imgs = []
         for d in (dev, torch.device("cpu")):
             s_ds, s_mats, s_samples = R.prepare_scene(small, scene, device=d)
@@ -1909,11 +2296,20 @@ def main() -> int:
         row_launches=row_launches, sync=sync), preset("inverse"), dev)
     say(f"path 6 took {time.perf_counter() - t6:.1f} s")
 
+    # ---- (c7) the shadow map and the anisotropic mips -------------------
+    r7 = map_aniso_path(types.SimpleNamespace(
+        say=say, expect=expect, maxerr=maxerr, reset_counts=reset_counts,
+        read_counts=read_counts, check_image=check_image, sync=sync,
+        counters=counters, raycast_equal=raycast_equal,
+        small_check=small_check), dev)
+
     say(f"frame ms medians on {card}: atrium "
         f"{statistics.median(atrium_ms['render_frame']):.3f}, atrium x4 "
         f"{statistics.median(atrium4_ms['render_frame']):.3f}, exact "
         f"specular {statistics.median(x_ms['render_frame']):.3f}, "
-        f"cornell64_full oracle {statistics.median(frame5_ms):.3f}")
+        f"cornell64_full oracle {statistics.median(frame5_ms):.3f}, "
+        f"reference {r7['7a']['frame_ms']:.3f}, aniso128 "
+        f"{r7['7b']['frame_ms']:.3f}")
 
     # ---- (d) the result ------------------------------------------------
     print(json.dumps({"kernels": report}))

@@ -218,11 +218,23 @@ def test_directional_march_matches(compute, transmittance):
     np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
 
 
-def test_anisotropic_mips_refused():
-    with pytest.raises(NotImplementedError):
-        D.directional_march_multi([torch.zeros(2, 2, 2, 6, 4)],
-                                  D.direction_basis(6),
-                                  M.march_schedule(0.3, 1.0, 2.0), 2.0)
+@pytest.mark.parametrize("compute", [None, "bfloat16"])
+def test_anisotropic_mips_match(compute):
+    """A one-level stack of a directional (2, 2, 2, 6, 4) level: it is
+    resampled packed to 24 channels and its six directions blended after,
+    as the JAX package's _unblend does; atol 1e-6 as above."""
+    level = np.random.default_rng(6).random((2, 2, 2, 6, 4), np.float32)
+    sched = M.march_schedule(0.3, 1.0, 2.0)
+    basis = D.direction_basis(6)
+    b = np.asarray(jdense.directional_march_multi(
+        [jnp.asarray(level)], basis, sched, 2.0,
+        compute_dtype=jnp.bfloat16 if compute else None))
+    b = np.moveaxis(b, 0, -2).reshape(2, 2, 2, -1)
+    a = D.directional_march_multi(
+        [t(level)], basis, sched, 2.0,
+        compute_dtype=torch.bfloat16 if compute else None).numpy()
+    np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+    assert np.abs(a).max() > 0
 
 
 def _dim16(cfg):

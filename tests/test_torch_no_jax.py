@@ -4,8 +4,10 @@ vct_tpu_torch and renders the tiny slices on the CPU from the port's own
 config and scenes (sponza256 cut to a 32^3 grid, float32 compute: the
 Cornell box at 64x48, the textured atrium at 96x64, the atrium
 subdivided once, 4,488 triangles through the binned raycast, at 128x64,
-sponza256_exact_specular cut the same way on the atrium at 96x64, and
-cornell64_full at 16^3 / 32x32 through the per-cone oracle renderer),
+sponza256_exact_specular cut the same way on the atrium at 96x64,
+cornell64_full at 16^3 / 32x32 through the per-cone oracle renderer, and
+presets reference, its shadow map at 128^2, and aniso128 the same way at
+16^3 / 24x24),
 and takes one inverse-rendering step (vct_tpu_torch.diff, preset inverse
 at 16^3 / 16x16, on CPU tensors).  No source of the port or of
 chip_smoke.py imports either.
@@ -94,6 +96,20 @@ SCRIPT = textwrap.dedent("""
     assert img.shape == (32, 32, 3) and bool(torch.isfinite(img).all())
     assert float(img.mean()) > 0.01
     print("rendered cornell64_full", tuple(img.shape), float(img.mean()))
+    # the shadow map and the anisotropic mips through render_rays: presets
+    # reference (map 128^2) and aniso128, cut to 16^3 / 24x24
+    for name in ("reference", "aniso128"):
+        cfg = preset(name)
+        cfg = dataclasses.replace(
+            cfg, grid=dataclasses.replace(cfg.grid, dim=16),
+            shadow=dataclasses.replace(cfg.shadow, map_size=128),
+            render=dataclasses.replace(cfg.render, width=24, height=24))
+        img = R.render_image(cfg, cornell_box(size=100.0),
+                             CAM.Camera(position=(0.0, 0.0, 140.0)),
+                             device=cpu)
+        assert img.shape == (24, 24, 3) and bool(torch.isfinite(img).all())
+        assert float(img.mean()) > 0.01
+        print("rendered", name, tuple(img.shape), float(img.mean()))
     # inverse rendering: one Adam step of preset inverse cut to 16^3
     from vct_tpu_torch.diff import InverseConfig, optimize
     cfg = preset("inverse")
@@ -121,6 +137,8 @@ def test_imports_and_renders_without_jax():
     assert ("rendered sponza256_exact_specular (64, 96, 3) True 1122 "
             in res.stdout)
     assert "rendered cornell64_full (32, 32, 3) " in res.stdout  # render_rays
+    assert "rendered reference (24, 24, 3) " in res.stdout      # shadow map
+    assert "rendered aniso128 (24, 24, 3) " in res.stdout       # aniso mips
     assert "inverse step 1 " in res.stdout                      # diff/
 
 

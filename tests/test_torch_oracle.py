@@ -261,10 +261,23 @@ def test_cone_march_multi(blob_mips):
         close(x, y)
 
 
-def test_anisotropic_stack_raises():
-    mips = (torch.zeros(4, 4, 4, 4), torch.zeros(6, 2, 2, 2, 4))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        M.sample_schedule(mips, torch.zeros(1, 1, 3), (0.5,), 150.0)
+def test_anisotropic_stack_sample_schedule():
+    """A (4^3 x 4, 2^3 x 6 x 4) anisotropic stack: the directional level
+    blends by the travel direction, which it then requires."""
+    rng = np.random.default_rng(8)
+    jm = (jnp.asarray(rng.random((4, 4, 4, 4), np.float32)),
+          jnp.asarray(rng.random((2, 2, 2, 6, 4), np.float32)))
+    pm = tuple(as_torch(m) for m in jm)
+    pts = rng.uniform(-80, 80, (5, 3, 3)).astype(np.float32)
+    d = rng.normal(size=(5, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    lods = (0.0, 0.5, 1.0)
+    close(M.sample_schedule(pm, as_torch(pts), lods, 150.0,
+                            direction=as_torch(d)),
+          jit_ref(JM.sample_schedule, 2, 3)(jm, jnp.asarray(pts), lods,
+                                            150.0, jnp.asarray(d)))
+    with pytest.raises(ValueError, match="march direction"):
+        M.sample_schedule(pm, torch.zeros(1, 1, 3), (0.5,), 150.0)
 
 
 # ---------------------------------------------------------------------------
@@ -571,22 +584,40 @@ def hold_own_build(run):
     hold_image(out.numpy(), j["img"])
 
 
-def test_unported_modes_raise(cornell):
-    _, pc, _, p = cornell
-    smap = dataclasses.replace(pc, shadow=dataclasses.replace(pc.shadow,
-                                                              mode="map"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        R.build_voxel_state(smap, p["samples"], p["mats"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        R.render_camera_pass(smap, p["ds"], p["voxels"], p["mats"],
-                             p["origins"], p["dirs"], p["cam"])
-    aniso = dataclasses.replace(pc, grid=dataclasses.replace(
-        pc.grid, anisotropic=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        R.build_voxel_state(aniso, p["samples"], p["mats"])
+def _mode(cfg, mode):
+    if mode == "map":      # the rasterized shadow map, at 256^2
+        return dataclasses.replace(cfg, shadow=dataclasses.replace(
+            cfg.shadow, mode="map", map_size=256))
+    return dataclasses.replace(cfg, grid=dataclasses.replace(
+        cfg.grid, anisotropic=True))
 
 
-@pytest.mark.parametrize("name", ["cornell64", "cornell64_full", "inverse"])
+@pytest.mark.parametrize("mode", ["map", "aniso"])
+def test_map_and_aniso_builds_match(cornell, mode):
+    """Shadow mode "map" and anisotropic mips on this fixture's samples:
+    the port's build against the JAX package's (eager for the map, whose
+    PCF is a step: tests/test_torch_shadowmap.py), atol 1e-5; the shadow
+    map atol 1e-6 (one float32 ulp of depth on some texels)."""
+    jc, pc, j, p = cornell
+    jc, pc = _mode(jc, mode), _mode(pc, mode)
+    build = JR.build_voxel_state if mode == "map" else \
+        JR.build_voxel_state_staged
+    jv = build(jc, j["samples"], j["mats"])
+    pv = R.build_voxel_state(pc, interop.samples(jax.tree_util.tree_map(
+        np.asarray, j["samples"]), device=CPU), p["mats"])
+    if mode == "map":
+        close(pv.shadow_map, jv.shadow_map, atol=1e-6)
+        assert pv.light_volume is None
+    else:
+        assert pv.radiance_mips[1].dim() == 5
+        close(pv.light_volume, jv.light_volume)
+    for a, b in zip(pv.radiance_mips + pv.unlit_mips,
+                    jv.radiance_mips + jv.unlit_mips):
+        close(a, b)
+
+
+@pytest.mark.parametrize("name", ["cornell64", "cornell64_full", "inverse",
+                                  "reference", "aniso128"])
 def test_presets_route_to_render_rays(name):
     assert not R.use_fast_path(preset(name))
 

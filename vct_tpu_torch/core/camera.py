@@ -1,4 +1,5 @@
-"""Camera model + primary rays (port of vct_tpu/core/camera.py:22-149).
+"""Camera model, view and projection matrices, primary rays (port of
+vct_tpu/core/camera.py:22-149).
 
 The ray math runs in numpy float64 on the host, exactly as the reference
 does, and only the result moves to the device.
@@ -72,6 +73,51 @@ class Camera:
     def process_mouse_scroll(self, dy: float) -> "Camera":
         zoom = min(45.0, max(1.0, self.zoom - dy))
         return dataclasses.replace(self, zoom=zoom)
+
+
+def look_at(eye: np.ndarray, center: np.ndarray, up: np.ndarray) -> np.ndarray:
+    """glm::lookAt, the view matrix (Camera.h:75-78)."""
+    f = center - eye
+    f = f / np.linalg.norm(f)
+    s = np.cross(f, up)
+    s = s / np.linalg.norm(s)
+    u = np.cross(s, f)
+    m = np.eye(4)
+    m[0, :3], m[1, :3], m[2, :3] = s, u, -f
+    m[0, 3], m[1, 3], m[2, 3] = -s @ eye, -u @ eye, f @ eye
+    return m
+
+
+def perspective(fov_y_deg: float, aspect: float, z_near: float,
+                z_far: float) -> np.ndarray:
+    """glm::perspective (Voxel_Cone_Tracing.h:163)."""
+    t = math.tan(math.radians(fov_y_deg) / 2.0)
+    m = np.zeros((4, 4))
+    m[0, 0] = 1.0 / (aspect * t)
+    m[1, 1] = 1.0 / t
+    m[2, 2] = -(z_far + z_near) / (z_far - z_near)
+    m[2, 3] = -2.0 * z_far * z_near / (z_far - z_near)
+    m[3, 2] = -1.0
+    return m
+
+
+def ortho(l: float, r: float, b: float, t: float, n: float,
+          f: float) -> np.ndarray:
+    """glm::ortho: the light frustum (Voxel_Cone_Tracing.h:84) and the
+    three voxelization projections (:128-134)."""
+    m = np.eye(4)
+    m[0, 0] = 2.0 / (r - l)
+    m[1, 1] = 2.0 / (t - b)
+    m[2, 2] = -2.0 / (f - n)
+    m[0, 3] = -(r + l) / (r - l)
+    m[1, 3] = -(t + b) / (t - b)
+    m[2, 3] = -(f + n) / (f - n)
+    return m
+
+
+def view_matrix(cam: Camera) -> np.ndarray:
+    return look_at(np.asarray(cam.position, np.float64),
+                   np.asarray(cam.position, np.float64) + cam.front, cam.up)
 
 
 def primary_rays(cam: Camera, width: int, height: int,

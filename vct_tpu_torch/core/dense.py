@@ -15,7 +15,12 @@ the interpolation weights are bfloat16, each axis accumulates in float32
 and is rounded back to bfloat16 before the next axis, and the composite
 runs in float32.  Products of two bfloat16 values are exact in float32,
 so each axis rounds once, as the matmul with float32 accumulation does.
-Isotropic mips only.
+
+Anisotropic stacks (core/aniso.py) resample each 5-D level packed to
+(d, d, d, 6C) and blend its six directions by the march direction's
+static weights after the resample, as the JAX package does: blending the
+level first is the same sum in exact arithmetic, but in bfloat16 compute
+it would round the blended level, not the six resampled ones.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from vct_tpu_torch.core import aniso as A
 from vct_tpu_torch.core import grid as G
 from vct_tpu_torch.core import march as M
 
@@ -125,18 +131,17 @@ def directional_march_multi(
     (color.rgb, occlusion) in channels b*4..b*4+3 — the layout the JAX
     package's build_cone_field produces — or (df, df, df, B) transmittance
     when transmittance_only.  Directions run one after another in Python,
-    so only one direction's carry is live at a time."""
-    if any(m.dim() != 4 for m in mips):
-        raise NotImplementedError(
-            "anisotropic mips are not ported: ROADMAP Queue 1 item 6 "
-            "(core/aniso.py)")
+    so only one direction's carry is live at a time.  Levels of an
+    anisotropic stack blend by aniso_weights_static of each direction."""
     d0 = mips[0].shape[0]
     df = field_dim or d0
     dev = mips[0].device
     wd = compute_dtype or torch.float32
     if transmittance_only:
         mips = [m[..., -1:] for m in mips]
-    levels = [m.to(wd) for m in mips]
+    # directional levels (d, d, d, 6, C) resample packed, c channels each
+    chans = [m.shape[-1] if A.is_aniso_level(m) else None for m in mips]
+    levels = [(A.packed(m) if c else m).to(wd) for m, c in zip(mips, chans)]
     dirs = np.asarray(directions, np.float64)
     assert dirs.ndim == 2 and dirs.shape[1] == 3
     nb = dirs.shape[0]
@@ -150,6 +155,16 @@ def directional_march_multi(
     for b in range(nb):
         idx, wts = _direction_taps(dirs[b], schedule, plan, groups, dims,
                                    df, world_size, wd, dev)
+        w6 = G.constant(A.aniso_weights_static(dirs[b]), dev)
+
+        def take(lvl, j):
+            """Resample level lvl with tap j; a directional level's six
+            directions blend after the resample."""
+            s = _take3(levels[lvl], idx[j], wts[j], wd)
+            if chans[lvl] is None:
+                return s
+            return A.blend(s.reshape(s.shape[:-1] + (6, chans[lvl])), w6)
+
         j = 0
         t = torch.ones((df, df, df, 1), dtype=torch.float32, device=dev)
         if not transmittance_only:
@@ -159,11 +174,11 @@ def directional_march_multi(
                               device=dev)
         for (l0, l1), steps in groups:
             for k in steps:
-                s = _take3(levels[l0], idx[j], wts[j], wd)
+                s = take(l0, j)
                 j += 1
                 if l1 != l0:
                     w = np.float32(plan[k][2])
-                    s1 = _take3(levels[l1], idx[j], wts[j], wd)
+                    s1 = take(l1, j)
                     j += 1
                     s = s * float(np.float32(1.0) - w) + s1 * float(w)
                 a = s[..., -1:]

@@ -17,6 +17,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from vct_tpu_torch.core import aniso as A
 from vct_tpu_torch.core import grid as G
 
 Tensor = torch.Tensor
@@ -80,12 +81,12 @@ def sample_schedule(mips: Sequence[Tensor], points: Tensor,
                     direction: Tensor | None = None) -> Tensor:
     """Quadrilinear samples of all K steps, points (..., K, 3) in world
     space -> (..., K, C).  Steps that share a mip level are gathered in one
-    trilinear_sample call.  `direction` is the travel direction an
-    anisotropic stack needs; the port has isotropic stacks only."""
-    if len(mips) > 1 and mips[1].dim() == 5:
-        raise NotImplementedError(
-            "anisotropic mip stacks are not ported: ROADMAP Queue 1 item 6 "
-            "(core/aniso.py)")
+    trilinear_sample call.  An anisotropic stack (core/aniso.py: levels
+    >= 1 are 5-D with a 6-direction axis) blends its directional
+    pre-integrations by the travel `direction` (..., 3), which it then
+    requires."""
+    if A.is_aniso_stack(mips) and direction is None:
+        raise ValueError("anisotropic mip stack needs a march direction")
     k = points.shape[-2]
     assert k == len(lods)
     plan = _static_lod_plan(lods, len(mips))
@@ -100,7 +101,11 @@ def sample_schedule(mips: Sequence[Tensor], points: Tensor,
     per_level: Dict[int, Dict[int, Tensor]] = {}
     for lvl, steps in need.items():
         pts = torch.stack([uvw[..., s, :] for s in steps], dim=-2)
-        res = G.trilinear_sample(mips[lvl], pts)            # (..., n, C)
+        if A.is_aniso_level(mips[lvl]):
+            res = A.sample_aniso_level(
+                mips[lvl], pts, direction[..., None, :].expand(pts.shape))
+        else:
+            res = G.trilinear_sample(mips[lvl], pts)        # (..., n, C)
         per_level[lvl] = {s: res[..., i, :] for i, s in enumerate(steps)}
 
     out = []

@@ -68,7 +68,8 @@ def voxel_state(v, device="cuda") -> R.VoxelState:
         unlit_mips=tuple(tensor(m, device) for m in v.unlit_mips),
         light_volume=opt(v.light_volume),
         diffuse_field=opt(v.diffuse_field),
-        specular_field=opt(v.specular_field))
+        specular_field=opt(v.specular_field),
+        shadow_map=opt(v.shadow_map))
 
 
 def inverse_params(np_params, device="cuda") -> dict:
