@@ -11,7 +11,7 @@ Phases, each reported on its own lines:
       raycast, binned raycast, specular march, prepass and material
       kernels the registers, spill and shared bytes and resident warps
       per SM the card reports;
-  (c) seven paths at full width, each through prepare_scene ->
+  (c) nine paths at full width, each through prepare_scene ->
       build_voxel_state (-> build_frame_tables on the fast path) ->
       render_camera_pass with every kernel's launch count set to 0 just
       before and read just after, and each naming the kernels it must
@@ -77,6 +77,26 @@ Phases, each reported on its own lines:
            field cones through the fast path (raycast, prepass, tap);
            build split, frame ms, host syncs, peak memory and the
            profiler's busy and gather shares of 7a and 7b;
+        8. parallel/ on preset("multihost512") (512^3 float32, 1920x1080,
+           6 + 1 cones, volume shadows, a 4 x 2 ('data', 'model') mesh)
+           on the atrium from the bench camera: 8a the preset on one rank
+           (the mesh cut to 1 x 1) through render_rays, prepare ms, build
+           and frame split, syncs, peak memory, mip 18 in the build and
+           0 in the frame; 8b its model axis, 2 ranks on the card, the
+           512^3 build sharded (samples over 'model', the light volume
+           brick-sharded) against the unsharded one (test_brick.py's
+           bounds), halos, bytes staged and build ms per rank; 8c its
+           whole 4 x 2 mesh, 8 ranks on the card at 128^3, the
+           tile-sharded camera pass (0 torch.distributed calls counted),
+           its gathered image against one rank's (test_parallel.py's
+           bounds), and dryrun_multichip(8) with 3 falling losses; the
+           ranks share the card, so their process group is gloo and
+           collectives stage through the host (a probe first records
+           which gloo calls take CUDA tensors);
+        9. the CLI, `python -m vct_tpu_torch` as subprocesses: render
+           under sponza256 on the atrium at 1920x1080 (the fast path's
+           kernels counted in the subprocess), orbit and debug at 32^3 /
+           96x96, their PNGs under chiprun_out/cli/ and stage reports;
       then per path: timings, a small render on the card against the
       plain PyTorch path on the CPU, and for Cornell a determinism check,
       the whole-table raycast against its plain version (hit, material id
@@ -116,6 +136,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -773,6 +794,140 @@ def pcf_taps(cfg, value, normalization):
     return torch.round(value.double() * (2 * cfg.shadow.pcf_radius + 1) ** 2)
 
 
+def drive(h, dev, cfg, scene, camera, what, fast=False):
+    """prepare -> build (counted) -> frame (counted), as a user calls
+    them; returns the run's tensors and both launch counts (paths 7 and
+    8; h carries chip_smoke's helpers)."""
+    from vct_tpu_torch.core import camera as CAM
+    from vct_tpu_torch.render import fast as F
+    from vct_tpu_torch.render import renderer as R
+    h.sync()
+    t0 = time.perf_counter()
+    ds, mats, samples = R.prepare_scene(cfg, scene, device=dev)
+    h.reset_counts()
+    voxels = R.build_voxel_state(cfg, samples, mats)
+    tables = F.build_frame_tables(cfg, voxels, mats) if fast else None
+    h.sync()
+    build_launches = h.read_counts()
+    built = "build and frame tables" if fast else "build"
+    origins, dirs = CAM.primary_rays(camera, cfg.render.width,
+                                     cfg.render.height, device=dev)
+    cam = torch.as_tensor(camera.position, dtype=torch.float32,
+                          device=dev)
+    h.reset_counts()
+    img = R.render_camera_pass(cfg, ds, voxels, mats, origins, dirs, cam,
+                               frame_tables=tables)
+    h.sync()
+    frame_launches = h.read_counts()
+    first_s = time.perf_counter() - t0
+    h.say(f"{what}: launches in the {built} {json.dumps(build_launches)}, "
+          f"in the frame {json.dumps(frame_launches)}; first run "
+          f"{first_s:.2f} s")
+    h.check_image(img, what, (cfg.render.width, cfg.render.height))
+    if not (0.01 < float(img.mean()) < 1.0 and float(img.min()) >= 0.0):
+        fail(f"{what}: image mean {float(img.mean())}, min "
+             f"{float(img.min())}")
+    return (dict(ds=ds, mats=mats, samples=samples, voxels=voxels,
+                 tables=tables, origins=origins, dirs=dirs, cam=cam,
+                 img=img), build_launches, frame_launches)
+
+
+def measure(h, cfg, q, what, chunks=None):
+    """Build split, frame split and ms (medians of 3 after a warm-up),
+    host syncs and peak memory, and under the profiler the busy share
+    and the gather kernels' share of the device time: of 3 frames, or
+    with `chunks` of render_rays' first chunks of the frame, the same
+    calls on fewer rays (a frame of ~10^5 kernels takes the profiler
+    minutes to sum)."""
+    from vct_tpu_torch.profile_stages import count_syncs, profile, stage_ms
+    from vct_tpu_torch.render import renderer as R
+
+    def build():
+        return R.build_voxel_state(cfg, q["samples"], q["mats"])
+
+    def frame():
+        return R.render_camera_pass(cfg, q["ds"], q["voxels"], q["mats"],
+                                    q["origins"], q["dirs"], q["cam"])
+
+    def part():
+        n = chunks * CHUNK
+        return R.render_rays(cfg, q["ds"], q["voxels"], q["mats"],
+                             q["origins"].reshape(-1, 3)[:n],
+                             q["dirs"].reshape(-1, 3)[:n], q["cam"],
+                             chunk_size=CHUNK)
+
+    h.sync()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    split, build_total = stage_ms(build, 3)
+    build_peak = torch.cuda.max_memory_allocated()
+    h.sync()
+    torch.cuda.reset_peak_memory_stats()
+    fsplit, frame_ms = stage_ms(frame, 3)
+    frame_peak = torch.cuda.max_memory_allocated()
+    syncs = (count_syncs(build), count_syncs(frame))
+    out = dict(build_ms=statistics.median(build_total),
+               frame_ms=statistics.median(frame_ms), syncs=syncs,
+               build_peak_gib=build_peak / 2**30,
+               frame_peak_gib=frame_peak / 2**30)
+    h.say(f"{what} build_voxel_state device ms by stage (medians of 3): "
+          + json.dumps({k: round(v, 4) for k, v in split.items()})
+          + f", whole build median {out['build_ms']:.3f} over "
+          f"{[round(x, 3) for x in build_total]}")
+    h.say(f"{what} render_camera_pass (render_rays, chunks of {CHUNK}) ms: "
+          f"median {out['frame_ms']:.3f} over "
+          f"{[round(x, 3) for x in frame_ms]}; stages "
+          + json.dumps({k: round(v, 4) for k, v in fsplit.items()}))
+    h.say(f"{what}: host syncs build {syncs[0]}, frame {syncs[1]}; peak "
+          f"device memory build {out['build_peak_gib']:.3f} GiB, frame "
+          f"{out['frame_peak_gib']:.3f} GiB ({held / 2**30:.3f} GiB held "
+          f"before)")
+    if chunks is None:
+        prof, run = profile(frame, 3), "3 frames, per frame"
+    else:
+        n_chunks = -(-q["dirs"][..., 0].numel() // CHUNK)
+        prof = profile(part, 1)
+        run = f"the frame's first {chunks} of {n_chunks} chunks"
+    h.say(f"{what} under torch.profiler ({run}): busy share "
+          f"{prof['busy_share']:.4f}, device ms "
+          f"{prof['device_ms_per_frame']:.3f} of wall ms "
+          f"{prof['wall_ms_per_frame']:.3f}, kernels "
+          f"{prof['kernels_per_frame']:.0f}; top: " + json.dumps(
+              [(r["name"][:48], round(r["ms_per_frame"], 4))
+               for r in prof["top"][:5]]))
+    gather = sum(r["ms_per_frame"] for r in prof["top"]
+                 if "gather" in r["name"].lower())
+    out["busy"] = prof["busy_share"]
+    out["gather_share"] = gather / max(prof["device_ms_per_frame"], 1e-9)
+    h.say(f"{what}: gather kernels {gather:.3f} of "
+          f"{prof['device_ms_per_frame']:.3f} device ms (share "
+          f"{out['gather_share']:.4f})")
+    return out
+
+
+def mip_check(h, chains, what):
+    """The mip kernel at this path's shapes, as path 5 holds it: each
+    level of the path's own pyramids (mips, alpha mode) through the
+    kernel and its plain version, and the path's next level against
+    the plain one."""
+    from vct_tpu_torch.ops import mip
+    err, n = 0.0, 0
+    for mips, mode in chains:
+        for fine, coarse in zip(mips, mips[1:]):
+            plain = mip.downsample2x_plain(fine, mode)
+            err = max(err, h.maxerr(mip.downsample2x_cuda(fine, mode),
+                                    plain), h.maxerr(coarse, plain))
+            n += 1
+    h.say(f"{what}: mip kernel on the {n} levels of the path's own "
+          f"pyramids ({', '.join(f'{m[0].shape[0]}^3 x {m[0].shape[-1]} '
+                                 f'{mode}' for m, mode in chains)}) "
+          f"against its plain version: max_abs_err {err:.3e} "
+          f"(tolerance 1e-6)")
+    if not err <= 1e-6:
+        fail(f"{what}: kernel mip disagrees with its plain version at "
+             f"this path's shapes")
+
+
 def map_aniso_path(h, dev):
     """Path 7: 7a preset("reference") unchanged (the shadow map, 4096^2,
     5x5 PCF with the /9 quirk) on the atrium from the bench camera, 7b
@@ -788,11 +943,9 @@ def map_aniso_path(h, dev):
     from vct_tpu_torch.core import camera as CAM
     from vct_tpu_torch.core import dense as D
     from vct_tpu_torch.core import march as M
-    from vct_tpu_torch.ops import mip
     from vct_tpu_torch.ops import prepass as PP
     from vct_tpu_torch.ops import raycast as RC
     from vct_tpu_torch.ops import tap as TP
-    from vct_tpu_torch.profile_stages import count_syncs, profile, stage_ms
     from vct_tpu_torch.render import fast as F
     from vct_tpu_torch.render import gbuffer as GB
     from vct_tpu_torch.render import renderer as R
@@ -803,129 +956,6 @@ def map_aniso_path(h, dev):
     cpu = torch.device("cpu")
     only_mip = tuple(k for k in h.counters if k != "mip")
     result = {}
-
-    def drive(cfg, scene, camera, what, fast=False):
-        """prepare -> build (counted) -> frame (counted), as a user calls
-        them; returns the run's tensors and both launch counts."""
-        h.sync()
-        t0 = time.perf_counter()
-        ds, mats, samples = R.prepare_scene(cfg, scene, device=dev)
-        h.reset_counts()
-        voxels = R.build_voxel_state(cfg, samples, mats)
-        tables = F.build_frame_tables(cfg, voxels, mats) if fast else None
-        h.sync()
-        build_launches = h.read_counts()
-        built = "build and frame tables" if fast else "build"
-        origins, dirs = CAM.primary_rays(camera, cfg.render.width,
-                                         cfg.render.height, device=dev)
-        cam = torch.as_tensor(camera.position, dtype=torch.float32,
-                              device=dev)
-        h.reset_counts()
-        img = R.render_camera_pass(cfg, ds, voxels, mats, origins, dirs, cam,
-                                   frame_tables=tables)
-        h.sync()
-        frame_launches = h.read_counts()
-        first_s = time.perf_counter() - t0
-        h.say(f"{what}: launches in the {built} {json.dumps(build_launches)}, "
-              f"in the frame {json.dumps(frame_launches)}; first run "
-              f"{first_s:.2f} s")
-        h.check_image(img, what, (cfg.render.width, cfg.render.height))
-        if not (0.01 < float(img.mean()) < 1.0 and float(img.min()) >= 0.0):
-            fail(f"{what}: image mean {float(img.mean())}, min "
-                 f"{float(img.min())}")
-        return (dict(ds=ds, mats=mats, samples=samples, voxels=voxels,
-                     tables=tables, origins=origins, dirs=dirs, cam=cam,
-                     img=img), build_launches, frame_launches)
-
-    def measure(cfg, q, what, chunks=None):
-        """Build split, frame split and ms (medians of 3 after a warm-up),
-        host syncs and peak memory, and under the profiler the busy share
-        and the gather kernels' share of the device time: of 3 frames, or
-        with `chunks` of render_rays' first chunks of the frame, the same
-        calls on fewer rays (a frame of ~10^5 kernels takes the profiler
-        minutes to sum)."""
-        def build():
-            return R.build_voxel_state(cfg, q["samples"], q["mats"])
-
-        def frame():
-            return R.render_camera_pass(cfg, q["ds"], q["voxels"], q["mats"],
-                                        q["origins"], q["dirs"], q["cam"])
-
-        def part():
-            n = chunks * CHUNK
-            return R.render_rays(cfg, q["ds"], q["voxels"], q["mats"],
-                                 q["origins"].reshape(-1, 3)[:n],
-                                 q["dirs"].reshape(-1, 3)[:n], q["cam"],
-                                 chunk_size=CHUNK)
-
-        h.sync()
-        held = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        split, build_total = stage_ms(build, 3)
-        build_peak = torch.cuda.max_memory_allocated()
-        h.sync()
-        torch.cuda.reset_peak_memory_stats()
-        fsplit, frame_ms = stage_ms(frame, 3)
-        frame_peak = torch.cuda.max_memory_allocated()
-        syncs = (count_syncs(build), count_syncs(frame))
-        out = dict(build_ms=statistics.median(build_total),
-                   frame_ms=statistics.median(frame_ms), syncs=syncs,
-                   build_peak_gib=build_peak / 2**30,
-                   frame_peak_gib=frame_peak / 2**30)
-        h.say(f"{what} build_voxel_state device ms by stage (medians of 3): "
-              + json.dumps({k: round(v, 4) for k, v in split.items()})
-              + f", whole build median {out['build_ms']:.3f} over "
-              f"{[round(x, 3) for x in build_total]}")
-        h.say(f"{what} render_camera_pass (render_rays, chunks of {CHUNK}) ms: "
-              f"median {out['frame_ms']:.3f} over "
-              f"{[round(x, 3) for x in frame_ms]}; stages "
-              + json.dumps({k: round(v, 4) for k, v in fsplit.items()}))
-        h.say(f"{what}: host syncs build {syncs[0]}, frame {syncs[1]}; peak "
-              f"device memory build {out['build_peak_gib']:.3f} GiB, frame "
-              f"{out['frame_peak_gib']:.3f} GiB ({held / 2**30:.3f} GiB held "
-              f"before)")
-        if chunks is None:
-            prof, run = profile(frame, 3), "3 frames, per frame"
-        else:
-            n_chunks = -(-q["dirs"][..., 0].numel() // CHUNK)
-            prof = profile(part, 1)
-            run = f"the frame's first {chunks} of {n_chunks} chunks"
-        h.say(f"{what} under torch.profiler ({run}): busy share "
-              f"{prof['busy_share']:.4f}, device ms "
-              f"{prof['device_ms_per_frame']:.3f} of wall ms "
-              f"{prof['wall_ms_per_frame']:.3f}, kernels "
-              f"{prof['kernels_per_frame']:.0f}; top: " + json.dumps(
-                  [(r["name"][:48], round(r["ms_per_frame"], 4))
-                   for r in prof["top"][:5]]))
-        gather = sum(r["ms_per_frame"] for r in prof["top"]
-                     if "gather" in r["name"].lower())
-        out["busy"] = prof["busy_share"]
-        out["gather_share"] = gather / max(prof["device_ms_per_frame"], 1e-9)
-        h.say(f"{what}: gather kernels {gather:.3f} of "
-              f"{prof['device_ms_per_frame']:.3f} device ms (share "
-              f"{out['gather_share']:.4f})")
-        return out
-
-    def mip_check(chains, what):
-        """The mip kernel at this path's shapes, as path 5 holds it: each
-        level of the path's own pyramids (mips, alpha mode) through the
-        kernel and its plain version, and the path's next level against
-        the plain one."""
-        err, n = 0.0, 0
-        for mips, mode in chains:
-            for fine, coarse in zip(mips, mips[1:]):
-                plain = mip.downsample2x_plain(fine, mode)
-                err = max(err, h.maxerr(mip.downsample2x_cuda(fine, mode),
-                                        plain), h.maxerr(coarse, plain))
-                n += 1
-        h.say(f"{what}: mip kernel on the {n} levels of the path's own "
-              f"pyramids ({', '.join(f'{m[0].shape[0]}^3 x {m[0].shape[-1]} '
-                                     f'{mode}' for m, mode in chains)}) "
-              f"against its plain version: max_abs_err {err:.3e} "
-              f"(tolerance 1e-6)")
-        if not err <= 1e-6:
-            fail(f"{what}: kernel mip disagrees with its plain version at "
-                 f"this path's shapes")
 
     def flips(cfg, a, b, normalization, what):
         """Points whose PCF differs between a and b: at most 0.1%, each by
@@ -945,7 +975,8 @@ def map_aniso_path(h, dev):
     t7 = time.perf_counter()
     rcfg = preset("reference")
     bench = CAM.Camera(**ATRIUM_CAMERA)
-    qa, build_a, frame_a = drive(rcfg, atrium(), bench, "7a reference")
+    qa, build_a, frame_a = drive(h, dev, rcfg, atrium(), bench,
+                                 "7a reference")
     levels = rcfg.grid.num_levels - 1
     if build_a["mip"] != 2 * levels or frame_a["mip"] != 0:
         fail(f"7a: mip launches {build_a['mip']} in the build (expected "
@@ -953,7 +984,7 @@ def map_aniso_path(h, dev):
              f"the frame (expected 0)")
     h.expect(build_a, (), only_mip, "7a build")
     h.expect(frame_a, (), only_mip, "7a frame")
-    mip_check(((qa["voxels"].unlit_mips, "max"),
+    mip_check(h, ((qa["voxels"].unlit_mips, "max"),
                (qa["voxels"].radiance_mips, "mean")), "7a")
     smap = qa["voxels"].shadow_map
     pos = qa["samples"].positions
@@ -970,7 +1001,7 @@ def map_aniso_path(h, dev):
     flips(rcfg, SM.pcf_shadow(rcfg, smap, pos, "voxelize").cpu(),
           SM.pcf_shadow(rcfg, smap_cpu, pos.cpu(), "voxelize"),
           "voxelize", "7a per-sample PCF, card vs CPU")
-    result["7a"] = measure(rcfg, qa, "7a reference", chunks=2)
+    result["7a"] = measure(h, rcfg, qa, "7a reference", chunks=2)
     del qa, smap, smap_cpu, pos
 
     # a small render on the card against the CPU's plain run, the PCF
@@ -1008,15 +1039,15 @@ def map_aniso_path(h, dev):
     # ---- 7b: preset aniso128 on the Cornell box ------------------------
     acfg = preset("aniso128")
     ocam = CAM.Camera(**ORACLE_CAMERA)
-    qb, build_b, frame_b = drive(acfg, cornell_box(size=100.0), ocam,
-                                 "7b aniso128")
+    qb, build_b, frame_b = drive(h, dev, acfg, cornell_box(size=100.0),
+                                 ocam, "7b aniso128")
     levels = acfg.grid.num_levels - 1
     if build_b["mip"] != levels or frame_b["mip"] != 0:
         fail(f"7b: mip launches {build_b['mip']} in the build (expected "
              f"{levels}: the unlit chain) and {frame_b['mip']} in the frame")
     h.expect(build_b, (), only_mip, "7b build")
     h.expect(frame_b, (), only_mip, "7b frame")
-    mip_check(((qb["voxels"].unlit_mips, "max"),), "7b")
+    mip_check(h, ((qb["voxels"].unlit_mips, "max"),), "7b")
     rad = qb["voxels"].radiance_mips
     if not A.is_aniso_stack(rad):
         fail("7b: the radiance pyramid is not anisotropic")
@@ -1028,7 +1059,7 @@ def map_aniso_path(h, dev):
     if not err <= 1e-6:
         fail("7b: the card's anisotropic pyramid differs from the CPU's")
     del ref
-    result["7b"] = measure(acfg, qb, "7b aniso128")
+    result["7b"] = measure(h, acfg, qb, "7b aniso128")
     del qb, rad
 
     # the dense anisotropic march against the per-point march at voxel
@@ -1067,15 +1098,15 @@ def map_aniso_path(h, dev):
         acfg.cones, diffuse_mode="field", specular_mode="field"))
     if not R.use_fast_path(fcfg):
         fail("7c: the anisotropic field config does not take the fast path")
-    qc, build_c, frame_c = drive(fcfg, cornell_box(size=100.0), ocam,
-                                 "7c aniso128 field", fast=True)
+    qc, build_c, frame_c = drive(h, dev, fcfg, cornell_box(size=100.0),
+                                 ocam, "7c aniso128 field", fast=True)
     h.expect(build_c, ("mip",), (), "7c build")
     h.expect(frame_c, ("raycast", "prepass", "tap"), (), "7c frame")
     # each kernel of 7c at the path's own shapes: the pyramids of the
     # build and of the frame tables, and the frame's G-buffer, prepass and
     # taps on its own tables (paths 1-4's comparisons)
     vc, tc = qc["voxels"], qc["tables"]
-    mip_check(((vc.unlit_mips, "max"),
+    mip_check(h, ((vc.unlit_mips, "max"),
                (F._mips_to(vc.light_volume, TP.BRICK_L), "mean"),
                (F._mips_to(torch.cat([vc.diffuse_field, vc.specular_field],
                                      dim=-1), TP.BRICK_F), "mean")), "7c")
@@ -1126,6 +1157,386 @@ def map_aniso_path(h, dev):
         {k: {m: (round(v, 4) if isinstance(v, float) else v)
              for m, v in r.items()} for k, r in result.items()}))
     return result
+
+
+# ---- paths 8 and 9: parallel/ (preset multihost512) and the CLI ---------
+# tests/test_brick.py's bounds on a sharded light volume, a radiance grid
+# bound for a build whose partial grids sum in another order, and
+# tests/test_parallel.py's on a sharded image
+LIGHT_TOL = (1e-4, 1e-5)      # (rtol, atol)
+RADIANCE_TOL = (1e-5, 1e-6)
+IMAGE_TOL = (2e-4, 2e-5)
+DIM_8C = 128                  # 8c's grid: eight ranks' builds on one card
+PROBE_S = 45                  # the gloo probe's time limit
+CLI_S = 600                   # a CLI subprocess's time limit
+
+
+def multihost_cfg(dim, width, height, n_data, n_model):
+    """preset("multihost512") with its grid cut to dim^3 (512 unchanged),
+    its frame at width x height and its mesh set to n_data x n_model."""
+    from vct_tpu_torch.config import preset
+    cfg = preset("multihost512")
+    return dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, dim=dim),
+        render=dataclasses.replace(cfg.render, width=width, height=height),
+        sharding=dataclasses.replace(cfg.sharding, data_parallel=n_data,
+                                     brick_parallel=n_model))
+
+
+def within(a: torch.Tensor, b: torch.Tensor, tol) -> dict:
+    """Max error of a against b, bit-equality, and whether every element
+    lies within atol + rtol * |b|."""
+    rtol, atol = tol
+    diff = (a.float() - b.float()).abs()
+    excess = float((diff - (atol + rtol * b.float().abs())).max())
+    return {"max_abs_err": float(diff.max()), "bit_equal": bool(
+        torch.equal(a, b)), "within": excess <= 0.0}
+
+
+def rank_device(dev_type: str) -> torch.device:
+    if dev_type != "cuda":
+        return torch.device(dev_type)
+    from vct_tpu_torch.ops import _build
+    _build.library()           # loads the library the parent built
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def rank_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def probe_gloo(dev_type: str) -> dict:
+    """Which gloo calls take this device's tensors as they are (2 ranks):
+    each call once on a small tensor; a refusal is recorded, not raised."""
+    import torch.distributed as dist
+    dev = rank_device(dev_type)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    x = torch.full((4,), float(rank + 1), device=dev)
+
+    def send_recv():
+        if rank == 0:
+            dist.send(x, dst=1)
+        else:
+            y = torch.empty_like(x)
+            dist.recv(y, src=0)
+
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(world)], x),
+        "gather": lambda: dist.gather(
+            x, [torch.empty_like(x) for _ in range(world)] if rank == 0
+            else None, dst=0),
+        "send_recv": send_recv}
+    out = {}
+    for name, call in calls.items():       # the riskiest (p2p) last
+        try:
+            call()
+            rank_sync(dev)
+            out[name] = "takes them"
+        except (RuntimeError, ValueError) as e:
+            out[name] = "refuses: " + str(e).splitlines()[0][:100]
+        # each outcome at once: a call that hangs or kills its rank
+        # leaves the ones before it on record
+        say(f"gloo probe rank {rank}: {name} {out[name]}")
+        dist.barrier()
+    return out
+
+
+def rank_8b(dev_type: str, dim: int, width: int, height: int) -> dict:
+    """8b, in each of 2 ranks (data 1 x model 2): the sharded build of the
+    atrium at dim^3 (samples over 'model', the light volume
+    brick-sharded), and on rank 0 the unsharded build beside it."""
+    import torch.distributed as dist
+    from vct_tpu_torch.ops import mip
+    from vct_tpu_torch.parallel import brick, comm
+    from vct_tpu_torch.parallel import mesh as ML
+    from vct_tpu_torch.render import renderer as R
+    from vct_tpu_torch.render import shading
+    from vct_tpu_torch.scene.atrium import atrium
+
+    dev = rank_device(dev_type)
+    rank = dist.get_rank()
+    cfg = multihost_cfg(dim, width, height, 1, 2)
+    mesh = ML.make_mesh_for(cfg, dev.type)
+    _, mats, samples = R.prepare_scene(cfg, atrium(), device=dev)
+    sched = shading.shadow_schedule(cfg)
+    light = np.asarray(cfg.light.direction, np.float64)
+    halos, sharded = brick.shard_plan(
+        (light / np.linalg.norm(light))[None], sched,
+        [dim >> i for i in range(cfg.grid.num_levels)], cfg.grid.world_size,
+        2)
+    rank_sync(dev)
+    dist.barrier()
+    comm.STAGED_BYTES, mip.LAUNCHES = 0, 0
+    t0 = time.perf_counter()
+    state = R.build_voxel_state(cfg, samples, mats, mesh=mesh)
+    rank_sync(dev)
+    out = dict(rank=rank, backend=str(dist.get_backend()),
+               build_ms=(time.perf_counter() - t0) * 1e3,
+               staged_bytes=comm.STAGED_BYTES, mip=mip.LAUNCHES,
+               samples=samples.positions.shape[0],
+               halos=halos, sharded=sharded)
+    if rank == 0:
+        one = dataclasses.replace(cfg, sharding=dataclasses.replace(
+            cfg.sharding, brick_parallel=1))
+        ref = R.build_voxel_state(one, samples, mats)
+        out["light_volume"] = within(state.light_volume, ref.light_volume,
+                                     LIGHT_TOL)
+        out["radiance"] = within(state.radiance_mips[0],
+                                 ref.radiance_mips[0], RADIANCE_TOL)
+    return out
+
+
+def rank_8c(dev_type: str, dim: int, width: int, height: int) -> dict:
+    """8c, in each of 8 ranks (the preset's 4 x 2 mesh): the sharded build
+    of the atrium at dim^3, the tile-sharded camera pass over 'data' (its
+    torch.distributed calls counted), the image gathered on rank 0 and
+    held there against one rank's build and render, then
+    dryrun_multichip(8) with 3 steps."""
+    import torch.distributed as dist
+    from vct_tpu_torch.core import camera as CAM
+    from vct_tpu_torch.core import grid as G
+    from vct_tpu_torch.ops import mip
+    from vct_tpu_torch.parallel import comm
+    from vct_tpu_torch.parallel import mesh as ML
+    from vct_tpu_torch.parallel import tile_dp
+    from vct_tpu_torch.render import renderer as R
+    from vct_tpu_torch.scene.atrium import atrium
+
+    t_path = time.perf_counter()
+    dev = rank_device(dev_type)
+    rank = dist.get_rank()
+    cfg = multihost_cfg(dim, width, height, 4, 2)
+    mesh = ML.make_mesh_for(cfg, dev.type)
+    ds, mats, samples = R.prepare_scene(cfg, atrium(), device=dev)
+    bench = CAM.Camera(**ATRIUM_CAMERA)
+    origins, dirs = CAM.primary_rays(bench, width, height, device=dev)
+    cam = G.constant(bench.position, dev)
+    rank_sync(dev)
+    dist.barrier()
+    comm.STAGED_BYTES, mip.LAUNCHES = 0, 0
+    t0 = time.perf_counter()
+    state = tile_dp.sharded_build_fn(cfg, mesh)(samples, mats)
+    rank_sync(dev)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    staged, mips = comm.STAGED_BYTES, mip.LAUNCHES
+    camera = tile_dp.shardmap_camera_fn(cfg, ds, mesh, chunk_size=CHUNK)
+    t0 = time.perf_counter()
+    with comm.count_calls() as calls:
+        rows = camera(origins, dirs, cam, state, mats)
+        rank_sync(dev)
+    camera_ms = (time.perf_counter() - t0) * 1e3
+    img = tile_dp.gather_rows(rows, mesh)
+    out = dict(rank=rank, coord=(mesh.get_local_rank("data"),
+                                 mesh.get_local_rank("model")),
+               build_ms=build_ms, staged_bytes=staged, mip=mips,
+               camera_ms=camera_ms, camera_calls=dict(calls),
+               rows=tuple(rows.shape))
+    del state, rows
+    if rank == 0:
+        one = multihost_cfg(dim, width, height, 1, 1)
+        ref = R.render_rays(one, ds, R.build_voxel_state(one, samples, mats),
+                            mats, origins, dirs, cam, chunk_size=CHUNK)
+        out["image"] = within(img, ref, IMAGE_TOL)
+        out["image"].update(shape=tuple(img.shape), finite=bool(
+            torch.isfinite(img).all()), mean=float(img.mean()))
+    del img
+    out["dryrun"] = tile_dp.dryrun_multichip(8, steps=3, device=dev)
+    out["seconds"] = time.perf_counter() - t_path
+    return out
+
+
+def multihost_path(h, dev, dim_a=512, dim_c=DIM_8C, size=(WIDTH, HEIGHT)):
+    """Path 8: preset("multihost512") (512^3 float32, 1920x1080, 6 + 1
+    cones, volume shadows, a 4 x 2 ('data', 'model') mesh) on the atrium
+    from the bench camera.  8a the preset at full width on one rank (the
+    mesh cut to 1 x 1) through prepare_scene -> build_voxel_state ->
+    render_camera_pass (render_rays), counts read after the build and the
+    frame; 8b its model axis, 2 ranks (1 x 2) on the card, the whole 512^3
+    build sharded and held against the unsharded one; 8c its whole 4 x 2
+    mesh, 8 ranks on the card, the grid cut to dim_c^3 (eight ranks'
+    states and staged reduces on one card), the frame kept, the
+    tile-sharded camera pass and dryrun_multichip(8).  The ranks run on
+    one card, so the process group is gloo (NCCL refuses two ranks on one
+    card): collectives on CUDA tensors stage through the host
+    (parallel/comm.py), and the bytes are printed.  h carries
+    chip_smoke's helpers."""
+    from vct_tpu_torch.core import camera as CAM
+    from vct_tpu_torch.parallel import mesh as ML
+    from vct_tpu_torch.render import renderer as R
+    from vct_tpu_torch.scene.atrium import atrium
+
+    t8 = time.perf_counter()
+    width, height = size
+    only_mip = tuple(k for k in h.counters if k != "mip")
+    result = {}
+
+    # ---- 8a: the preset at full width on one rank -----------------------
+    acfg = multihost_cfg(dim_a, width, height, 1, 1)
+    h.say(f"8a multihost512: {acfg.grid.dim}^3 {acfg.grid.dtype}, "
+          f"{acfg.render.width}x{acfg.render.height}, "
+          f"{acfg.cones.num_diffuse_cones} diffuse cones and specular "
+          f"{acfg.cones.trace_specular}, shadow mode {acfg.shadow.mode}; the "
+          f"mesh cut from 4 x 2 to 1 x 1")
+    bench = CAM.Camera(**ATRIUM_CAMERA)
+    scene = atrium()
+    qa, build_a, frame_a = drive(h, dev, acfg, scene, bench,
+                                 "8a multihost512")
+    levels = acfg.grid.num_levels - 1
+    if build_a["mip"] != 2 * levels or frame_a["mip"] != 0:
+        fail(f"8a: mip launches {build_a['mip']} in the build (expected "
+             f"{2 * levels}) and {frame_a['mip']} in the frame (expected 0)")
+    h.expect(build_a, (), only_mip, "8a build")
+    h.expect(frame_a, (), only_mip, "8a frame")
+    mip_check(h, ((qa["voxels"].unlit_mips, "max"),
+                  (qa["voxels"].radiance_mips, "mean")), "8a")
+    prepare_ms = host_ms(lambda: R.prepare_scene(acfg, scene, device=dev))
+    h.say(f"8a prepare_scene ms (host clock to a synchronize, one call): "
+          f"{prepare_ms:.3f}; {qa['samples'].positions.shape[0]} surface "
+          f"samples")
+    result["8a"] = measure(h, acfg, qa, "8a multihost512", chunks=2)
+    result["8a"].update(prepare_ms=prepare_ms, mip_build=build_a["mip"])
+    del qa
+    h.sync()
+    torch.cuda.empty_cache()
+
+    # ---- 8b: the model axis, 2 ranks, the whole 512^3 build -------------
+    try:
+        probe = ML.spawn(probe_gloo, 2, dev.type, timeout=PROBE_S)[0]
+    except (TimeoutError, torch.multiprocessing.ProcessExitedException,
+            torch.multiprocessing.ProcessRaisedException) as e:
+        probe = {"unfinished": f"{type(e).__name__}: {e} (the calls "
+                 f"before it are on the probe's lines above)"}
+    h.say("gloo on this card's tensors (2 ranks, one call each): "
+          + json.dumps(probe))
+    t0 = time.perf_counter()
+    ranks = ML.spawn(rank_8b, 2, dev.type, dim_a, width, height)
+    r0 = ranks[0]
+    h.say(f"8b model axis, 2 ranks on the card, backend {r0['backend']}: "
+          f"{acfg.grid.dim}^3, {r0['samples']} samples; light volume halo "
+          f"rows and shard decision per level {json.dumps(r0['halos'])} "
+          f"{json.dumps(r0['sharded'])}; per rank build ms "
+          f"{[round(r['build_ms'], 3) for r in ranks]}, bytes staged "
+          f"through the host {[r['staged_bytes'] for r in ranks]}, mip "
+          f"launches {[r['mip'] for r in ranks]}; path 8b "
+          f"{time.perf_counter() - t0:.1f} s")
+    h.say("8b sharded against unsharded on rank 0: light volume "
+          + json.dumps(r0["light_volume"]) + f" (rtol/atol {LIGHT_TOL}), "
+          "radiance_mips[0] " + json.dumps(r0["radiance"])
+          + f" (rtol/atol {RADIANCE_TOL})")
+    if not (r0["light_volume"]["within"] and r0["radiance"]["within"]):
+        fail("8b: the sharded build disagrees with the unsharded one")
+    if not r0["sharded"][0]:
+        fail("8b: level 0 did not shard")
+    if any(r["mip"] != 2 * levels for r in ranks):
+        fail("8b: a rank did not launch the mip kernel for both pyramids")
+    result["8b"] = dict(build_ms=[r["build_ms"] for r in ranks],
+                        staged_bytes=[r["staged_bytes"] for r in ranks],
+                        light=r0["light_volume"], radiance=r0["radiance"])
+
+    # ---- 8c: the whole 4 x 2 mesh, 8 ranks, the grid cut ----------------
+    t0 = time.perf_counter()
+    ranks = ML.spawn(rank_8c, 8, dev.type, dim_c, width, height)
+    r0 = ranks[0]
+    h.say(f"8c the preset's 4 x 2 mesh, 8 ranks on the card: "
+          f"{dim_c}^3 (cut from {dim_a}^3), {width}x{height}; per rank "
+          f"(data, model) {[r['coord'] for r in ranks]}, build ms "
+          f"{[round(r['build_ms'], 1) for r in ranks]}, bytes staged "
+          f"{[r['staged_bytes'] for r in ranks]}, mip launches "
+          f"{[r['mip'] for r in ranks]}, camera pass ms "
+          f"{[round(r['camera_ms'], 1) for r in ranks]} for rows "
+          f"{ranks[0]['rows']}, torch.distributed calls in the camera pass "
+          f"{[r['camera_calls'] for r in ranks]}")
+    h.say("8c image gathered on rank 0 against one rank's build and render: "
+          + json.dumps(r0["image"]) + f" (rtol/atol {IMAGE_TOL})")
+    h.say("8c dryrun_multichip(8), 3 steps: " + json.dumps(
+        {k: r0["dryrun"][k] for k in ("mesh", "losses", "image_mean")})
+        + f"; path 8c {time.perf_counter() - t0:.1f} s")
+    if any(r["camera_calls"] for r in ranks):
+        fail("8c: the camera pass made torch.distributed calls")
+    if r0["image"]["shape"] != (height, width, 3) or not (
+            r0["image"]["finite"] and r0["image"]["within"]):
+        fail("8c: the gathered image disagrees with one rank's render")
+    losses = r0["dryrun"]["losses"]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+            and r0["dryrun"]["image_mean"] is not None):
+        fail(f"8c: dryrun_multichip(8) losses {losses}")
+    result["8c"] = dict(build_ms=[r["build_ms"] for r in ranks],
+                        camera_ms=[r["camera_ms"] for r in ranks],
+                        image=r0["image"], losses=losses,
+                        seconds=max(r["seconds"] for r in ranks))
+    h.say(f"path 8 took {time.perf_counter() - t8:.1f} s")
+    return result
+
+
+CLI_WRAPPER = """
+import json, runpy
+runpy.run_module("vct_tpu_torch", run_name="__main__", alter_sys=True)
+from vct_tpu_torch.ops import (binrast, material, mip, prepass, raycast,
+                               specmarch, tap)
+print("launches " + json.dumps({
+    "mip": mip.LAUNCHES, "raycast": raycast.LAUNCHES,
+    "prepass": prepass.LAUNCHES, "tap": tap.LAUNCHES,
+    "material": material.LAUNCHES, "raycast_stream": raycast.STREAM_LAUNCHES,
+    "binrast": binrast.LAUNCHES, "specmarch": specmarch.LAUNCHES,
+    "mip_bwd": mip.BWD_LAUNCHES}))
+"""
+
+
+def cli_path(h, out_dir, extra=()):
+    """Path 9: `python -m vct_tpu_torch` as subprocesses (through a wrapper
+    that runs the module as __main__ and then prints the launch counts of
+    that process): render on the atrium from the bench camera under
+    sponza256 at 1920x1080 (the fast path), orbit (2 frames) and debug at
+    32^3 / 96x96 under the default preset; their stage reports."""
+    from vct_tpu_torch.utils.image import read_png
+
+    t9 = time.perf_counter()
+    out_dir = pathlib.Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    root = pathlib.Path(__file__).resolve().parent
+
+    def run(args):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", CLI_WRAPPER, *args,
+                              *extra], cwd=root, capture_output=True,
+                             text=True, timeout=CLI_S)
+        if res.returncode != 0:
+            fail(f"the CLI {' '.join(args[:1])} failed:\n{res.stderr[-3000:]}")
+        report = [ln for ln in res.stderr.splitlines()
+                  if ln.strip() and not ln.startswith("[")]
+        h.say(f"python -m vct_tpu_torch {' '.join(args)}: "
+              f"{time.perf_counter() - t0:.1f} s; stage report: "
+              + " | ".join(" ".join(ln.split()) for ln in report))
+        return json.loads(res.stdout.split("launches ", 1)[1])
+
+    png = out_dir / "atrium.png"
+    launches = run(["render", "--preset", "sponza256", "--scene", "atrium",
+                    "--camera", "48,-10,0", "--yaw", "180", "--out",
+                    str(png)])
+    h.say("9 render launches: " + json.dumps(launches))
+    h.expect(launches, ("mip", "raycast", "raycast_stream", "prepass",
+                        "material", "tap"), ("binrast", "specmarch"),
+             "CLI render")
+    img = read_png(str(png))
+    h.say(f"9 render wrote {png.name} {img.shape}, mean {img.mean():.3f}")
+    if img.shape[:2] != (HEIGHT, WIDTH) or not img.mean() > 1.0:
+        fail("9: the CLI's render is not a lit 1920x1080 image")
+    small = ["--dim", "32", "--width", "96", "--height", "96"]
+    run(["orbit", *small, "--frames", "2", "--out-dir",
+         str(out_dir / "orbit")])
+    run(["debug", *small, "--out-dir", str(out_dir / "debug")])
+    wanted = [out_dir / "orbit" / f"frame_{i:03d}.png" for i in range(2)] + [
+        out_dir / "debug" / f for f in (
+            "voxel_mip0.png", "occupancy.png", "light_volume.png",
+            "gbuffer_depth.png", "gbuffer_normal.png")]
+    missing = [str(p) for p in wanted if not p.exists()]
+    if missing:
+        fail(f"9: the CLI did not write {missing}")
+    h.say(f"path 9 took {time.perf_counter() - t9:.1f} s")
 
 
 def main() -> int:
@@ -2303,6 +2714,22 @@ def main() -> int:
         counters=counters, raycast_equal=raycast_equal,
         small_check=small_check), dev)
 
+    # ---- (c8) parallel/: preset multihost512 --------------------------
+    hp8 = types.SimpleNamespace(
+        say=say, expect=expect, maxerr=maxerr, reset_counts=reset_counts,
+        read_counts=read_counts, check_image=check_image, sync=sync,
+        counters=counters)
+    r8 = multihost_path(hp8, dev)
+
+    # ---- (c9) the CLI -------------------------------------------------
+    cli_path(hp8, pathlib.Path(__file__).resolve().parent / "chiprun_out"
+             / "cli")
+
+    say(f"path 8 on {card}: 8a build ms {r8['8a']['build_ms']:.3f}, frame "
+        f"ms {r8['8a']['frame_ms']:.3f}, prepare ms "
+        f"{r8['8a']['prepare_ms']:.3f}; 8b build ms per rank "
+        f"{[round(x, 3) for x in r8['8b']['build_ms']]}; 8c "
+        f"{r8['8c']['seconds']:.1f} s in each rank")
     say(f"frame ms medians on {card}: atrium "
         f"{statistics.median(atrium_ms['render_frame']):.3f}, atrium x4 "
         f"{statistics.median(atrium4_ms['render_frame']):.3f}, exact "

@@ -8,8 +8,10 @@ sponza256_exact_specular cut the same way on the atrium at 96x64,
 cornell64_full at 16^3 / 32x32 through the per-cone oracle renderer, and
 presets reference, its shadow map at 128^2, and aniso128 the same way at
 16^3 / 24x24),
-and takes one inverse-rendering step (vct_tpu_torch.diff, preset inverse
-at 16^3 / 16x16, on CPU tensors).  No source of the port or of
+takes one inverse-rendering step (vct_tpu_torch.diff, preset inverse
+at 16^3 / 16x16, on CPU tensors), and runs `python -m vct_tpu_torch
+render --cpu` at 16^3 (the CLI, with parallel/ and utils/ imported
+among every module).  No source of the port or of
 chip_smoke.py imports either.
 Also the ops' device rule and the entry points' default device, which
 need no card to check."""
@@ -26,6 +28,7 @@ from vct_tpu_torch.config import preset
 from vct_tpu_torch.core import camera as CAM
 from vct_tpu_torch.ops import (_build, binrast, material, mip, prepass,
                                raycast, specmarch, tap)
+from vct_tpu_torch.parallel import tile_dp
 from vct_tpu_torch.render import gbuffer as GB
 from vct_tpu_torch.render import renderer as R
 from vct_tpu_torch.render import voxelize as V
@@ -123,6 +126,16 @@ SCRIPT = textwrap.dedent("""
     assert state.step == 1 and len(history) == 1
     assert state.params["albedo"].device == cpu
     print("inverse step", state.step, history[0])
+    # the CLI: python -m vct_tpu_torch render --cpu at 16^3
+    import os, runpy, tempfile
+    from vct_tpu_torch.utils.image import read_png
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "cli.png")
+        sys.argv = ["vct_tpu_torch", "render", "--cpu", "--dim", "16",
+                    "--width", "32", "--height", "24", "--out", out]
+        runpy.run_module("vct_tpu_torch", run_name="__main__",
+                         alter_sys=True)
+        print("cli render", read_png(out).shape)
     assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
 """)
 
@@ -140,6 +153,7 @@ def test_imports_and_renders_without_jax():
     assert "rendered reference (24, 24, 3) " in res.stdout      # shadow map
     assert "rendered aniso128 (24, 24, 3) " in res.stdout       # aniso mips
     assert "inverse step 1 " in res.stdout                      # diff/
+    assert "cli render (24, 32, 3)" in res.stdout               # the CLI
 
 
 def _sources():
@@ -200,7 +214,7 @@ def test_entry_point_defaults_name_cuda():
     for fn in (R.prepare_scene, R.MaterialTable.from_scene,
                R.SamplesDevice.from_samples, R.light_direction,
                GB.DeviceScene.from_scene, CAM.primary_rays, R.render_image,
-               GB.raycast):
+               GB.raycast, tile_dp.dryrun_multichip):
         assert inspect.signature(fn).parameters["device"].default == \
             "cuda", fn.__qualname__
 

@@ -2,19 +2,27 @@
 
 The JAX package `vct_tpu` stays the reference.  This package imports
 nothing of it: it keeps its own copies of the host modules it needs
-(`config`, `scene.mesh`, `scene.cornell`, `scene.atrium`, tested equal
-to the JAX ones) and re-implements the rest in PyTorch, with hand-written
-CUDA kernels for the Pallas kernels on the ported path (`ops/csrc/`).
+(`config`, `scene.mesh`, `scene.cornell`, `scene.atrium`, `scene.obj`,
+`utils.image`, tested equal to the JAX ones) and re-implements the rest
+in PyTorch, with hand-written CUDA kernels for the Pallas kernels
+(`ops/csrc/`).
 
-Ported so far: the voxel build (`render.renderer.build_voxel_state`) and
-the fast frame path (`render.fast`) for scenes of up to 2**24 triangles
-(the whole-table raycast up to 2048 triangles, the binned raycast above),
-textured ones of up to 2**23 included (texture atlas, material fetch,
-alpha re-cast); larger scenes raise ValueError.
-Entry points put their tensors on the card unless given
-`device="cpu"`; every function then works on the device its tensors are
-on: on CUDA tensors the `ops` wrappers launch their kernels, on CPU
-tensors they run the plain PyTorch versions beside them.
+It does what the JAX package does: the voxel build
+(`render.renderer.build_voxel_state`), the fast frame path (`render.fast`)
+for scenes of up to 2**24 triangles (textured ones up to 2**23; larger
+ones raise ValueError) and its exact-specular mode, the per-cone oracle
+renderer (`render.renderer.render_rays`) with the shadow map and the
+anisotropic mips, inverse rendering (`diff`), the sharded build, camera
+pass and train step over a ('data', 'model') mesh of torch.distributed
+ranks (`parallel`), and the CLI (`python -m vct_tpu_torch`).  It leaves
+out the JAX package's native C++ library and its staged-jit splits.
+
+Entry points put their tensors on the card unless given `device="cpu"`
+(the CLI: `--cpu`), and raise where CUDA is missing; every function then
+works on the device its tensors are on: on CUDA tensors the `ops`
+wrappers launch their kernels, on CPU tensors they run the plain PyTorch
+versions beside them.  `diff.optimize(device=None)` takes its target's
+device.
 """
 
 import torch

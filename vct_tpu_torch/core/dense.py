@@ -86,7 +86,8 @@ def _direction_taps(direction: np.ndarray, schedule: M.MarchSchedule,
 def _take3(level: Tensor, idx: Tensor, w: Tensor,
            out_dtype: torch.dtype) -> Tensor:
     """Separable shifted resample of level (dl, dl, dl, C) -> float32
-    (df, df, df, C); idx/w (3, 2, df) from _direction_taps.  Each axis
+    (df, df, df, C); idx/w (3, 2, df) from _direction_taps, or per axis
+    (2, n_ax) each (a brick's x rows, parallel/brick.py).  Each axis
     reads `level.dtype` values and accumulates in float32; the
     intermediate between axes is rounded to `out_dtype`."""
     out = level
@@ -95,9 +96,9 @@ def _take3(level: Tensor, idx: Tensor, w: Tensor,
             out = out.to(out_dtype)
         shape = [1, 1, 1, 1]
         shape[ax] = -1
-        a = out.index_select(ax, idx[ax, 0]).float()
-        b = out.index_select(ax, idx[ax, 1]).float()
-        out = a * w[ax, 0].view(shape) + b * w[ax, 1].view(shape)
+        a = out.index_select(ax, idx[ax][0]).float()
+        b = out.index_select(ax, idx[ax][1]).float()
+        out = a * w[ax][0].view(shape) + b * w[ax][1].view(shape)
     return out
 
 
@@ -149,7 +150,6 @@ def directional_march_multi(
     cout = 1 if transmittance_only else 4
     out = torch.empty((df, df, df, nb * cout), dtype=torch.float32,
                       device=dev)
-    sf = schedule.step_factor
     dims = [m.shape[0] for m in mips]
 
     for b in range(nb):
@@ -165,52 +165,67 @@ def directional_march_multi(
                 return s
             return A.blend(s.reshape(s.shape[:-1] + (6, chans[lvl])), w6)
 
-        j = 0
-        t = torch.ones((df, df, df, 1), dtype=torch.float32, device=dev)
-        if not transmittance_only:
-            color = torch.zeros((df, df, df, 3), dtype=torch.float32,
-                                device=dev)
-            occ = torch.zeros((df, df, df, 1), dtype=torch.float32,
-                              device=dev)
-        for (l0, l1), steps in groups:
-            for k in steps:
-                s = take(l0, j)
-                j += 1
-                if l1 != l0:
-                    w = np.float32(plan[k][2])
-                    s1 = take(l1, j)
-                    j += 1
-                    s = s * float(np.float32(1.0) - w) + s1 * float(w)
-                a = s[..., -1:]
-                if opacity_gain != 1.0:
-                    a = torch.clamp_max(a * opacity_gain, 1.0)
-                keep = (1.0 - a) ** sf if sf != 1.0 else 1.0 - a
-                if transmittance_only:
-                    t = t * keep
-                    continue
-                rgb = s[..., :3]
-                if sf != 1.0:
-                    # optical-depth correction (march.composite): one
-                    # sample stands in for step_factor steps
-                    scale = torch.where(
-                        a > 1e-6, (1.0 - keep) / torch.clamp_min(a, 1e-6),
-                        sf)
-                    rgb = rgb * scale
-                    a = 1.0 - keep
-                atten = float(np.float32(
-                    1.0 + occlusion_falloff * schedule.diameters[k]))
-                # loop-top early-out (fs:94): stop once 1-T >= max_alpha
-                active = (1.0 - t) < max_alpha
-                wgt = torch.where(active, t, 0.0)
-                color = color + wgt * rgb
-                occ = occ + wgt * a / atten
-                t = torch.where(active, t * keep, t)
+        res = march_direction(take, plan, groups, schedule, (df, df, df),
+                              dev, max_alpha, occlusion_falloff,
+                              opacity_gain, transmittance_only)
         if transmittance_only:
-            out[..., b:b + 1] = t
+            out[..., b:b + 1] = res[0]
         else:
-            out[..., 4 * b:4 * b + 3] = color
-            out[..., 4 * b + 3:4 * b + 4] = occ
+            out[..., 4 * b:4 * b + 3] = res[0]
+            out[..., 4 * b + 3:4 * b + 4] = res[1]
     return out
+
+
+def march_direction(take, plan, groups, schedule: M.MarchSchedule, shape,
+                    dev, max_alpha: float, occlusion_falloff: float,
+                    opacity_gain: float, transmittance_only: bool):
+    """One direction's march over the schedule, front to back, from every
+    cell of a block of `shape`: take(lvl, j) is the j-th tap's resample
+    of level lvl over the block, float32 (*shape, C), the taps in
+    _direction_taps' order.  Returns (t,) transmittance (*shape, 1), or
+    (color (*shape, 3), occlusion (*shape, 1))."""
+    sf = schedule.step_factor
+    j = 0
+    t = torch.ones(shape + (1,), dtype=torch.float32, device=dev)
+    if not transmittance_only:
+        color = torch.zeros(shape + (3,), dtype=torch.float32, device=dev)
+        occ = torch.zeros(shape + (1,), dtype=torch.float32, device=dev)
+    for (l0, l1), steps in groups:
+        for k in steps:
+            s = take(l0, j)
+            j += 1
+            if l1 != l0:
+                w = np.float32(plan[k][2])
+                s1 = take(l1, j)
+                j += 1
+                s = s * float(np.float32(1.0) - w) + s1 * float(w)
+            a = s[..., -1:]
+            if opacity_gain != 1.0:
+                a = torch.clamp_max(a * opacity_gain, 1.0)
+            keep = (1.0 - a) ** sf if sf != 1.0 else 1.0 - a
+            if transmittance_only:
+                t = t * keep
+                continue
+            rgb = s[..., :3]
+            if sf != 1.0:
+                # optical-depth correction (march.composite): one
+                # sample stands in for step_factor steps
+                scale = torch.where(
+                    a > 1e-6, (1.0 - keep) / torch.clamp_min(a, 1e-6),
+                    sf)
+                rgb = rgb * scale
+                a = 1.0 - keep
+            atten = float(np.float32(
+                1.0 + occlusion_falloff * schedule.diameters[k]))
+            # loop-top early-out (fs:94): stop once 1-T >= max_alpha
+            active = (1.0 - t) < max_alpha
+            wgt = torch.where(active, t, 0.0)
+            color = color + wgt * rgb
+            occ = occ + wgt * a / atten
+            t = torch.where(active, t * keep, t)
+    if transmittance_only:
+        return (t,)
+    return color, occ
 
 
 def directional_march(mips: Sequence[Tensor], direction: Sequence[float],

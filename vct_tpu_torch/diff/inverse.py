@@ -111,10 +111,12 @@ def init_params(inv: InverseConfig, cfg: VCTConfig, mats: R.MaterialTable,
 
 
 def _apply_params(inv: InverseConfig, cfg: VCTConfig, params: Params,
-                  samples: R.SamplesDevice, mats: R.MaterialTable):
+                  samples: R.SamplesDevice, mats: R.MaterialTable,
+                  mesh=None):
     """Rebuild (mats, voxels) from the parameters, under autograd, so
     gradients flow through voxelization and the mip build (radiance mode
-    re-mips the grid)."""
+    re-mips the grid).  mesh: build_voxel_state's, for the sharded build
+    (parallel/tile_dp.py); radiance mode has no sharded build."""
     if "albedo" in params:
         mats = dataclasses.replace(mats, albedo=params["albedo"])
     if "textures" in params:
@@ -123,11 +125,13 @@ def _apply_params(inv: InverseConfig, cfg: VCTConfig, params: Params,
                                             albedo=params["textures"]))
     light_color = params.get("light")
     if "radiance" in params:
+        if mesh is not None:
+            raise ValueError("optimize='radiance' has no sharded build")
         voxels = voxel_state_from_radiance(
             cfg, params["radiance"], samples, mats, light_color=light_color)
     else:
         voxels = R.build_voxel_state(cfg, samples, mats,
-                                     light_color=light_color)
+                                     light_color=light_color, mesh=mesh)
     return mats, voxels
 
 
@@ -166,8 +170,9 @@ def voxel_state_from_radiance(
 
 
 def make_loss_fn(inv: InverseConfig, cfg: VCTConfig, ds,
-                 camera_position: Tensor) -> Callable:
-    """loss(params, samples, mats, origins, dirs, target) -> 0-d tensor."""
+                 camera_position: Tensor, mesh=None) -> Callable:
+    """loss(params, samples, mats, origins, dirs, target) -> 0-d tensor.
+    With a mesh the voxel build is build_voxel_state's sharded one."""
 
     from vct_tpu_torch.render import fast as F
     if inv.camera_pass == "fast":
@@ -184,7 +189,8 @@ def make_loss_fn(inv: InverseConfig, cfg: VCTConfig, ds,
                 f"camera_pass='xla'")
 
     def loss_fn(params, samples, mats, origins, dirs, target):
-        mats2, voxels = _apply_params(inv, cfg, params, samples, mats)
+        mats2, voxels = _apply_params(inv, cfg, params, samples, mats,
+                                      mesh)
         if inv.camera_pass == "fast":
             tables = F.build_frame_tables(cfg, voxels, mats2)
             img = F.render_frame(cfg, ds, tables, mats2, origins, dirs,

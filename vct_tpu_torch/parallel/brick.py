@@ -1,0 +1,182 @@
+"""Brick-sharded dense cone marching for 512^3+ grids (port of
+vct_tpu/parallel/brick.py).
+
+Every step of the direction-major dense march (core/dense.py) resamples
+a mip level at a constant world shift, separably per axis.  The field
+and the fine levels shard along x over the 'model' axis: the y and z
+resamples stay local, and the x resample of step k reads level rows
+[x_lo - shift_k, x_hi + shift_k], so each shard needs a static halo of
+h = ceil(max |dir_x| * dist_k / voxel_l) + 2 rows, fixed by the
+schedule.  Each rank receives h rows from each x neighbour once per
+level (parallel/comm.halo_pad_x), then marches its slab alone.  A level
+whose halo would not fit its shard (small grids, coarse levels) is read
+whole.
+
+The march is dense.march_direction on the rank's x-slab, with the x taps
+sliced to the slab's rows and rebased into the halo block; the y and z
+taps and the composite are the unsharded march's, so each cell gets the
+same arithmetic.  Like the JAX package, the sharded march runs in the
+pyramid's dtype and ignores grid.compute.  Gradients flow through the
+exchange (its backward returns the halo rows' gradients to their
+owners).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from vct_tpu_torch.core import aniso as A
+from vct_tpu_torch.core import dense as D
+from vct_tpu_torch.core import march as M
+from vct_tpu_torch.parallel import comm
+
+Tensor = torch.Tensor
+
+
+def _halo_for_level(dirs: np.ndarray, dists, steps, dl: int,
+                    world_size: float) -> int:
+    """Static x-halo (level rows) for the steps touching one level."""
+    voxel = world_size / dl
+    m = 0.0
+    for k in steps:
+        m = max(m, float(np.max(np.abs(dirs[:, 0]))) * dists[k] / voxel)
+    return int(np.ceil(m)) + 2
+
+
+def shard_plan(dirs: np.ndarray, schedule: M.MarchSchedule, dims,
+               world_size: float, n: int, min_shard_rows: int = 8):
+    """(halos, sharded) per level, as dicts: the x-halo a level needs and
+    whether it shards over n ranks (dl % n == 0 and dl // n >= max(
+    min_shard_rows, h + 1)); levels no step touches stay whole."""
+    plan, _ = D.plan_groups(schedule.lods, len(dims))
+    touch = {}
+    for k, (l0, l1, w) in enumerate(plan):
+        touch.setdefault(l0, []).append(k)
+        if w > 0.0 and l1 != l0:
+            touch.setdefault(l1, []).append(k)
+    halos, sharded = {}, {}
+    for lvl, dl in enumerate(dims):
+        ok = False
+        if lvl in touch:
+            h = _halo_for_level(dirs, schedule.dists, touch[lvl], dl,
+                                world_size)
+            ok = dl % n == 0 and dl // n >= max(min_shard_rows, h + 1)
+        halos[lvl] = h if ok else 0
+        sharded[lvl] = ok
+    return halos, sharded
+
+
+def sharded_directional_march_multi(
+    mips: Sequence[Tensor],
+    directions,                          # (B, 3) unit world directions
+    schedule: M.MarchSchedule,
+    world_size: float,
+    mesh,
+    axis_name: str = "model",
+    field_dim: Optional[int] = None,
+    max_alpha: float = 0.95,
+    occlusion_falloff: float = 0.03,
+    opacity_gain: float = 1.0,
+    transmittance_only: bool = False,
+    min_shard_rows: int = 8,
+) -> Tensor:
+    """dense.directional_march_multi with the field and the fine levels
+    sharded along x over `axis_name`: every rank passes the whole
+    pyramid and gets its x-slab of the result, (df // n, df, df, B*4), or
+    (..., B) when transmittance_only (parallel/comm.gather_x makes it
+    whole).  Anisotropic stacks are not sharded."""
+    if any(A.is_aniso_level(m) for m in mips[1:]):
+        raise NotImplementedError("brick sharding is isotropic-only for now")
+    ax = comm.axis(mesh, axis_name)
+    n, row0 = ax.size, ax.index
+    df = field_dim or mips[0].shape[0]
+    dev, dtype = mips[0].device, mips[0].dtype
+    dirs = np.asarray(directions, np.float64)
+    if dirs.ndim == 1:
+        dirs = dirs[None]
+    nb = dirs.shape[0]
+    if df % n:
+        raise ValueError(f"field_dim {df} not divisible by {n} shards")
+    ldf = df // n
+    if transmittance_only:
+        mips = [m[..., -1:] for m in mips]
+    dims = [m.shape[0] for m in mips]
+    plan, groups = D.plan_groups(schedule.lods, len(mips))
+    halos, sharded = shard_plan(dirs, schedule, dims, world_size, n,
+                                min_shard_rows)
+
+    # halo-pad each sharded level's slab once, up front
+    blocks = []
+    for lvl, m in enumerate(mips):
+        if sharded[lvl]:
+            rows = dims[lvl] // n
+            blocks.append(comm.halo_pad_x(m[row0 * rows:(row0 + 1) * rows],
+                                          halos[lvl], ax))
+        else:
+            blocks.append(m)
+    # the level each tap reads, in _direction_taps' order
+    tap_levels = [lvl for (l0, l1), steps in groups for _ in steps
+                  for lvl in ((l0, l1) if l1 != l0 else (l0,))]
+    xs = slice(row0 * ldf, (row0 + 1) * ldf)
+
+    cout = 1 if transmittance_only else 4
+    out = torch.empty((ldf, df, df, nb * cout), dtype=torch.float32,
+                      device=dev)
+    for b in range(nb):
+        idx, wts = D._direction_taps(dirs[b], schedule, plan, groups, dims,
+                                     df, world_size, dtype, dev)
+        taps = []
+        for j, lvl in enumerate(tap_levels):
+            ix = idx[j, 0, :, xs]
+            if sharded[lvl]:     # rebase the slab's rows into the block
+                base = row0 * (dims[lvl] // n) - halos[lvl]
+                ix = torch.clamp(ix - base, 0, blocks[lvl].shape[0] - 1)
+            taps.append(((ix, idx[j, 1], idx[j, 2]),
+                         (wts[j, 0, :, xs], wts[j, 1], wts[j, 2])))
+
+        def take(lvl, j):
+            return D._take3(blocks[lvl], taps[j][0], taps[j][1], dtype)
+
+        res = D.march_direction(take, plan, groups, schedule,
+                                (ldf, df, df), dev, max_alpha,
+                                occlusion_falloff, opacity_gain,
+                                transmittance_only)
+        if transmittance_only:
+            out[..., b:b + 1] = res[0]
+        else:
+            out[..., 4 * b:4 * b + 3] = res[0]
+            out[..., 4 * b + 3:4 * b + 4] = res[1]
+    return out
+
+
+def sharded_directional_march(mips: Sequence[Tensor], direction,
+                              schedule: M.MarchSchedule, world_size: float,
+                              mesh, **kw) -> Tensor:
+    """Single-direction brick-sharded march (see multi)."""
+    return sharded_directional_march_multi(
+        mips, np.asarray(direction, np.float64)[None], schedule, world_size,
+        mesh, **kw)
+
+
+def shard_mips(mesh, mips: Sequence[Tensor], n_min_rows: int = 8,
+               axis_name: str = "model"):
+    """Each fine level's x-slab on this rank (dl % n == 0 and dl // n >=
+    n_min_rows), coarse levels whole."""
+    ax = comm.axis(mesh, axis_name)
+    out = []
+    for m in mips:
+        dl = m.shape[0]
+        rows = dl // ax.size
+        if dl % ax.size == 0 and rows >= n_min_rows:
+            out.append(m[ax.index * rows:(ax.index + 1) * rows])
+        else:
+            out.append(m)
+    return tuple(out)
+
+
+def gather_x(slab: Tensor, mesh, axis_name: str = "model") -> Tensor:
+    """The whole volume on every rank from the ranks' x-slabs."""
+    return comm.gather_x(slab, comm.axis(mesh, axis_name))

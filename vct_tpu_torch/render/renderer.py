@@ -143,7 +143,7 @@ def light_direction(cfg: VCTConfig, device="cuda") -> Tensor:
 
 
 def sample_indirect_diffuse(cfg: VCTConfig, radiance_mips,
-                            positions: Tensor, normals: Tensor
+                            positions: Tensor, normals: Tensor, mesh=None
                             ) -> Tuple[Tensor, Tensor]:
     """The K-cone indirect-diffuse gather at surface points through the
     current radiance pyramid, for bounces past the reference's two
@@ -153,7 +153,8 @@ def sample_indirect_diffuse(cfg: VCTConfig, radiance_mips,
     cone_dirs = shading.pixel_cone_dirs(cfg, normals, t, bt)
     if cfg.cones.diffuse_mode == "field":
         field = shading.build_cone_field(cfg, radiance_mips,
-                                         shading.diffuse_schedule(cfg))
+                                         shading.diffuse_schedule(cfg),
+                                         mesh=mesh)
         return shading.indirect_diffuse_field(cfg, field, positions,
                                               normals, cone_dirs)
     return shading.indirect_diffuse_percone(cfg, radiance_mips, positions,
@@ -162,15 +163,18 @@ def sample_indirect_diffuse(cfg: VCTConfig, radiance_mips,
 
 def _inject_bounce(cfg: VCTConfig, samples: SamplesDevice,
                    albedo_rgb: Tensor, direct_radiance: Tensor,
-                   weights: Tensor, radiance_mips) -> Tuple[Tensor, ...]:
+                   weights: Tensor, radiance_mips, mesh=None,
+                   reduce=None) -> Tuple[Tensor, ...]:
     """One extra GI bounce: gather indirect at every surface sample, add
     the Lambertian re-emission albedo * occlusion * indirect (fs:205 at
-    the voxel sample), re-splat and rebuild the mips."""
+    the voxel sample), re-splat and rebuild the mips.  reduce: the
+    sharded build's partial-grid reduce (voxelize.splat)."""
     ind_rgb, ind_occ = sample_indirect_diffuse(
-        cfg, radiance_mips, samples.positions, samples.normals)
+        cfg, radiance_mips, samples.positions, samples.normals, mesh=mesh)
     bounce = albedo_rgb * (1.0 - ind_occ)[:, None] * ind_rgb
     lit = splat(samples.positions, direct_radiance + bounce, weights,
-                cfg.grid.dim, cfg.grid.world_size, mode=cfg.voxelize.mode)
+                cfg.grid.dim, cfg.grid.world_size, mode=cfg.voxelize.mode,
+                reduce=reduce)
     return _radiance_mips(cfg, lit)
 
 
@@ -187,7 +191,8 @@ def _radiance_mips(cfg: VCTConfig, lit: Tensor) -> Tuple[Tensor, ...]:
 
 def build_voxel_state(cfg: VCTConfig, samples: SamplesDevice,
                       mats: MaterialTable,
-                      light_color: Optional[Tensor] = None) -> VoxelState:
+                      light_color: Optional[Tensor] = None,
+                      mesh=None) -> VoxelState:
     """Voxelization + radiance injection + mip build + fields.
 
     Shadows come from the dense light volume (shadow mode "volume"), a
@@ -196,8 +201,21 @@ def build_voxel_state(cfg: VCTConfig, samples: SamplesDevice,
     reference's voxelize pass does, Voxelization.fs:46).  light_color (3,)
     replaces cfg.light.color in the radiance injection (the inverse loop's
     "light" parameter).  light.gi_bounces > 2 re-gathers and re-injects
-    once per extra bounce."""
+    once per extra bounce.
+
+    With cfg.sharding.brick_parallel > 1 pass the ('data', 'model') mesh
+    (parallel/mesh.py), on every rank with the whole sample set: each
+    rank splats its share of the samples over 'model' and the partial
+    grids (and the shadow map) are reduced over it before the finish,
+    and the dense marches run brick-sharded along x; every rank returns
+    the whole state."""
     dim, ws = cfg.grid.dim, cfg.grid.world_size
+    reduce = None
+    if shading._use_brick_sharding(cfg, mesh):
+        from vct_tpu_torch.parallel import comm
+        from vct_tpu_torch.parallel.mesh import local_samples
+        samples = local_samples(samples, mesh, cfg.sharding.model_axis)
+        reduce = comm.reducer(comm.axis(mesh, cfg.sharding.model_axis))
     dev = samples.positions.device
     if light_color is None:
         light_color = G.constant(cfg.light.color, dev)
@@ -207,7 +225,7 @@ def build_voxel_state(cfg: VCTConfig, samples: SamplesDevice,
                          device=dev)
 
     unlit = splat(samples.positions, albedo[:, :3], weights, dim, ws,
-                  mode=cfg.voxelize.mode)
+                  mode=cfg.voxelize.mode, reduce=reduce)
     mark("albedo_splat")
     # conservative (max-alpha) mips: shadow cones must not leak through
     # thin occluders diluted by mean reduction
@@ -216,13 +234,16 @@ def build_voxel_state(cfg: VCTConfig, samples: SamplesDevice,
 
     light_volume = shadow_map = None
     if cfg.shadow.mode == "volume":
-        light_volume = shading.build_light_volume(cfg, unlit_mips)
+        light_volume = shading.build_light_volume(cfg, unlit_mips,
+                                                  mesh=mesh)
         mark("light_volume")
         shadow = shading.shadow_volume_tap_packed(
             cfg, shading.pack_light_corners(light_volume), dim,
             samples.positions, samples.normals)
     elif cfg.shadow.mode == "map":
         shadow_map = SM.build_shadow_map(cfg, samples.positions)
+        if reduce is not None:     # a min is exact in any order
+            shadow_map = reduce(shadow_map, "min")
         mark("shadow_map")
         shadow = SM.pcf_shadow(cfg, shadow_map, samples.positions,
                                normalization="voxelize")
@@ -233,23 +254,25 @@ def build_voxel_state(cfg: VCTConfig, samples: SamplesDevice,
         mark("shadow_cones")
     radiance = albedo[:, :3] * light_color * shadow[:, None] + emissive
     lit = splat(samples.positions, radiance, weights, dim, ws,
-                mode=cfg.voxelize.mode)
+                mode=cfg.voxelize.mode, reduce=reduce)
     mark("shadow_and_radiance_splat")
     radiance_mips = _radiance_mips(cfg, lit)
     mark("radiance_mips")
     for _ in range(max(0, cfg.light.gi_bounces - 2)):
         radiance_mips = _inject_bounce(cfg, samples, albedo[:, :3], radiance,
-                                       weights, radiance_mips)
+                                       weights, radiance_mips, mesh=mesh,
+                                       reduce=reduce)
         mark("bounce")
 
     diffuse_field = specular_field = None
     if cfg.cones.diffuse_mode == "field":
         diffuse_field = shading.build_cone_field(
-            cfg, radiance_mips, shading.diffuse_schedule(cfg))
+            cfg, radiance_mips, shading.diffuse_schedule(cfg), mesh=mesh)
         mark("diffuse_field")
     if cfg.cones.trace_specular and cfg.cones.specular_mode == "field":
         specular_field = shading.build_cone_field(
-            cfg, radiance_mips, shading.specular_field_schedule(cfg))
+            cfg, radiance_mips, shading.specular_field_schedule(cfg),
+            mesh=mesh)
         mark("specular_field")
     return VoxelState(radiance_mips=radiance_mips, unlit_mips=unlit_mips,
                       light_volume=light_volume, diffuse_field=diffuse_field,

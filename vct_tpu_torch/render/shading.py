@@ -1,7 +1,6 @@
 """Schedules, the shadow providers, the dense light volume and cone
 fields, the per-pixel indirect providers and the combine of
-VoxelConeTracing.fs:165-228 (port of vct_tpu/render/shading.py, without
-the brick-sharded branches).
+VoxelConeTracing.fs:165-228 (port of vct_tpu/render/shading.py).
 
 The per-pixel providers serve the per-cone oracle renderer
 (renderer.render_rays) and the build's extra GI bounces: "percone" ones
@@ -78,13 +77,45 @@ def march_compute_dtype(cfg: VCTConfig):
 # light volume + shadow taps
 # ---------------------------------------------------------------------------
 
-def build_light_volume(cfg: VCTConfig, unlit_mips, light_dir=None) -> Tensor:
+def _use_brick_sharding(cfg: VCTConfig, mesh) -> bool:
+    """Route the dense marches through parallel/brick.py?  Requires a mesh
+    with a populated model axis; anisotropic stacks stay local (brick.py
+    is isotropic-only for now)."""
+    if mesh is None or cfg.sharding.brick_parallel <= 1:
+        return False
+    if cfg.grid.anisotropic:
+        raise NotImplementedError(
+            "brick_parallel > 1 with anisotropic mips is not supported; "
+            "set grid.anisotropic=False or brick_parallel=1")
+    from vct_tpu_torch.parallel.mesh import axis_size
+    n = axis_size(mesh, cfg.sharding.model_axis)
+    if n != cfg.sharding.brick_parallel:
+        raise ValueError(
+            f"mesh '{cfg.sharding.model_axis}' axis is {n}, config asks "
+            f"brick_parallel={cfg.sharding.brick_parallel}")
+    return True
+
+
+def build_light_volume(cfg: VCTConfig, unlit_mips, light_dir=None,
+                       mesh=None) -> Tensor:
     """Dense light-transmittance volume (D, D, D, 1): the shadow cone
-    toward the (static) config light from every voxel center."""
+    toward the (static) config light from every voxel center.
+
+    With cfg.sharding.brick_parallel > 1 and a mesh, the march runs
+    brick-sharded along x over the model axis (parallel/brick.py, in the
+    pyramid's dtype, as in the JAX package) and the slabs are gathered,
+    so every rank returns the whole volume."""
     if light_dir is None:
         light_dir = cfg.light.direction
     d = np.asarray(light_dir, np.float64)
     d = d / np.linalg.norm(d)
+    if _use_brick_sharding(cfg, mesh):
+        from vct_tpu_torch.parallel import brick
+        slab = brick.sharded_directional_march(
+            unlit_mips, d, shadow_schedule(cfg), cfg.grid.world_size, mesh,
+            axis_name=cfg.sharding.model_axis, field_dim=cfg.grid.dim,
+            opacity_gain=cfg.shadow.opacity_gain, transmittance_only=True)
+        return brick.gather_x(slab, mesh, cfg.sharding.model_axis)
     return D.directional_march(
         unlit_mips, d, shadow_schedule(cfg), cfg.grid.world_size,
         field_dim=cfg.grid.dim, opacity_gain=cfg.shadow.opacity_gain,
@@ -166,10 +197,22 @@ def shadow_volume_tap_packed(cfg: VCTConfig, packed: Tensor, dim: int,
 # cone fields
 # ---------------------------------------------------------------------------
 
-def build_cone_field(cfg: VCTConfig, mips, schedule: M.MarchSchedule
-                     ) -> Tensor:
+def build_cone_field(cfg: VCTConfig, mips, schedule: M.MarchSchedule,
+                     mesh=None) -> Tensor:
     """Cone-gather fields for the direction basis, stacked channelwise:
-    (df, df, df, B*4) with per-direction (rgb, occlusion)."""
+    (df, df, df, B*4) with per-direction (rgb, occlusion).
+
+    With cfg.sharding.brick_parallel > 1 and a mesh, the marches run
+    brick-sharded along x (parallel/brick.py) and every rank returns the
+    whole field."""
+    if _use_brick_sharding(cfg, mesh):
+        from vct_tpu_torch.parallel import brick
+        slab = brick.sharded_directional_march_multi(
+            mips, D.direction_basis(cfg.cones.field_basis), schedule,
+            cfg.grid.world_size, mesh, axis_name=cfg.sharding.model_axis,
+            field_dim=field_dim(cfg), max_alpha=cfg.cones.max_alpha,
+            occlusion_falloff=cfg.cones.occlusion_falloff)
+        return brick.gather_x(slab, mesh, cfg.sharding.model_axis)
     return D.directional_march_multi(
         mips, D.direction_basis(cfg.cones.field_basis), schedule,
         cfg.grid.world_size, field_dim=field_dim(cfg),

@@ -11,6 +11,7 @@ never float atomics, so two builds give bit-identical grids.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -92,18 +93,20 @@ def generate_surface_samples(
     )
 
 
-def splat(
+def splat_partials(
     positions: Tensor,         # (S, 3) world
     values: Tensor,            # (S, C) per-sample radiance/albedo
     weights: Tensor,           # (S,) sample weights (0 drops a sample)
     dim: int,
     world_size: float,
     mode: str = "mean",
-) -> Tensor:
-    """Scatter samples into a (dim, dim, dim, C+1) grid; alpha = occupancy.
-
-    mode="mean": color = sum(w*value)/sum(w) (Voxelization.fs:88's store,
-    made deterministic); mode="max": per-channel max."""
+):
+    """The per-cell partials of splat over these samples: (color (dim^3,
+    C), wsum (dim^3,)), where color is sum(w*value) (mode "mean") or the
+    per-channel max of the weighted-in values clamped at 0 ("max").  The
+    partials of two sample sets combine by a sum (wsum, and color in mode
+    "mean") or a max (color in mode "max"); samples outside the grid (a
+    padded shard's, at 1e6) are dropped."""
     if mode not in ("mean", "max"):
         raise ValueError(f"unknown splat mode {mode!r}")
     idx = torch.floor(world_to_uvw(positions, world_size) * dim).long()
@@ -127,10 +130,43 @@ def splat(
     color = torch.zeros((n, c), dtype=values.dtype, device=values.device)
     if mode == "mean":
         color[cells] = segments(w[:, None] * values, "sum")
-        color = color / torch.clamp_min(wsum[:, None], 1e-8)
     else:
         picked = torch.where(w[:, None] > 0, values, 0.0)
         color[cells] = torch.clamp_min(segments(picked, "max"), 0.0)
-    alpha = (wsum > 0).to(values.dtype)
+    return color, wsum
+
+
+def splat_finish(color: Tensor, wsum: Tensor, dim: int,
+                 mode: str = "mean") -> Tensor:
+    """Partials -> the (dim, dim, dim, C+1) grid: the mean (or the max)
+    in rgb, alpha = occupancy."""
+    if mode == "mean":
+        color = color / torch.clamp_min(wsum[:, None], 1e-8)
+    alpha = (wsum > 0).to(color.dtype)
     out = torch.cat([color, alpha[:, None]], dim=-1)
-    return out.reshape(dim, dim, dim, c + 1)
+    return out.reshape(dim, dim, dim, color.shape[-1] + 1)
+
+
+def splat(
+    positions: Tensor,         # (S, 3) world
+    values: Tensor,            # (S, C) per-sample radiance/albedo
+    weights: Tensor,           # (S,) sample weights (0 drops a sample)
+    dim: int,
+    world_size: float,
+    mode: str = "mean",
+    reduce: Optional[Callable] = None,
+) -> Tensor:
+    """Scatter samples into a (dim, dim, dim, C+1) grid; alpha = occupancy.
+
+    mode="mean": color = sum(w*value)/sum(w) (Voxelization.fs:88's store,
+    made deterministic); mode="max": per-channel max.
+
+    reduce(x, op) combines the partials of every shard of a sharded
+    sample set (op "sum" or "max", parallel/comm.reducer) before the
+    finish; None splats these samples alone."""
+    color, wsum = splat_partials(positions, values, weights, dim,
+                                 world_size, mode)
+    if reduce is not None:
+        color = reduce(color, "sum" if mode == "mean" else "max")
+        wsum = reduce(wsum, "sum")
+    return splat_finish(color, wsum, dim, mode)
