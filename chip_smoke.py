@@ -89,10 +89,10 @@ Phases, each reported on its own lines:
            whole 4 x 2 mesh, 8 ranks on the card at 128^3, the
            tile-sharded camera pass (0 torch.distributed calls counted),
            its gathered image against one rank's (test_parallel.py's
-           bounds), and dryrun_multichip(8) with 3 falling losses; the
-           ranks share the card, so their process group is gloo and
-           collectives stage through the host (a probe first records
-           which gloo calls take CUDA tensors);
+           bounds), mip 14 a rank in the build, and dryrun_multichip(8)
+           with 3 falling losses and its mip and mip_bwd launches
+           counted; the ranks share the card, so their process group is
+           gloo and collectives stage through the host;
         9. the CLI, `python -m vct_tpu_torch` as subprocesses: render
            under sponza256 on the atrium at 1920x1080 (the fast path's
            kernels counted in the subprocess), orbit and debug at 32^3 /
@@ -1167,7 +1167,8 @@ LIGHT_TOL = (1e-4, 1e-5)      # (rtol, atol)
 RADIANCE_TOL = (1e-5, 1e-6)
 IMAGE_TOL = (2e-4, 2e-5)
 DIM_8C = 128                  # 8c's grid: eight ranks' builds on one card
-PROBE_S = 45                  # the gloo probe's time limit
+DRYRUN_STEPS = 3              # 8c's dryrun_multichip(8) train steps
+DRYRUN_LEVELS = 4             # its 16^3 pyramid's downsamples (16 -> 1)
 CLI_S = 600                   # a CLI subprocess's time limit
 
 
@@ -1204,45 +1205,6 @@ def rank_device(dev_type: str) -> torch.device:
 def rank_sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
-
-
-def probe_gloo(dev_type: str) -> dict:
-    """Which gloo calls take this device's tensors as they are (2 ranks):
-    each call once on a small tensor; a refusal is recorded, not raised."""
-    import torch.distributed as dist
-    dev = rank_device(dev_type)
-    rank, world = dist.get_rank(), dist.get_world_size()
-    x = torch.full((4,), float(rank + 1), device=dev)
-
-    def send_recv():
-        if rank == 0:
-            dist.send(x, dst=1)
-        else:
-            y = torch.empty_like(x)
-            dist.recv(y, src=0)
-
-    calls = {
-        "all_reduce": lambda: dist.all_reduce(x.clone()),
-        "broadcast": lambda: dist.broadcast(x.clone(), src=0),
-        "all_gather": lambda: dist.all_gather(
-            [torch.empty_like(x) for _ in range(world)], x),
-        "gather": lambda: dist.gather(
-            x, [torch.empty_like(x) for _ in range(world)] if rank == 0
-            else None, dst=0),
-        "send_recv": send_recv}
-    out = {}
-    for name, call in calls.items():       # the riskiest (p2p) last
-        try:
-            call()
-            rank_sync(dev)
-            out[name] = "takes them"
-        except (RuntimeError, ValueError) as e:
-            out[name] = "refuses: " + str(e).splitlines()[0][:100]
-        # each outcome at once: a call that hangs or kills its rank
-        # leaves the ones before it on record
-        say(f"gloo probe rank {rank}: {name} {out[name]}")
-        dist.barrier()
-    return out
 
 
 def rank_8b(dev_type: str, dim: int, width: int, height: int) -> dict:
@@ -1323,6 +1285,7 @@ def rank_8c(dev_type: str, dim: int, width: int, height: int) -> dict:
     rank_sync(dev)
     build_ms = (time.perf_counter() - t0) * 1e3
     staged, mips = comm.STAGED_BYTES, mip.LAUNCHES
+    levels = len(state.radiance_mips) - 1
     camera = tile_dp.shardmap_camera_fn(cfg, ds, mesh, chunk_size=CHUNK)
     t0 = time.perf_counter()
     with comm.count_calls() as calls:
@@ -1333,7 +1296,7 @@ def rank_8c(dev_type: str, dim: int, width: int, height: int) -> dict:
     out = dict(rank=rank, coord=(mesh.get_local_rank("data"),
                                  mesh.get_local_rank("model")),
                build_ms=build_ms, staged_bytes=staged, mip=mips,
-               camera_ms=camera_ms, camera_calls=dict(calls),
+               levels=levels, camera_ms=camera_ms, camera_calls=dict(calls),
                rows=tuple(rows.shape))
     del state, rows
     if rank == 0:
@@ -1344,7 +1307,12 @@ def rank_8c(dev_type: str, dim: int, width: int, height: int) -> dict:
         out["image"].update(shape=tuple(img.shape), finite=bool(
             torch.isfinite(img).all()), mean=float(img.mean()))
     del img
-    out["dryrun"] = tile_dp.dryrun_multichip(8, steps=3, device=dev)
+    rank_sync(dev)
+    mip.LAUNCHES, mip.BWD_LAUNCHES = 0, 0
+    out["dryrun"] = tile_dp.dryrun_multichip(8, steps=DRYRUN_STEPS,
+                                             device=dev)
+    rank_sync(dev)
+    out["dryrun_mip"] = (mip.LAUNCHES, mip.BWD_LAUNCHES)
     out["seconds"] = time.perf_counter() - t_path
     return out
 
@@ -1404,14 +1372,6 @@ def multihost_path(h, dev, dim_a=512, dim_c=DIM_8C, size=(WIDTH, HEIGHT)):
     torch.cuda.empty_cache()
 
     # ---- 8b: the model axis, 2 ranks, the whole 512^3 build -------------
-    try:
-        probe = ML.spawn(probe_gloo, 2, dev.type, timeout=PROBE_S)[0]
-    except (TimeoutError, torch.multiprocessing.ProcessExitedException,
-            torch.multiprocessing.ProcessRaisedException) as e:
-        probe = {"unfinished": f"{type(e).__name__}: {e} (the calls "
-                 f"before it are on the probe's lines above)"}
-    h.say("gloo on this card's tensors (2 ranks, one call each): "
-          + json.dumps(probe))
     t0 = time.perf_counter()
     ranks = ML.spawn(rank_8b, 2, dev.type, dim_a, width, height)
     r0 = ranks[0]
@@ -1452,11 +1412,23 @@ def multihost_path(h, dev, dim_a=512, dim_c=DIM_8C, size=(WIDTH, HEIGHT)):
           f"{[r['camera_calls'] for r in ranks]}")
     h.say("8c image gathered on rank 0 against one rank's build and render: "
           + json.dumps(r0["image"]) + f" (rtol/atol {IMAGE_TOL})")
-    h.say("8c dryrun_multichip(8), 3 steps: " + json.dumps(
+    h.say(f"8c dryrun_multichip(8), {DRYRUN_STEPS} steps: " + json.dumps(
         {k: r0["dryrun"][k] for k in ("mesh", "losses", "image_mean")})
-        + f"; path 8c {time.perf_counter() - t0:.1f} s")
+        + f", mip and mip_bwd launches per rank "
+        f"{[r['dryrun_mip'] for r in ranks]}; path 8c "
+        f"{time.perf_counter() - t0:.1f} s")
     if any(r["camera_calls"] for r in ranks):
         fail("8c: the camera pass made torch.distributed calls")
+    if any(r["mip"] != 2 * r["levels"] for r in ranks):
+        fail("8c: a rank did not launch the mip kernel once a level for "
+             "both pyramids")
+    # each step builds both pyramids and differentiates the radiance
+    # one; the field build after the steps builds both again
+    dry = (2 * DRYRUN_LEVELS * (DRYRUN_STEPS + 1),
+           DRYRUN_LEVELS * DRYRUN_STEPS)
+    if any(tuple(r["dryrun_mip"]) != dry for r in ranks):
+        fail(f"8c: dryrun_multichip(8)'s mip and mip_bwd launches "
+             f"{[r['dryrun_mip'] for r in ranks]}, expected {dry} a rank")
     if r0["image"]["shape"] != (height, width, 3) or not (
             r0["image"]["finite"] and r0["image"]["within"]):
         fail("8c: the gathered image disagrees with one rank's render")

@@ -71,6 +71,13 @@ def mesh_cases():
             cases[name] = None
         except ValueError as e:
             cases[name] = str(e)
+    axis = comm.whole(whole)
+    cases["whole_axis"] = (axis.index, axis.size, axis.ranks)
+    try:
+        comm.whole(ML.make_mesh(1, 2, device_type="cpu"))
+        cases["partial_axis"] = None
+    except ValueError as e:
+        cases["partial_axis"] = str(e)
     return cases
 
 
@@ -147,6 +154,15 @@ def test_mesh_shapes_and_errors(ranks):
         # of one data row are neighbours
         assert rank["layout"] == [[0, 1], [2, 3]]
         assert rank["coord"] == divmod(r, 2)
+
+
+def test_whole_mesh_axis(ranks):
+    # the train step's one reduce over every rank of the mesh, which
+    # must hold the whole world
+    for r, rank in enumerate(ranks):
+        assert rank["cases"]["whole_axis"] == (r, 4, (0, 1, 2, 3))
+        assert "a mesh of 2 ranks in a world of 4" in \
+            rank["cases"]["partial_axis"]
 
 
 def old_splat(positions, values, weights, dim, world_size, mode="mean"):

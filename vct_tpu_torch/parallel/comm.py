@@ -10,7 +10,8 @@ they are.  NCCL refuses two ranks on one card, so the ranks of a
 one-card machine run on gloo, which serves CPU tensors: on an H100 with
 PyTorch 2.11, gloo took CUDA tensors for all_reduce, broadcast,
 all_gather and gather, but a send of one killed the sending rank
-(chip_smoke.py's probe).  So on a gloo group every collective on a CUDA
+("writev: Bad address"; PERF.md, Findings).  So on a gloo group every
+collective on a CUDA
 tensor copies it to a host buffer, runs there and copies the result
 back, the same way for every call, and STAGED_BYTES counts those bytes
 (both ways).  The computation stays on the card: only the collective's
@@ -66,6 +67,17 @@ def axis(mesh, name: str) -> Axis:
     return Axis(group=group, index=mesh.get_local_rank(name),
                 size=dist.get_world_size(group),
                 ranks=tuple(dist.get_process_group_ranks(group)))
+
+
+def whole(mesh) -> Axis:
+    """The whole mesh as one axis, over the default group: the mesh must
+    hold every rank of the world."""
+    world = dist.get_world_size()
+    if mesh.mesh.numel() != world:
+        raise ValueError(f"a mesh of {mesh.mesh.numel()} ranks in a world "
+                         f"of {world}")
+    return Axis(group=dist.group.WORLD, index=dist.get_rank(), size=world,
+                ranks=tuple(range(world)))
 
 
 @contextlib.contextmanager

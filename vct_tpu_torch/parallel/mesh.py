@@ -10,7 +10,9 @@ package lays out devices: rank = d * n_model + m, so the model ranks of
 one data row are neighbours.  JAX's shardings (`replicated`,
 `rays_sharding`, `samples_sharding`) have no PyTorch counterpart: each
 rank holds whole tensors, and `local_rows` and `local_samples` give it
-its block.  `spawn` starts the ranks of one host (tests, chip_smoke).
+its block.  `spawn` starts the ranks of one host on a gloo group (tests,
+chip_smoke); runs across cards join through `init_distributed` under
+torchrun.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "model")
+SPAWN_TIMEOUT_S = 600.0        # spawn raises when a rank runs longer
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
@@ -116,11 +119,11 @@ def local_samples(samples, mesh, axis_name: str = "model"):
         for f in dataclasses.fields(samples)})
 
 
-def _rank_main(rank, fn, world, backend, init_method, results, args):
+def _rank_main(rank, fn, world, init_method, results, args):
     torch.set_num_threads(1)
     if torch.cuda.is_available():
         torch.cuda.set_device(rank % torch.cuda.device_count())
-    dist.init_process_group(backend, init_method=init_method,
+    dist.init_process_group("gloo", init_method=init_method,
                             world_size=world, rank=rank)
     # bytes, not tensors: the queue's own pickler would pass tensors as
     # shared memory that dies with this process.  A rank that raises exits
@@ -130,24 +133,25 @@ def _rank_main(rank, fn, world, backend, init_method, results, args):
     dist.destroy_process_group()
 
 
-def spawn(fn, world: int, *args, backend: str = "gloo",
-          timeout: float = 600.0) -> list:
-    """Run fn(*args) in `world` fresh processes joined in one process
-    group (`backend`, rendezvous through a file in a temporary
-    directory), each rank on one torch thread and, where there is a card,
-    on cuda:(rank % cards); returns each rank's result, in rank order.
-    fn must be importable (a module-level function) and its result
-    picklable.  A rank that raises makes spawn raise; every process is
-    ended before spawn returns."""
+def spawn(fn, world: int, *args) -> list:
+    """Run fn(*args) in `world` fresh processes joined in one gloo process
+    group (rendezvous through a file in a temporary directory), each rank
+    on one torch thread and, where there is a card, on cuda:(rank %
+    cards); returns each rank's result, in rank order.  The group is gloo
+    because NCCL refuses two ranks on one card; parallel/comm.py stages
+    its collectives on CUDA tensors through the host.  fn must be
+    importable (a module-level function) and its result picklable.  A
+    rank that raises, or runs past SPAWN_TIMEOUT_S, makes spawn raise;
+    every process is ended before spawn returns."""
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         init = f"file://{os.path.join(tmp, 'rendezvous')}"
         procs = torch.multiprocessing.start_processes(
-            _rank_main, args=(fn, world, backend, init, results, args),
+            _rank_main, args=(fn, world, init, results, args),
             nprocs=world, join=False, start_method="spawn")
-        deadline = time.monotonic() + timeout
+        deadline = time.monotonic() + SPAWN_TIMEOUT_S
         try:
             while len(out) < world or not procs.join(timeout=0.1):
                 try:
@@ -157,7 +161,7 @@ def spawn(fn, world: int, *args, backend: str = "gloo",
                     pass
                 if time.monotonic() > deadline:
                     raise TimeoutError(f"spawn: ranks still running after "
-                                       f"{timeout} s")
+                                       f"{SPAWN_TIMEOUT_S} s")
         finally:
             for p in procs.processes:
                 if p.is_alive():

@@ -118,14 +118,13 @@ def sharded_train_step_fn(cfg: VCTConfig, ds, mesh, chunk_size: int = 4096):
     loss is diff/inverse.make_loss_fn's mean((img - target)^2) over the
     whole image, the same on every rank, and every rank's parameters
     take the same step."""
-    data = comm.axis(mesh, cfg.sharding.data_axis)
-    model = comm.axis(mesh, cfg.sharding.model_axis)
+    everyone = comm.whole(mesh)
     inv = I.InverseConfig(optimize=("albedo", "light"),
                           chunk_size=chunk_size)
     rows = cfg.sharding.data_axis
 
     def total(x):
-        return comm.all_reduce(comm.all_reduce(x, data), model)
+        return comm.all_reduce(x, everyone)
 
     def step(params, opt_state, origins, dirs, cam_pos, samples, mats,
              target):
@@ -137,7 +136,7 @@ def sharded_train_step_fn(cfg: VCTConfig, ds, mesh, chunk_size: int = 4096):
                         meshlib.local_rows(origins, mesh, rows),
                         meshlib.local_rows(dirs, mesh, rows),
                         meshlib.local_rows(target, mesh, rows))
-        loss = local / (data.size * model.size)
+        loss = local / everyone.size
         loss.backward()
         for p in params.values():
             p.grad = total(p.grad)
