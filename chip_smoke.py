@@ -11,7 +11,7 @@ Phases, each reported on its own lines:
       raycast, binned raycast, specular march, prepass and material
       kernels the registers, spill and shared bytes and resident warps
       per SM the card reports;
-  (c) nine paths at full width, each through prepare_scene ->
+  (c) ten paths at full width, each through prepare_scene ->
       build_voxel_state (-> build_frame_tables on the fast path) ->
       render_camera_pass with every kernel's launch count set to 0 just
       before and read just after, and each naming the kernels it must
@@ -97,6 +97,26 @@ Phases, each reported on its own lines:
            under sponza256 on the atrium at 1920x1080 (the fast path's
            kernels counted in the subprocess), orbit and debug at 32^3 /
            96x96, their PNGs under chiprun_out/cli/ and stage reports;
+       10. the asset path at full size (vct_tpu_torch.asset_path.run under
+           sponza256 at 1920x1080): scripts/bench_asset_path.py's scene
+           written to a temporary directory (the atrium subdivided 4
+           times, 287,232 triangles, as an OBJ with 20 textured
+           materials, 14 PNG and 6 JPEG pages), load_obj through the
+           native parser, prepare_scene (11,283,968 native samples),
+           build_voxel_state, build_frame_tables and render_frame from
+           the bench camera, the counts read after each phase; each
+           phase's time (the load split into the geometry parse and the
+           texture decode, prepare into geometry, atlas, sampling and
+           the host-to-device copy), the frame's min, median and max
+           over 5 after a warm-up, peak memory over what is held, host
+           syncs in a build and a frame; on this host at full size the
+           native OBJ arrays bit-equal to the Python parser's and the
+           native samples to numpy's after a stable sort by tri_ids; the
+           binning's column tier within its budget; binrast, prepass,
+           material, tap and mip against their plain versions on this
+           scene (paths 2's, 3's and 5's tolerances); the streamed
+           raycast's launches beside the alpha candidates (none: the MTL
+           has no map_d); the build's and the frame's device ms by stage;
       then per path: timings, a small render on the card against the
       plain PyTorch path on the CPU, and for Cornell a determinism check,
       the whole-table raycast against its plain version (hit, material id
@@ -127,7 +147,9 @@ Phases, each reported on its own lines:
       inputs with few live rays it runs faster than its Python wrapper
       launches, and by CUDA events around launches from Python beside
       (the way every other kernel, and the parent's, is timed);
-  (d) the result: a JSON line of kernels, then {"ok": true, ...} last.
+  (d) the result: a JSON line of kernels (each row's `launches` from the
+      path its times were taken on, `launches_path10` from path 10's run
+      from the load to the first frame), then {"ok": true, ...} last.
 Any failure raises: the script exits non-zero and prints no result line.
 It exits non-zero at once when CUDA is unavailable.
 """
@@ -1511,6 +1533,253 @@ def cli_path(h, out_dir, extra=()):
     h.say(f"path 9 took {time.perf_counter() - t9:.1f} s")
 
 
+# ---- path 10: the asset path at full size -------------------------------
+# scripts/bench_asset_path.py's scene: the atrium subdivided 4 times as an
+# OBJ with 20 textured materials (14 PNG, 6 JPEG pages at 256^2)
+ASSET_SUBDIV = 4
+ASSET_TRIS = 287_232
+ASSET_SAMPLES = 11_283_968     # at 256^3, 2 samples a voxel width
+ASSET_REPS = 5                 # timed frames after the warm-up
+ASSET_PHASES = ("load", "prepare", "build", "tables", "frame")
+ASSET_KERNELS = ("mip", "binrast", "prepass", "material", "tap")
+
+
+def asset_path(h, dev, cfg, subdiv=ASSET_SUBDIV,
+               expect_counts=(ASSET_TRIS, ASSET_SAMPLES)):
+    """Path 10: vct_tpu_torch.asset_path.run on `cfg` (sponza256 at
+    1920x1080): generate the OBJ, load_obj (native), prepare_scene (native
+    samples), build_voxel_state, build_frame_tables and render_frame from
+    the bench camera, with the counts read and set to 0 after each phase.
+    Then, on the card's host at full size, the native OBJ arrays against
+    the Python parser's and the native samples against numpy's (after a
+    stable sort by tri_ids), bit for bit; the binning's column tier
+    against its budget; each kernel of the path against its plain version
+    on this scene with paths 2's and 3's tolerances; host syncs in a build
+    and a frame and their device ms by stage.  Returns the main path's
+    launches (load to the first frame) and the run's result.  h carries
+    chip_smoke's helpers and the card's nvidia-smi line."""
+    import tempfile
+
+    from vct_tpu_torch import asset_path as AP
+    from vct_tpu_torch.ops import binrast, material, mip, prepass, tap
+    from vct_tpu_torch.profile_stages import stage_ms, syncs_by_stage
+    from vct_tpu_torch.render import fast as F
+    from vct_tpu_torch.render import renderer as R
+    from vct_tpu_torch.render.voxelize import generate_surface_samples
+    from vct_tpu_torch.scene.obj import load_obj
+
+    t10 = time.perf_counter()
+    phases = {}
+
+    def on_phase(name):
+        phases[name] = h.read_counts()
+        h.reset_counts()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        h.reset_counts()
+        res, st = AP.run(tmp, subdiv, cfg, device=dev, reps=ASSET_REPS,
+                         on_phase=on_phase)
+        obj_path = str(pathlib.Path(tmp) / "atrium_hi.obj")
+        scene = st["scene"]
+        t0 = time.perf_counter()
+        py = load_obj(obj_path, backend="python")
+        py_s = time.perf_counter() - t0
+    h.say(f"10 on {h.card}: asset path result " + json.dumps(res))
+    for name in ("load", "prepare", "build", "tables", "frame", "frames"):
+        h.say(f"10 launches in {name}: " + json.dumps(phases[name]))
+    main_run = {k: sum(phases[p][k] for p in ASSET_PHASES)
+                for k in phases["load"]}
+    h.say(f"10 on {h.card}: launches in the main path run (load to the "
+          f"first frame) " + json.dumps(main_run))
+    tris, samples_n = expect_counts
+    if (res["tris"], res["materials"], res["textured_materials"],
+            res["samples"]) != (tris, 20, 20, samples_n):
+        fail(f"10: the asset scene has {res['tris']} triangles, "
+             f"{res['materials']} materials ({res['textured_materials']} "
+             f"textured) and {res['samples']} samples, not {tris}, 20, 20 "
+             f"and {samples_n}")
+    h.expect(main_run, ASSET_KERNELS, ("raycast", "specmarch", "mip_bwd"),
+             "asset")
+    for name in ("load", "prepare"):
+        if any(phases[name].values()):
+            fail(f"10: the {name} phase launched kernels")
+    if not (phases["build"]["mip"] and phases["tables"]["mip"]):
+        fail("10: the build or the tables launched no mip")
+    if phases["frame"]["binrast"] != 1 or phases["frame"]["tap"] != 1:
+        fail("10: the frame must launch binrast and tap once each")
+    h.check_image(st["img"], "asset path", (cfg.render.width,
+                                            cfg.render.height))
+    h.say(f"10 image: finite, mean {res['image_mean']:.6f}")
+
+    # the native routes against the plain ones on this host, full size
+    for name in ("positions", "uvs", "normals", "indices", "tri_material"):
+        if not np.array_equal(getattr(scene, name), getattr(py, name)):
+            fail(f"10: the native OBJ parse differs from the Python one in "
+                 f"{name}")
+    if [m.name for m in scene.materials] != [m.name for m in py.materials]:
+        fail("10: the native and Python parses name other materials")
+    del py
+    vws = cfg.grid.voxel_world_size
+    spw = cfg.voxelize.samples_per_voxel_width
+    t0 = time.perf_counter()
+    nat = generate_surface_samples(scene, vws, spw)
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    npy = generate_surface_samples(scene, vws, spw, backend="python")
+    npy_s = time.perf_counter() - t0
+    on, op = (np.argsort(s.tri_ids, kind="stable") for s in (nat, npy))
+    for name in ("positions", "normals", "uvs", "material_ids", "tri_ids"):
+        if not np.array_equal(getattr(nat, name)[on],
+                              getattr(npy, name)[op]):
+            fail(f"10: the native samples differ from numpy's in {name}")
+    if not np.array_equal(st["samples"].positions.cpu().numpy(),
+                          nat.positions):
+        fail("10: prepare_scene's samples are not the native generator's")
+    h.say(f"10 on this host: native OBJ arrays bit-equal to the Python "
+          f"parser's ({py_s:.3f} s against the native "
+          f"{res['obj_load_split']['geometry_parse_s']:.3f} s); native "
+          f"samples ({nat.count}, {nat_s:.3f} s) bit-equal to numpy's "
+          f"({npy_s:.3f} s) after a stable sort by tri_ids")
+    del nat, npy, on, op
+
+    # the frame's own inputs, as render_frame makes them
+    ds, mats, tables = st["ds"], st["mats"], st["tables"]
+    width, height = cfg.render.width, cfg.render.height
+    hp, wp = -(-height // F.TSY) * F.TSY, -(-width // 64) * 64
+    dimg = F._pad_edge(st["dirs"], hp, wp)
+    d = F._tile_order(dimg, hp, wp).contiguous()
+    origin = st["origins"].reshape(-1, 3)[0].contiguous()
+    rows, attrs = binrast.pack_rows(ds, origin, mats.albedo, mats.specular,
+                                    mats.shininess)
+    scal, table, n_col = binrast.bin_triangles(ds, origin, d, dimg, rows)
+    nb_col = binrast._budgets(ds.v0.shape[0])[1]
+    h.say(f"10 binning at {ds.v0.shape[0]} triangles: {scal.shape[1]} "
+          f"strips, table {table.shape[0]} rows; column tier {int(n_col)} "
+          f"of its budget {nb_col}")
+    if int(n_col) > nb_col:
+        fail("10: the column tier overflowed its budget: geometry was "
+             "dropped")
+
+    # binrast: hit, material and the winners' rows exact, t and u, v
+    # within 1e-6, every column within 1e-4 (path 3)
+    gb_k = binrast.raycast_binned_cuda(d, origin, scal, table, attrs)
+    o8_p = binrast.raycast_binned_plain(d, scal, table)
+    gb_p = binrast.finish_binned(d, origin, o8_p, attrs)
+    hit = o8_p[:, 4] > 0.5
+    exact = all(torch.equal(gb_k[:, c], gb_p[:, c])
+                for c in (slice(19, 20), slice(17, 18), slice(6, 9),
+                          slice(20, 28)))
+    t_rel = float(((gb_k[:, 18] - gb_p[:, 18]).abs()
+                   / gb_p[:, 18].abs().clamp_min(1.0))[hit].max())
+    uv_err = h.maxerr(gb_k[:, 15:17], gb_p[:, 15:17])
+    b_err = h.maxerr(gb_k, gb_p)
+    h.say(f"10 binrast against its plain version: hit, material, winners' "
+          f"rows exact {exact}, t rel {t_rel:.3e}, u/v {uv_err:.3e} "
+          f"(tolerance 1e-6), max error {b_err:.3e} (tolerance 1e-4); hit "
+          f"fraction {float(hit.float().mean()):.6f}")
+    if not (exact and max(t_rel, uv_err) <= 1e-6 and b_err <= 1e-4):
+        fail("10: the binned raycast disagrees with its plain version")
+    del o8_p, gb_p, table, rows
+
+    # the alpha re-cast: the MTL has no map_d and every page is opaque
+    maskable = F._maskable(mats, cfg.render.alpha_threshold)
+    n_cand = int(F._candidates(gb_k, maskable).sum())
+    h.say(f"10 alpha re-cast: {int(maskable.sum())} maskable materials, "
+          f"{n_cand} candidate pixels; streamed-raycast launches in the "
+          f"frame {phases['frame']['raycast_stream']}")
+    if (n_cand == 0) != (phases["frame"]["raycast_stream"] == 0):
+        fail("10: the streamed raycast launched without candidates, or "
+             "not with them")
+    g = F.alpha_resolve(cfg, ds, mats, gb_k, d, origin)
+
+    # prepass and material on the frame's G-buffer, bit for bit (path 2)
+    pages = tables.atlas_pages
+    pres = material.pages_resolution(pages)
+    pkw = dict(light_dims=tuple(m.shape[0] for m in tables.light_mips),
+               field_dims=tuple(m.shape[0] for m in tables.field_mips),
+               voxel=vws, world_size=cfg.grid.world_size,
+               shadow_offset=cfg.shadow.normal_offset,
+               atlas=prepass.AtlasShape(pages.shape[0], pres,
+                                        pres.bit_length()))
+    outs = prepass.prepass_cuda(g, **pkw)
+    plains = prepass.prepass_plain(g, **pkw)
+    same = [torch.equal(a, b) for a, b in zip(outs, plains)]
+    per_tile = plains[1][:, 0]
+    h.say(f"10 prepass ({g.shape[0] // tap.TILE} tiles, {pages.shape[0]} "
+          f"atlas pages): scal8, mscal, mlists, mslots bit-equal {same}; "
+          f"materials a tile: max {int(per_tile.max())}, "
+          f"{int((per_tile > 8).sum())} tiles above 8, "
+          f"{int((per_tile == prepass.NSLOT).sum())} at the {prepass.NSLOT}-"
+          f"slot limit")
+    if not all(same):
+        fail("10: the prepass differs from its plain version")
+    scal8, mscal, mlists, mslots = outs
+    m_err = h.maxerr(material.material_cuda(g, mslots, mscal, mlists, pages,
+                                            pres),
+                     material.material_plain(g, mslots, mscal, mlists, pages,
+                                             pres))
+    h.say(f"10 material: max error {m_err:.3e} (expected 0)")
+    if m_err != 0.0:
+        fail("10: the material kernel is not bit-equal to its plain version")
+
+    # tap at the frame's prepass levels (path 2)
+    nb = cfg.cones.field_basis
+    tkw = dict(cfield=8 * nb, nb=nb, world_size=cfg.grid.world_size,
+               voxel=vws, shadow_offset=cfg.shadow.normal_offset,
+               power_diffuse=int(cfg.cones.basis_power_diffuse),
+               power_specular=int(cfg.cones.basis_power_specular),
+               cones_static=F._cones_static(cfg))
+    bumpn = torch.cat([g[:, 3:6], torch.zeros_like(g[:, :1])],
+                      dim=1).contiguous()
+    targs = (g, scal8, bumpn, st["cam"], tables.light_mips,
+             tables.field_mips)
+    t_err = h.maxerr(tap.tap_cuda(*targs, **tkw), tap.tap_plain(*targs, **tkw))
+    h.say(f"10 tap: max error {t_err:.3e} (tolerance 1e-4)")
+    if not t_err <= 1e-4:
+        fail("10: the tap kernel disagrees with its plain version")
+    del g, gb_k, outs, plains, targs, bumpn
+
+    # mip at each level of the build's own pyramids (path 5)
+    voxels = st["voxels"]
+    mip_err = 0.0
+    for mips, mode in ((voxels.unlit_mips, "max"),
+                       (voxels.radiance_mips, "mean")):
+        for fine, coarse in zip(mips, mips[1:]):
+            plain = mip.downsample2x_plain(fine, mode)
+            mip_err = max(mip_err, h.maxerr(mip.downsample2x_cuda(fine, mode),
+                                            plain), h.maxerr(coarse, plain))
+    h.say(f"10 mip at the build's pyramids ({voxels.radiance_mips[0].shape}"
+          f" to 1^3, max and mean): max error {mip_err:.3e} (tolerance "
+          f"1e-6)")
+    if not mip_err <= 1e-6:
+        fail("10: the mip kernel disagrees with its plain version")
+
+    # host syncs in a build and a frame, by stage
+    samples = st["samples"]
+    syncs = {"build": syncs_by_stage(lambda: R.build_voxel_state(
+        cfg, samples, mats)),
+             "frame": syncs_by_stage(lambda: F.render_frame(
+                 cfg, ds, tables, mats, st["origins"], st["dirs"],
+                 st["cam"]))}
+    h.say(f"10 on {h.card}: host syncs by stage " + json.dumps(syncs))
+    res["syncs"] = {k: sum(v.values()) for k, v in syncs.items()}
+    # device ms by stage: the build once after a warm-up, the frame's
+    # medians of 3
+    for what, fn, reps in (
+            ("build", lambda: R.build_voxel_state(cfg, samples, mats), 1),
+            ("frame", lambda: F.render_frame(cfg, ds, tables, mats,
+                                             st["origins"], st["dirs"],
+                                             st["cam"]), 3)):
+        per, totals = stage_ms(fn, reps)
+        res[f"{what}_stages_ms"] = per
+        h.say(f"10 on {h.card}: {what} stages, device ms "
+              + json.dumps({k: round(v, 4) for k, v in per.items()})
+              + f"; total {totals}")
+    res["path_s"] = time.perf_counter() - t10
+    h.say(f"path 10 took {res['path_s']:.1f} s")
+    return main_run, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2690,12 +2959,27 @@ def main() -> int:
     hp8 = types.SimpleNamespace(
         say=say, expect=expect, maxerr=maxerr, reset_counts=reset_counts,
         read_counts=read_counts, check_image=check_image, sync=sync,
-        counters=counters)
+        counters=counters, card=card)
     r8 = multihost_path(hp8, dev)
 
     # ---- (c9) the CLI -------------------------------------------------
     cli_path(hp8, pathlib.Path(__file__).resolve().parent / "chiprun_out"
              / "cli")
+
+    # ---- (c10) the asset path at full size ------------------------------
+    launches10, r10 = asset_path(hp8, dev, cfg)
+    for row in report:
+        row["launches_path10"] = launches10[row["name"]]
+    split10 = {**r10["obj_load_split"], **r10["prepare_scene_split"]}
+    say(f"path 10 on {card}: generate {r10['generate_s']:.3f} s, load "
+        f"{r10['obj_load_s']:.3f} s, prepare {r10['prepare_scene_s']:.3f} s, "
+        f"build {r10['voxel_build_s']:.3f} s, tables "
+        f"{r10['frame_tables_s']:.3f} s, frame ms "
+        + json.dumps(r10["frame_ms"]) + "; split (s) " + json.dumps(split10)
+        + "; peak over held (GiB) " + json.dumps(r10["peak_over_held_gib"])
+        + "; host syncs " + json.dumps(r10["syncs"]) + "; launches "
+        + json.dumps(launches10) + f"; image mean {r10['image_mean']:.6f}; "
+        f"{r10['path_s']:.1f} s")
 
     say(f"path 8 on {card}: 8a build ms {r8['8a']['build_ms']:.3f}, frame "
         f"ms {r8['8a']['frame_ms']:.3f}, prepare ms "

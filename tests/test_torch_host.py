@@ -150,21 +150,19 @@ def test_pack_tables_match(name):
 
 @pytest.mark.parametrize("backend", ["auto", "python"])
 def test_surface_samples_equal(backend):
-    """The port's numpy generator against the JAX package's numpy path
-    (equal as they stand) and its native generator, where that library
-    builds: the native one emits triangle by triangle, the numpy one by
-    subdivision level, so the two are equal once stably sorted by
-    triangle (tests/test_native.py)."""
-    a = V.generate_surface_samples(cornell_box(size=100.0), 150.0 / 32, 2.0)
+    """Each of the port's generators against the JAX package's of the
+    same backend, equal as they stand: the numpy paths (triangles batched
+    by subdivision level) and the native ones (triangle by triangle;
+    tests/test_torch_native.py holds the two orders equal once stably
+    sorted by triangle)."""
+    a = V.generate_surface_samples(cornell_box(size=100.0), 150.0 / 32, 2.0,
+                                   backend=backend)
     b = jvox.generate_surface_samples(jcornell_box(size=100.0), 150.0 / 32,
                                       2.0, backend=backend)
     fields = ("positions", "normals", "uvs", "material_ids", "tri_ids")
     for f in fields:
-        x, y = getattr(a, f), getattr(b, f)
-        if backend == "auto":
-            x = x[np.argsort(a.tri_ids, kind="stable")]
-            y = y[np.argsort(b.tri_ids, kind="stable")]
-        np.testing.assert_array_equal(x, y, err_msg=f)
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                      err_msg=f)
 
 
 @pytest.mark.parametrize("mode", ["mean", "max"])
@@ -300,3 +298,38 @@ def test_config_derived_equal(fn):
     for name in ("sponza256", "cornell64_full"):
         assert (plain(getattr(S, fn)(preset(name)))
                 == plain(getattr(jshading, fn)(jpreset(name))))
+
+
+@pytest.mark.parametrize("dim", [16, 32])
+def test_grid_index_helpers_equal(dim):
+    """uvw_to_world, world_to_index (clamped) and voxel_center, bit-equal
+    to the JAX package's."""
+    rng = np.random.default_rng(dim)
+    uvw = rng.uniform(-0.1, 1.1, (200, 3)).astype(np.float32)
+    p = rng.uniform(-90, 90, (200, 3)).astype(np.float32)
+    idx = rng.integers(0, dim, (200, 3)).astype(np.int32)
+    for ours, theirs in (
+            (G.uvw_to_world(torch.from_numpy(uvw), 150.0),
+             jgrid.uvw_to_world(jnp.asarray(uvw), 150.0)),
+            (G.world_to_index(torch.from_numpy(p), 150.0, dim),
+             jgrid.world_to_index(jnp.asarray(p), 150.0, dim)),
+            (G.voxel_center(torch.from_numpy(idx), 150.0, dim),
+             jgrid.voxel_center(jnp.asarray(idx), 150.0, dim))):
+        assert ours.dtype == getattr(torch, str(np.asarray(theirs).dtype))
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+
+
+def test_flatten_mips_equal():
+    rng = np.random.default_rng(5)
+    base = rng.random((16, 16, 16, 4), dtype=np.float32)
+    pm = G.build_mips(torch.from_numpy(base))
+    jm = jgrid.build_mips(jnp.asarray(base))
+    flat, offsets, dims = G.flatten_mips(pm)
+    jflat, joffsets, jdims = jgrid.flatten_mips(jm)
+    assert (offsets, dims) == (joffsets, jdims) == (
+        (0, 4096, 4608, 4672, 4680), (16, 8, 4, 2, 1))
+    np.testing.assert_allclose(flat.numpy(), np.asarray(jflat), atol=1e-6)
+    back = G.unflatten_mips(flat, offsets, dims)
+    jback = jgrid.unflatten_mips(jflat, joffsets, jdims)
+    for a, b, m in zip(back, jback, pm):
+        assert torch.equal(a, m) and a.shape == b.shape

@@ -11,7 +11,9 @@ presets reference, its shadow map at 128^2, and aniso128 the same way at
 takes one inverse-rendering step (vct_tpu_torch.diff, preset inverse
 at 16^3 / 16x16, on CPU tensors), and runs `python -m vct_tpu_torch
 render --cpu` at 16^3 (the CLI, with parallel/ and utils/ imported
-among every module).  No source of the port or of
+among every module), and runs the asset path (vct_tpu_torch.asset_path:
+the atrium written as an OBJ with 20 textured materials, parsed and
+sampled by vct_tpu_torch.native) at 16^3 / 32x24.  No source of the port or of
 chip_smoke.py imports either.
 Also the ops' device rule and the entry points' default device, which
 need no card to check."""
@@ -136,6 +138,21 @@ SCRIPT = textwrap.dedent("""
         runpy.run_module("vct_tpu_torch", run_name="__main__",
                          alter_sys=True)
         print("cli render", read_png(out).shape)
+    # the native library and the asset path: the atrium written as an OBJ
+    # with 20 textured materials (18 used by the unsubdivided atrium),
+    # loaded and rendered at 16^3 / 32x24
+    from vct_tpu_torch import asset_path, native
+    cfg = preset("sponza256")
+    cfg = dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, dim=16, compute="float32"),
+        cones=dataclasses.replace(cfg.cones, field_dim=16),
+        render=dataclasses.replace(cfg.render, width=32, height=24))
+    with tempfile.TemporaryDirectory() as tmp:
+        res, st = asset_path.run(tmp, 0, cfg, device="cpu", reps=1)
+    assert native.available() and st["img"].shape == (24, 32, 3)
+    assert bool(torch.isfinite(st["img"]).all())
+    print("asset path", res["tris"], res["materials"],
+          res["textured_materials"], res["samples"])
     assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
 """)
 
@@ -154,6 +171,7 @@ def test_imports_and_renders_without_jax():
     assert "rendered aniso128 (24, 24, 3) " in res.stdout       # aniso mips
     assert "inverse step 1 " in res.stdout                      # diff/
     assert "cli render (24, 32, 3)" in res.stdout               # the CLI
+    assert "asset path 1122 18 18 " in res.stdout         # native, OBJ, JPEG
 
 
 def _sources():

@@ -136,6 +136,28 @@ def test_build_bounce_and_percone_shadow(bounces, shadow):
 
 
 
+def test_build_light_dir():
+    """build_voxel_state(light_dir=) against the JAX build with the same
+    direction: the per-sample shadow cones (shadow mode "percone") march
+    toward it, at 16^3, atol 1e-5; the default direction builds another
+    state."""
+    jc, pc = cfg_pair(16, 24, 24)
+    jc, pc = (dataclasses.replace(c, shadow=dataclasses.replace(
+        c.shadow, mode="percone")) for c in (jc, pc))
+    d = np.asarray([0.3, 1.0, -0.2], np.float32)
+    d /= np.linalg.norm(d)
+    _, jm, js = JR.prepare_scene(jc, jcornell_box(size=100.0))
+    jv = JR.build_voxel_state(jc, js, jm, light_dir=jax.numpy.asarray(d))
+    _, pm, ps = R.prepare_scene(pc, cornell_box(size=100.0), device=CPU)
+    pv = R.build_voxel_state(pc, ps, pm, light_dir=as_torch(d))
+    for name in ("radiance_mips", "unlit_mips"):
+        for a, b in zip(getattr(pv, name), getattr(jv, name)):
+            close(a, b)
+    default = R.build_voxel_state(pc, ps, pm)
+    assert not torch.equal(default.radiance_mips[0], pv.radiance_mips[0])
+    assert torch.equal(default.unlit_mips[0], pv.unlit_mips[0])
+
+
 # ---------------------------------------------------------------------------
 # tests/test_alpha_mask.py's render_rays cases and tests/test_field_mode.py
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 The JAX package `vct_tpu` stays the reference.  This package imports
 nothing of it: it keeps its own copies of the host modules it needs
 (`config`, `scene.mesh`, `scene.cornell`, `scene.atrium`, `scene.obj`,
-`utils.image`, tested equal to the JAX ones) and re-implements the rest
+`utils.image`, and the C++ of `native`, tested equal to the JAX ones)
+and re-implements the rest
 in PyTorch, with hand-written CUDA kernels for the Pallas kernels
 (`ops/csrc/`).
 
@@ -14,8 +15,10 @@ ones raise ValueError) and its exact-specular mode, the per-cone oracle
 renderer (`render.renderer.render_rays`) with the shadow map and the
 anisotropic mips, inverse rendering (`diff`), the sharded build, camera
 pass and train step over a ('data', 'model') mesh of torch.distributed
-ranks (`parallel`), and the CLI (`python -m vct_tpu_torch`).  It leaves
-out the JAX package's native C++ library and its staged-jit splits.
+ranks (`parallel`), the CLI (`python -m vct_tpu_torch`), the native OBJ
+parser and surface sampler (`native`) and the asset path at the
+reference's scale (`python -m vct_tpu_torch.asset_path`).  It leaves out
+the JAX package's staged-jit splits.
 
 Entry points put their tensors on the card unless given `device="cpu"`
 (the CLI: `--cpu`), and raise where CUDA is missing; every function then

@@ -43,6 +43,23 @@ def world_to_uvw(p: Tensor, world_size: float) -> Tensor:
     return p / scalar_like(p, world_size * 0.5) * 0.5 + 0.5
 
 
+def uvw_to_world(uvw: Tensor, world_size: float) -> Tensor:
+    return (uvw - 0.5) * world_size
+
+
+def world_to_index(p: Tensor, world_size: float, dim: int) -> Tensor:
+    """World position(s) (..., 3) -> int32 voxel index, clamped to the
+    grid."""
+    idx = torch.floor(world_to_uvw(p, world_size) * dim).to(torch.int32)
+    return idx.clamp(0, dim - 1)
+
+
+def voxel_center(idx: Tensor, world_size: float, dim: int) -> Tensor:
+    """Integer voxel index (..., 3) -> the world-space center of it."""
+    uvw = idx.to(torch.float32) + 0.5
+    return uvw_to_world(uvw / scalar_like(uvw, dim), world_size)
+
+
 def trilinear_sample(grid: Tensor, uvw: Tensor) -> Tensor:
     """GL-convention trilinear sample of one level.
 
@@ -136,3 +153,25 @@ def build_mips(grid: Tensor, num_levels: int | None = None,
     for _ in range(num_mip_levels(grid.shape[0], num_levels) - 1):
         mips.append(downsample2x(mips[-1], alpha_mode))
     return tuple(mips)
+
+
+def flatten_mips(mips: Sequence[Tensor]
+                 ) -> Tuple[Tensor, Tuple[int, ...], Tuple[int, ...]]:
+    """A mip stack as one (V_total, C) tensor, with each level's first row
+    and its dim (the JAX package's Pallas layout; the port's kernels take
+    the levels apart)."""
+    c = mips[0].shape[-1]
+    offsets, dims, off = [], [], 0
+    for m in mips:
+        offsets.append(off)
+        dims.append(m.shape[0])
+        off += m.shape[0] ** 3
+    flat = torch.cat([m.reshape(-1, c) for m in mips], dim=0)
+    return flat, tuple(offsets), tuple(dims)
+
+
+def unflatten_mips(flat: Tensor, offsets: Sequence[int],
+                   dims: Sequence[int]) -> Tuple[Tensor, ...]:
+    c = flat.shape[-1]
+    return tuple(flat[off:off + d ** 3].reshape(d, d, d, c)
+                 for off, d in zip(offsets, dims))

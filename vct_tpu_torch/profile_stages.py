@@ -92,16 +92,35 @@ def stage_ms(fn, reps: int):
 
 
 def count_syncs(fn) -> int:
+    return sum(syncs_by_stage(fn).values())
+
+
+def syncs_by_stage(fn) -> dict:
+    """Host synchronizations in one fn() by stage: {stage: count}, where a
+    stage holds the syncs after the previous vct_tpu_torch.stages mark up
+    to its own ("end": after the last mark)."""
+    counts, seen = {}, [0]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            fn()
+
+            def record(name):
+                n = sum("synchroniz" in str(w.message) for w in caught)
+                counts[name] = counts.get(name, 0) + n - seen[0]
+                seen[0] = n
+
+            stages.MARK = record
+            try:
+                fn()
+            finally:
+                stages.MARK = None
+            record("end")
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return counts
 
 
 def profile(fn, reps: int):

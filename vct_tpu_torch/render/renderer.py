@@ -191,6 +191,7 @@ def _radiance_mips(cfg: VCTConfig, lit: Tensor) -> Tuple[Tensor, ...]:
 
 def build_voxel_state(cfg: VCTConfig, samples: SamplesDevice,
                       mats: MaterialTable,
+                      light_dir: Optional[Tensor] = None,
                       light_color: Optional[Tensor] = None,
                       mesh=None) -> VoxelState:
     """Voxelization + radiance injection + mip build + fields.
@@ -198,7 +199,10 @@ def build_voxel_state(cfg: VCTConfig, samples: SamplesDevice,
     Shadows come from the dense light volume (shadow mode "volume"), a
     shadow cone per sample ("percone"), toward the config's light, or the
     rasterized shadow map and its PCF ("map", divided by 25 as the
-    reference's voxelize pass does, Voxelization.fs:46).  light_color (3,)
+    reference's voxelize pass does, Voxelization.fs:46).  light_dir (3,),
+    normalized toward the light, replaces cfg.light.direction in the
+    per-sample shadow cones (shadow mode "percone"; the light volume and
+    the map take the config's, as in the JAX package).  light_color (3,)
     replaces cfg.light.color in the radiance injection (the inverse loop's
     "light" parameter).  light.gi_bounces > 2 re-gathers and re-injects
     once per extra bounce.
@@ -217,6 +221,8 @@ def build_voxel_state(cfg: VCTConfig, samples: SamplesDevice,
         samples = local_samples(samples, mesh, cfg.sharding.model_axis)
         reduce = comm.reducer(comm.axis(mesh, cfg.sharding.model_axis))
     dev = samples.positions.device
+    if light_dir is None:
+        light_dir = light_direction(cfg, dev)
     if light_color is None:
         light_color = G.constant(cfg.light.color, dev)
     albedo = mats.sample_albedo(samples.material_ids, samples.uvs)
@@ -249,8 +255,8 @@ def build_voxel_state(cfg: VCTConfig, samples: SamplesDevice,
                                normalization="voxelize")
     else:
         shadow = shading.shadow_cone_value(
-            unlit_mips, samples.positions, samples.normals,
-            light_direction(cfg, dev), shading.shadow_schedule(cfg), cfg)
+            unlit_mips, samples.positions, samples.normals, light_dir,
+            shading.shadow_schedule(cfg), cfg)
         mark("shadow_cones")
     radiance = albedo[:, :3] * light_color * shadow[:, None] + emissive
     lit = splat(samples.positions, radiance, weights, dim, ws,

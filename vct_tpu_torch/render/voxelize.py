@@ -1,8 +1,8 @@
 """Deterministic scatter voxelization (port of vct_tpu/render/voxelize.py:36-174).
 
-Host (numpy, once per scene): stratified surface samples per triangle —
-the JAX package's numpy path, which vct_tpu/native pins bit-identical to
-its C++ generator, so the port needs no native library.
+Host (once per scene): stratified surface samples per triangle, from the
+native C++ generator (vct_tpu_torch/native, triangle-major) or the numpy
+path (batched by subdivision level), bit-identical sample for sample.
 Device (torch): scatter-mean of sample values into the grid.  The scatter
 is a stable sort by cell followed by a segment reduction in sample order,
 never float atomics, so two builds give bit-identical grids.
@@ -16,6 +16,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from vct_tpu_torch import native
 from vct_tpu_torch.scene.mesh import Scene
 from vct_tpu_torch.core.grid import world_to_uvw
 
@@ -42,11 +43,34 @@ def generate_surface_samples(
     voxel_world_size: float,
     samples_per_voxel_width: float = 2.0,
     max_samples_per_tri: int = 4096,
+    backend: str = "auto",
 ) -> SurfaceSamples:
-    """Stratified barycentric samples, ~density^2 per voxel-sized patch."""
+    """Stratified barycentric samples, ~density^2 per voxel-sized patch.
+
+    Per triangle the subdivision n is chosen so sample spacing is at most
+    voxel_size/density along the longest edge, so every voxel a triangle
+    crosses receives samples.
+
+    backend="auto" takes the native C++ generator (vct_tpu_torch/native),
+    which raises if the library cannot be built: triangle-major order.
+    "python" takes the numpy path here, which batches triangles by
+    subdivision level.  Both give the same samples of each triangle in
+    the same order, bit for bit, so a stable sort by tri_ids makes them
+    equal; the splat sums a voxel's samples in input order, so builds
+    from the two may differ in the last bits.  Anything else raises
+    ValueError.
+    """
+    if backend not in ("auto", "python"):
+        raise ValueError(f"unknown sampling backend {backend!r}")
     tv = scene.triangle_vertices()                    # (T, 3, 3)
     fn = scene.face_normals()
     t_uv = scene.uvs[scene.indices]                   # (T, 3, 2)
+    if backend == "auto":
+        pos, nrm, uv, mat, tri = native.surface_samples(
+            tv, t_uv, fn, scene.tri_material, voxel_world_size,
+            samples_per_voxel_width, max_samples_per_tri)
+        return SurfaceSamples(positions=pos, normals=nrm, uvs=uv,
+                              material_ids=mat, tri_ids=tri)
 
     e1 = tv[:, 1] - tv[:, 0]
     e2 = tv[:, 2] - tv[:, 0]

@@ -8,11 +8,10 @@ indices, usemtl/mtllib; MTL Kd/Ks/Ke/Ns/d, map_Kd/map_Ks/map_bump/map_d
 constant-color materials with a warning, matching the reference's
 print-and-continue behavior (Model.h:179-183).
 
-A copy of vct_tpu/scene/obj.py without its native parser: the port has
-no counterpart of vct_tpu/native, so backend="auto" parses in Python, as
-the JAX package's "auto" does where its library is absent.
+A copy of vct_tpu/scene/obj.py: backend="auto" parses geometry with the
+native parser (vct_tpu_torch/native), "python" with the plain one here.
 tests/test_torch_image.py pins the scenes equal to the JAX package's
-backend="python".
+backend="python", tests/test_torch_native.py the two backends bit-equal.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from vct_tpu_torch import native
 from vct_tpu_torch.scene.mesh import Material, Scene, scene_from_arrays
 from vct_tpu_torch.utils.image import read_jpg, read_png
 
@@ -144,6 +144,24 @@ def _parse_mtl(path: str) -> Dict[str, Material]:
     return mats
 
 
+def _load_obj_native(path: str, flip_uv: bool, scale: float) -> Scene:
+    """Geometry through vct_tpu_torch/native (bit-identical to the Python
+    parser); MTL and textures stay in Python."""
+    pos, uv, nrm, tris, tri_mat, mat_names, mtllibs, any_normals = \
+        native.parse_obj_geometry(path, flip_uv=flip_uv, scale=scale)
+    base = os.path.dirname(path)
+    mtl: Dict[str, Material] = {}
+    for lib in mtllibs:
+        mtl.update(_parse_mtl(os.path.join(base, lib)))
+    materials = [mtl.get(n, Material(name=n)) for n in mat_names]
+    if not materials:
+        materials = [Material()]
+    if not any_normals or float(np.abs(nrm).sum()) == 0.0:
+        nrm = None
+    return scene_from_arrays(pos, tris, normals=nrm, uvs=uv,
+                             tri_material=tri_mat, materials=materials)
+
+
 def load_obj(path: str, flip_uv: bool = True, scale: float = 1.0,
              backend: str = "auto") -> Scene:
     """Load an OBJ (+MTL) into a Scene.
@@ -154,11 +172,17 @@ def load_obj(path: str, flip_uv: bool = True, scale: float = 1.0,
     (GenSmoothNormals analogue).  scale applies the reference's uniform
     model transform (0.05 for Sponza, Voxel_Cone_Tracing.h:183).
 
-    backend: "auto" and "python" both take the Python parser (the port
-    has no native one); anything else raises ValueError.
+    backend="auto" parses geometry with the native C++ parser
+    (vct_tpu_torch/native, the Assimp-import counterpart), bit-identical
+    arrays to the Python parser, and raises if the library cannot be
+    built; "python" forces the Python parser; anything else raises
+    ValueError.  MTL, material and texture loading run in Python either
+    way.
     """
     if backend not in ("auto", "python"):
         raise ValueError(f"unknown OBJ backend {backend!r}")
+    if backend == "auto":
+        return _load_obj_native(path, flip_uv, scale)
     positions: List[Tuple[float, float, float]] = []
     uvs: List[Tuple[float, float]] = []
     normals: List[Tuple[float, float, float]] = []
