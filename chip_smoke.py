@@ -11,7 +11,7 @@ Phases, each reported on its own lines:
       raycast, binned raycast, specular march, prepass and material
       kernels the registers, spill and shared bytes and resident warps
       per SM the card reports;
-  (c) ten paths at full width, each through prepare_scene ->
+  (c) eleven paths at full width, each through prepare_scene ->
       build_voxel_state (-> build_frame_tables on the fast path) ->
       render_camera_pass with every kernel's launch count set to 0 just
       before and read just after, and each naming the kernels it must
@@ -117,6 +117,15 @@ Phases, each reported on its own lines:
            scene (paths 2's, 3's and 5's tolerances); the streamed
            raycast's launches beside the alpha candidates (none: the MTL
            has no map_d); the build's and the frame's device ms by stage;
+       11. the operating point (chip_smoke.operating_point_path): 11a
+           vct_tpu_torch.bench.run at bench.py's defaults (256^3 float32
+           marches, 1920x1080, the atrium subdivided 4 times, 5 builds
+           and the preset's bf16 builds), its JSON line with bench.py's
+           keys; 11b vct_tpu_torch.fidelity.run at tests/test_fidelity.py's
+           settings (sponza256 on the atrium, 480x272, 1,024 pixels, df
+           128), failing unless its four bounds hold; on 11b's own inputs
+           the whole-table raycast against raycast_plain and the specular
+           march against spec_march_plain;
       then per path: timings, a small render on the card against the
       plain PyTorch path on the CPU, and for Cornell a determinism check,
       the whole-table raycast against its plain version (hit, material id
@@ -149,7 +158,8 @@ Phases, each reported on its own lines:
       (the way every other kernel, and the parent's, is timed);
   (d) the result: a JSON line of kernels (each row's `launches` from the
       path its times were taken on, `launches_path10` from path 10's run
-      from the load to the first frame), then {"ok": true, ...} last.
+      from the load to the first frame, `launches_path11` from 11a and
+      11b), then {"ok": true, ...} last.
 Any failure raises: the script exits non-zero and prints no result line.
 It exits non-zero at once when CUDA is unavailable.
 """
@@ -273,16 +283,6 @@ def host_ms(fn) -> float:
     fn()
     sync()
     return (time.perf_counter() - t0) * 1e3
-
-
-def card_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if res.returncode != 0 or not res.stdout.strip():
-        fail(f"nvidia-smi: {res.stderr.strip()}")
-    return res.stdout.strip().splitlines()[0]
 
 
 def slice_config(dim, width, height, compute=None, name="sponza256"):
@@ -1780,6 +1780,108 @@ def asset_path(h, dev, cfg, subdiv=ASSET_SUBDIV,
     return main_run, res
 
 
+# ---- path 11: the operating point, bench and fidelity gate --------------
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "frame_ms_1080p",
+              "fps_1080p", "fast_path", "frame_tris", "raycast_ms",
+              "march_achieved_gbps", "peak_gbps", "march_mxu_util",
+              "build_ms", "device", "power_limit_w")
+FIDELITY_KEYS = ("diffuse_field128_rel_rms",
+                 "specular_percone_kernel_rel_rms", "image_field_rel_rms",
+                 "image_exact_specular_rel_rms",
+                 "specular_field128_rel_rms")
+BENCH_TIMES = ("value", "vs_baseline", "frame_ms_1080p", "fps_1080p",
+               "raycast_ms", "march_achieved_gbps", "peak_gbps", "build_ms",
+               "power_limit_w")
+
+
+def operating_point_path(h, dev, dim=256, size=(WIDTH, HEIGHT), subdiv=4,
+                         reps=5, expect_tris=ASSET_TRIS, fid_cfg=None,
+                         fid_size=(480, 272)):
+    """Path 11: 11a vct_tpu_torch.bench.run at bench.py's defaults (256^3
+    float32, 1920x1080, the atrium subdivided 4 times, 5 reps, and the
+    preset's bf16 build), its JSON printed and every bench.py key held
+    present (the times finite and positive on the card); 11b
+    vct_tpu_torch.fidelity.run at tests/test_fidelity.py's settings
+    (fidelity.GATE_SETTINGS: 1,024 pixels, df 128, every stage; preset
+    sponza256 on the atrium, 480x272), failing unless every GATE bound
+    holds; counts set to 0 before each and read after.  Then, on 11b's
+    own inputs, the whole-table raycast's G-buffer against raycast_plain
+    (path 2's tolerances) and the specular march of the pass against
+    spec_march_plain (path 4's, 1e-5), the pass's own output against the
+    kernel's.  Returns (the launches of 11a plus 11b, the results)."""
+    from vct_tpu_torch import bench
+    from vct_tpu_torch import fidelity as FI
+    from vct_tpu_torch.ops import raycast, specmarch
+    from vct_tpu_torch.render import fast as F
+
+    t11 = time.perf_counter()
+    h.reset_counts()
+    res_a = bench.run(dim=dim, width=size[0], height=size[1],
+                      subdiv=subdiv, reps=reps, device=dev)
+    launches_a = h.read_counts()
+    h.say(f"11a on {h.card}: vct_tpu_torch.bench " + json.dumps(res_a))
+    h.say("11a launches: " + json.dumps(launches_a))
+    missing = [k for k in BENCH_KEYS if k not in res_a]
+    if missing:
+        fail(f"11a: the bench result lacks {missing}")
+    if (res_a["frame_tris"], res_a["fast_path"]) != (expect_tris, True):
+        fail(f"11a: the frame has {res_a['frame_tris']} triangles (fast "
+             f"path {res_a['fast_path']}), not {expect_tris} on the fast "
+             f"path")
+    if dev.type == "cuda" and not all(
+            isinstance(res_a[k], float) and 0 < res_a[k] < float("inf")
+            for k in BENCH_TIMES):
+        fail("11a: a bench figure is missing, not finite or not positive")
+    h.expect(launches_a, ("mip", "binrast", "prepass", "material",
+                          "raycast_stream", "tap"), ("specmarch", "mip_bwd"),
+             "bench")
+    t11b = time.perf_counter()
+
+    h.reset_counts()
+    rec, st = FI.run(fid_cfg, size=fid_size, device=dev, **FI.GATE_SETTINGS)
+    launches_b = h.read_counts()
+    h.say(f"11b on {h.card}: vct_tpu_torch.fidelity " + json.dumps(rec))
+    h.say("11b launches: " + json.dumps(launches_b))
+    broken = FI.gate_failures(rec)
+    h.say("11b tests/test_fidelity.py's bounds: " + json.dumps(FI.GATE)
+          + (" all hold" if not broken else " broken: " + "; ".join(broken)))
+    if broken:
+        fail("11b: the fidelity gate failed: " + "; ".join(broken))
+    h.expect(launches_b, ("mip", "raycast", "prepass", "tap", "specmarch"),
+             ("binrast", "mip_bwd"), "fidelity")
+
+    # 11b's own inputs: its G-buffer and its specular pass
+    prim, arrays = st["prim"], st["arrays"]
+    g_p = raycast.raycast_plain(prim["d"], prim["origin"], prim["isect"],
+                                prim["attrs"])
+    rc_err = h.raycast_equal(prim["g"], g_p, "11b fidelity")
+    cfg = st["cfg"]
+    pages, *pin = arrays["spec_inputs"]
+    start4, refl4, step_lv, weights, perm = F.spec_march_inputs(cfg, pages,
+                                                                *pin)
+    mkw = dict(world_size=cfg.grid.world_size, max_alpha=cfg.cones.max_alpha)
+    so_k = specmarch.spec_march_cuda(start4, refl4, step_lv, weights, pages,
+                                     **mkw)
+    so_p = specmarch.spec_march_plain(start4, refl4, step_lv, weights, pages,
+                                      **mkw)
+    sm_err = h.maxerr(so_k, so_p)
+    same = torch.equal(arrays["spec_pass"][perm], so_k)
+    h.say(f"11b specular march on the pass's {so_k.shape[0]} pixels: max "
+          f"error against spec_march_plain {sm_err:.3e} (tolerance 1e-5); "
+          f"the pass's output is the kernel's {same}")
+    if not (sm_err <= 1e-5 and same):
+        fail("11b: the specular march disagrees with its plain version")
+    launches = {k: launches_a[k] + launches_b[k] for k in launches_a}
+    res = dict(bench=res_a, fidelity=rec, raycast_err=rc_err,
+               specmarch_err=sm_err, a_s=t11b - t11,
+               b_s=time.perf_counter() - t11b,
+               path_s=time.perf_counter() - t11)
+    h.say(f"11 launches (a + b): {json.dumps(launches)}; path 11 took "
+          f"{res['path_s']:.1f} s (11a {res['a_s']:.1f}, 11b "
+          f"{res['b_s']:.1f})")
+    return launches, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1799,6 +1901,7 @@ def main() -> int:
     from vct_tpu_torch.scene.atrium import atrium
     from vct_tpu_torch.scene.cornell import cornell_box
     from vct_tpu_torch.scene.mesh import subdivide_scene
+    from vct_tpu_torch.utils.profiling import card_line
 
     counters = {"mip": (mip, "LAUNCHES"), "raycast": (raycast, "LAUNCHES"),
                 "prepass": (prepass, "LAUNCHES"), "tap": (tap, "LAUNCHES"),
@@ -2980,6 +3083,21 @@ def main() -> int:
         + "; host syncs " + json.dumps(r10["syncs"]) + "; launches "
         + json.dumps(launches10) + f"; image mean {r10['image_mean']:.6f}; "
         f"{r10['path_s']:.1f} s")
+
+    # ---- (c11) the operating point: bench and the fidelity gate ---------
+    launches11, r11 = operating_point_path(
+        types.SimpleNamespace(**vars(hp8), raycast_equal=raycast_equal), dev)
+    for row in report:
+        row["launches_path11"] = launches11[row["name"]]
+    b11, f11 = r11["bench"], r11["fidelity"]
+    say(f"path 11 on {card}: {b11['value']:.4e} cone samples/s "
+        f"(vs_baseline {b11['vs_baseline']:.4f}), build ms "
+        f"{b11['build_ms']:.3f} float32 and "
+        f"{b11['build_ms_bf16']['median']:.3f} bf16, frame ms "
+        + json.dumps(b11["frame_ms"]) + f", raycast ms "
+        f"{b11['raycast_ms']:.4f}, march {b11['march_achieved_gbps']:.1f} "
+        f"GB/s; fidelity " + json.dumps(
+            {k: round(f11[k], 6) for k in FIDELITY_KEYS}))
 
     say(f"path 8 on {card}: 8a build ms {r8['8a']['build_ms']:.3f}, frame "
         f"ms {r8['8a']['frame_ms']:.3f}, prepare ms "

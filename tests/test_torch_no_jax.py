@@ -40,7 +40,7 @@ torch.set_num_threads(1)    # all torch math on the main thread: PERF.md §7 ite
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
-SCRIPT = textwrap.dedent("""
+BLOCK = textwrap.dedent("""
     import dataclasses, importlib, pkgutil, sys
 
     BLOCKED = ("jax", "jaxlib", "vct_tpu")
@@ -52,7 +52,9 @@ SCRIPT = textwrap.dedent("""
             return None
 
     sys.meta_path.insert(0, Blocked())
+""")
 
+SCRIPT = BLOCK + textwrap.dedent("""
     import torch
     torch.set_num_threads(1)
     import vct_tpu_torch
@@ -172,6 +174,55 @@ def test_imports_and_renders_without_jax():
     assert "inverse step 1 " in res.stdout                      # diff/
     assert "cli render (24, 32, 3)" in res.stdout               # the CLI
     assert "asset path 1122 18 18 " in res.stdout         # native, OBJ, JPEG
+
+
+OPERATING_POINT = BLOCK + textwrap.dedent("""
+    import dataclasses
+    import torch
+    torch.set_num_threads(1)
+    from vct_tpu_torch import bench, fidelity
+    from vct_tpu_torch.config import preset
+
+    res = bench.run(dim=16, width=32, height=24, subdiv=0, reps=1,
+                    device="cpu")
+    print("bench", res["metric"], res["frame_tris"], res["dense_samples"])
+    cfg = preset("sponza256")
+    cfg = dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, dim=16),
+        cones=dataclasses.replace(cfg.cones, field_dim=16))
+    rec, _ = fidelity.run(cfg, size=(32, 24), n=64, dfs=(16,), device="cpu")
+    print("fidelity", rec["n_pixels"],
+          sorted(k for k in rec if k.endswith("_rel_rms")))
+    assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
+""")
+
+
+def test_bench_and_fidelity_without_jax():
+    """vct_tpu_torch.bench and vct_tpu_torch.fidelity run at 16^3 with
+    jax and vct_tpu blocked."""
+    res = subprocess.run([sys.executable, "-c", OPERATING_POINT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "bench cone_samples_per_s_per_chip 1122 " in res.stdout
+    assert ("fidelity 64 ['diffuse_field16_rel_rms', 'image_exact_specular_"
+            "rel_rms', 'image_field_rel_rms', 'specular_field16_rel_rms', "
+            "'specular_percone_kernel_rel_rms']") in res.stdout
+
+
+@pytest.mark.parametrize("module", ["vct_tpu_torch.bench",
+                                    "vct_tpu_torch.fidelity"])
+def test_operating_point_entry_points_refuse_the_cpu(module, tmp_path):
+    """Without CUDA, `python -m` of either exits non-zero and prints no
+    result (no CPU fallback)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    res = subprocess.run([sys.executable, "-m", module, *(
+        ("--out", str(tmp_path / "f.json"))
+        if module.endswith("fidelity") else ())], cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert res.stdout == "" and "CUDA is not available" in res.stderr
+    assert not (tmp_path / "f.json").exists()
 
 
 def _sources():

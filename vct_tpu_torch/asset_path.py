@@ -44,7 +44,6 @@ import json
 import os
 import shutil
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -64,6 +63,7 @@ from vct_tpu_torch.scene import obj as OBJ
 from vct_tpu_torch.scene.atrium import atrium
 from vct_tpu_torch.scene.mesh import scene_from_arrays, subdivide_scene
 from vct_tpu_torch.utils.image import write_png
+from vct_tpu_torch.utils.profiling import card_line
 
 JPEG_DIR = Path(__file__).resolve().parent / "scene" / "asset_jpeg"
 CAMERA = dict(position=(48.0, -10.0, 0.0), yaw=180.0)  # bench_asset_path:150
@@ -297,10 +297,7 @@ def main(argv=None) -> int:
             print("asset_path: CUDA is not available (--cpu runs on the "
                   "CPU)", file=sys.stderr)
             return 1
-        print(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip(), flush=True)
+        print(card_line(), flush=True)
     device = "cpu" if args.cpu else "cuda"
     with tempfile.TemporaryDirectory() as tmp:
         res, _ = run(args.dir or tmp, args.subdiv, device=device,

@@ -31,7 +31,6 @@ import argparse
 import dataclasses
 import json
 import statistics
-import subprocess
 import sys
 import time
 import warnings
@@ -44,6 +43,7 @@ from vct_tpu_torch.core import camera as CAM
 from vct_tpu_torch.render import fast as F
 from vct_tpu_torch.render import renderer as R
 from vct_tpu_torch.scene.mesh import subdivide_scene
+from vct_tpu_torch.utils.profiling import card_line
 
 BENCH_CAMERA = dict(position=(48.0, -10.0, 0.0), yaw=180.0)   # bench.py:122
 CAMERAS = {"cornell": dict(position=(3.0, 2.0, 40.0)),
@@ -165,11 +165,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_stages: CUDA is not available", file=sys.stderr)
         return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
-    print(card, flush=True)
+    print(card_line(), flush=True)
     cfg = preset(args.preset)
     cfg = dataclasses.replace(cfg, render=dataclasses.replace(
         cfg.render, width=1920, height=1080))

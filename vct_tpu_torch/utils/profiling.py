@@ -12,11 +12,25 @@ from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import sys
 import time
 from typing import List, Optional, Tuple
 
 import torch
+
+
+def card_line() -> str:
+    """nvidia-smi's name and power limit of the first card ("NVIDIA H100
+    80GB HBM3, 700.00 W"): every figure on the card is kept beside it.
+    Raises where nvidia-smi fails."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if res.returncode != 0 or not res.stdout.strip():
+        raise RuntimeError(f"nvidia-smi: {res.stderr.strip()}")
+    return res.stdout.strip().splitlines()[0]
 
 
 def sync(x) -> None:
