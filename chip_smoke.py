@@ -11,7 +11,7 @@ Phases, each reported on its own lines:
       raycast, binned raycast, specular march, prepass and material
       kernels the registers, spill and shared bytes and resident warps
       per SM the card reports;
-  (c) eleven paths at full width, each through prepare_scene ->
+  (c) twelve paths at full width, each through prepare_scene ->
       build_voxel_state (-> build_frame_tables on the fast path) ->
       render_camera_pass with every kernel's launch count set to 0 just
       before and read just after, and each naming the kernels it must
@@ -126,6 +126,17 @@ Phases, each reported on its own lines:
            128), failing unless its four bounds hold; on 11b's own inputs
            the whole-table raycast against raycast_plain and the specular
            march against spec_march_plain;
+       12. the scaling sweep and the forward step (chip_smoke.scaling_path):
+           vct_tpu_torch.bench_scaling.run, strong and weak, at
+           bench_scaling.py's defaults (64^3 float32, 512x512, the Cornell
+           box, 1, 2, 4 and 8 ranks spawned on the card over gloo, 3
+           reps), each record's work held to bench_scaling.py's formulas,
+           0 torch.distributed calls in the camera pass, 12 mip launches
+           a rank's build and no other kernel, the march slabs of 2 ranks
+           gathered bit-equal to one rank's march; then
+           vct_tpu_torch.entry.entry()'s forward (cornell64_full at 32^3,
+           64x64) on the card against its CPU run (test_torch_oracle.py's
+           render_rays bounds), mip 10;
       then per path: timings, a small render on the card against the
       plain PyTorch path on the CPU, and for Cornell a determinism check,
       the whole-table raycast against its plain version (hit, material id
@@ -159,7 +170,8 @@ Phases, each reported on its own lines:
   (d) the result: a JSON line of kernels (each row's `launches` from the
       path its times were taken on, `launches_path10` from path 10's run
       from the load to the first frame, `launches_path11` from 11a and
-      11b), then {"ok": true, ...} last.
+      11b, `launches_path12` from path 12's ranks and its entry() run),
+      then {"ok": true, ...} last.
 Any failure raises: the script exits non-zero and prints no result line.
 It exits non-zero at once when CUDA is unavailable.
 """
@@ -1882,6 +1894,111 @@ def operating_point_path(h, dev, dim=256, size=(WIDTH, HEIGHT), subdiv=4,
     return launches, res
 
 
+ENTRY_BOUNDS = (1e-4, 1e-3)   # (mean, p99): test_torch_oracle.py's render_rays
+
+
+def scaling_path(h, dev, settings=None, counts=None):
+    """Path 12: vct_tpu_torch.bench_scaling.run, strong and weak, at
+    bench_scaling.py's defaults (64^3 float32, 512x512, the Cornell box
+    from (3, 2, 140), counts 1, 2, 4, 8, 3 reps), each count's ranks
+    spawned on the card over gloo; then vct_tpu_torch.entry.entry()'s
+    forward once on the card and on the CPU.  Fails unless every
+    record's rays and cone samples equal bench_scaling.py's formulas
+    (:140, :173, written out here), the camera pass makes no
+    torch.distributed call, each rank's build launches mip twice a level
+    (both pyramids) and no rank launches another kernel, at 2 ranks the
+    gathered march slabs equal one rank's march bit for bit, and the
+    entry image is finite and within test_torch_oracle.py's render_rays
+    bounds of its CPU run.  Returns (the launches of the path: the
+    ranks' summed over every record, plus entry()'s in this process,
+    the results)."""
+    from vct_tpu_torch import bench_scaling as BS
+    from vct_tpu_torch import entry as E
+    from vct_tpu_torch.core import dense as D
+    from vct_tpu_torch.render import shading
+
+    t12 = time.perf_counter()
+    settings = settings or BS.Settings()
+    counts = counts or BS.COUNTS
+    cfg = BS.config(settings.dim, settings.width, settings.height)
+    steps = shading.diffuse_schedule(cfg).num_steps
+    nb = D.direction_basis(cfg.cones.field_basis).shape[0]
+    levels = cfg.grid.num_levels - 1
+    h.reset_counts()
+    launches = {k: 0 for k in h.counters}
+    records = {}
+    for mode in BS.MODES:
+        t0 = time.perf_counter()
+        recs = BS.run(counts, mode, dev, settings, check=(2,))
+        records[mode] = recs
+        for rec in recs:
+            n = rec["devices"]
+            h.say(f"12 {mode} n={n}: " + json.dumps(rec))
+            rows = settings.height * n if mode == "weak" else settings.height
+            dirs = nb * n if mode == "weak" else nb
+            want = (settings.width * rows, dirs * steps * settings.dim ** 3)
+            if (rec["rays"], rec["cone_samples"]) != want:
+                fail(f"12 {mode} n={n}: work {rec['rays']}, "
+                     f"{rec['cone_samples']}, expected {want}")
+            if rec["collective_calls"] != 0:
+                fail(f"12 {mode} n={n}: the camera pass made "
+                     f"{rec['collective_calls']} torch.distributed calls")
+            if rec["levels"] != levels or rec["mip_launches"] != [
+                    2 * levels] * n:
+                fail(f"12 {mode} n={n}: mip launches a rank "
+                     f"{rec['mip_launches']}, expected {2 * levels} (2 x "
+                     f"{levels} levels)")
+            others = {k: v for k, v in rec["launches"].items()
+                      if k != "mip" and v}
+            if others:
+                fail(f"12 {mode} n={n}: the ranks launched {others}")
+            if not all(0 < rec[k] < float("inf") for k in (
+                    "rays_per_s", "cone_samples_per_s")):
+                fail(f"12 {mode} n={n}: a throughput is not finite")
+            if n == 2:
+                chk = rec["march_check"]
+                if not chk["bit_equal"]:
+                    fail(f"12 {mode} n=2: the gathered march slabs differ "
+                         f"from one rank's march, max_abs_err "
+                         f"{chk['max_abs_err']:.3e}")
+            for k in launches:
+                launches[k] += rec["launches"].get(k, 0)
+        h.say(f"12 {mode}: {[r['devices'] for r in recs]} ranks in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- entry(): the forward step on the card against the CPU ---------
+    t0 = time.perf_counter()
+    forward, args = E.entry(device=dev)
+    img = forward(*args)
+    h.sync()
+    entry_launches = h.read_counts()
+    forward_c, args_c = E.entry(device="cpu")
+    ref = forward_c(*args_c)
+    err = (img.cpu() - ref).abs().flatten()
+    mean, p99 = float(err.mean()), float(torch.quantile(err, 0.99))
+    h.say(f"12 entry(): image {tuple(img.shape)}, finite "
+          f"{bool(torch.isfinite(img).all())}, mean {float(img.mean()):.6f}; "
+          f"against its CPU run mean {mean:.3e}, p99 {p99:.3e}, max "
+          f"{float(err.max()):.3e} (bounds {ENTRY_BOUNDS}); launches "
+          + json.dumps(entry_launches) + f"; {time.perf_counter() - t0:.1f} s")
+    entry_levels = E.DIM.bit_length() - 1      # 32 -> 1: 5 downsamples
+    if entry_launches["mip"] != 2 * entry_levels or any(
+            v for k, v in entry_launches.items() if k != "mip"):
+        fail(f"12 entry(): launches {entry_launches}, expected mip "
+             f"{2 * entry_levels} and no other kernel")
+    if not (img.shape == (E.HEIGHT, E.WIDTH, 3)
+            and bool(torch.isfinite(img).all())
+            and mean < ENTRY_BOUNDS[0] and p99 < ENTRY_BOUNDS[1]):
+        fail("12 entry(): the image is not its CPU run's")
+    for k in launches:
+        launches[k] += entry_launches[k]
+    res = dict(records=records, entry=dict(mean=mean, p99=p99),
+               path_s=time.perf_counter() - t12)
+    h.say(f"12 launches: {json.dumps(launches)}; path 12 took "
+          f"{res['path_s']:.1f} s")
+    return launches, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1901,15 +2018,10 @@ def main() -> int:
     from vct_tpu_torch.scene.atrium import atrium
     from vct_tpu_torch.scene.cornell import cornell_box
     from vct_tpu_torch.scene.mesh import subdivide_scene
+    from vct_tpu_torch.bench_scaling import COUNTERS
     from vct_tpu_torch.utils.profiling import card_line
 
-    counters = {"mip": (mip, "LAUNCHES"), "raycast": (raycast, "LAUNCHES"),
-                "prepass": (prepass, "LAUNCHES"), "tap": (tap, "LAUNCHES"),
-                "material": (material, "LAUNCHES"),
-                "raycast_stream": (raycast, "STREAM_LAUNCHES"),
-                "binrast": (binrast, "LAUNCHES"),
-                "specmarch": (specmarch, "LAUNCHES"),
-                "mip_bwd": (mip, "BWD_LAUNCHES")}
+    counters = COUNTERS        # every kernel wrapper's launch counter
 
     def reset_counts():
         for mod, attr in counters.values():
@@ -3098,6 +3210,19 @@ def main() -> int:
         f"{b11['raycast_ms']:.4f}, march {b11['march_achieved_gbps']:.1f} "
         f"GB/s; fidelity " + json.dumps(
             {k: round(f11[k], 6) for k in FIDELITY_KEYS}))
+
+    # ---- (c12) the scaling sweep and the forward step -------------------
+    launches12, r12 = scaling_path(hp8, dev)
+    for row in report:
+        row["launches_path12"] = launches12[row["name"]]
+    for mode, recs in r12["records"].items():
+        say(f"path 12 {mode} on {card}, n ranks of one card over gloo: "
+            + json.dumps([{k: r.get(k) for k in (
+                "devices", "rays_per_s", "rays_scaling_efficiency",
+                "cone_samples_per_s", "samples_scaling_efficiency",
+                "rays_weak_overhead_efficiency",
+                "samples_weak_overhead_efficiency", "t_camera_ms",
+                "t_march_ms", "staged_bytes")} for r in recs]))
 
     say(f"path 8 on {card}: 8a build ms {r8['8a']['build_ms']:.3f}, frame "
         f"ms {r8['8a']['frame_ms']:.3f}, prepare ms "

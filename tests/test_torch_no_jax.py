@@ -13,11 +13,13 @@ at 16^3 / 16x16, on CPU tensors), and runs `python -m vct_tpu_torch
 render --cpu` at 16^3 (the CLI, with parallel/ and utils/ imported
 among every module), and runs the asset path (vct_tpu_torch.asset_path:
 the atrium written as an OBJ with 20 textured materials, parsed and
-sampled by vct_tpu_torch.native) at 16^3 / 32x24.  No source of the port or of
-chip_smoke.py imports either.
+sampled by vct_tpu_torch.native) at 16^3 / 32x24; and, in a script of its
+own, entry()'s forward and a one-rank scaling sweep.  No source of the
+port or of chip_smoke.py imports either.
 Also the ops' device rule and the entry points' default device, which
 need no card to check."""
 
+import os
 import pathlib
 import subprocess
 import sys
@@ -26,6 +28,7 @@ import textwrap
 import pytest
 import torch
 
+from vct_tpu_torch import entry
 from vct_tpu_torch.config import preset
 from vct_tpu_torch.core import camera as CAM
 from vct_tpu_torch.ops import (_build, binrast, material, mip, prepass,
@@ -209,16 +212,53 @@ def test_bench_and_fidelity_without_jax():
             "'specular_percone_kernel_rel_rms']") in res.stdout
 
 
+SCALING_ENTRY = BLOCK + textwrap.dedent("""
+    import torch
+    torch.set_num_threads(1)
+    from vct_tpu_torch import bench_scaling, entry
+
+    if __name__ == "__main__":      # the spawned rank imports this file
+        forward, args = entry.entry(device="cpu")
+        img = forward(*args)
+        assert bool(torch.isfinite(img).all())
+        print("entry", tuple(img.shape))
+        recs = bench_scaling.run(
+            counts=(1,), mode="weak", device="cpu",
+            settings=bench_scaling.Settings(16, 32, 32, 1))
+        print("scaling", recs[0]["devices"], recs[0]["rays"],
+              recs[0]["collective_calls"])
+    assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
+""")
+
+
+def test_scaling_and_entry_without_jax(tmp_path):
+    """vct_tpu_torch.entry's forward (its 32^3, 64x64 setup) and a
+    one-rank sweep of vct_tpu_torch.bench_scaling at 16^3 run with jax
+    and vct_tpu blocked (the rank is a spawned process: the script runs
+    as a file)."""
+    script = tmp_path / "scaling_entry.py"
+    script.write_text(SCALING_ENTRY)
+    res = subprocess.run([sys.executable, str(script)], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                             [str(ROOT), os.environ.get("PYTHONPATH", "")])),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "entry (64, 64, 3)" in res.stdout
+    assert "scaling 1 1024 0" in res.stdout
+
+
 @pytest.mark.parametrize("module", ["vct_tpu_torch.bench",
-                                    "vct_tpu_torch.fidelity"])
+                                    "vct_tpu_torch.fidelity",
+                                    "vct_tpu_torch.bench_scaling"])
 def test_operating_point_entry_points_refuse_the_cpu(module, tmp_path):
-    """Without CUDA, `python -m` of either exits non-zero and prints no
-    result (no CPU fallback)."""
+    """Without CUDA, `python -m` of each exits non-zero, prints no result
+    and writes no record (no CPU fallback)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     res = subprocess.run([sys.executable, "-m", module, *(
         ("--out", str(tmp_path / "f.json"))
         if module.endswith("fidelity") else ())], cwd=ROOT,
+        env=dict(os.environ, VCT_SCALING_RECORD=str(tmp_path / "f.json")),
         capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert res.stdout == "" and "CUDA is not available" in res.stderr
@@ -265,9 +305,10 @@ def _scene():
     lambda: R.render_image(preset("cornell64"), _scene()),
     lambda: GB.raycast(GB.DeviceScene.from_scene(_scene()),
                        [[0.0, 0.0, 140.0]], [[0.0, 0.0, -1.0]]).hit,
+    lambda: entry.entry()[1][0],
 ], ids=["primary_rays", "light_direction", "material_table",
         "device_scene", "samples", "prepare_scene", "render_image",
-        "raycast"])
+        "raycast", "entry"])
 def test_entry_points_default_to_the_card(call):
     """Named no device, an entry point puts its tensors on the card; on a
     machine without CUDA it raises rather than run on the CPU."""
@@ -283,7 +324,7 @@ def test_entry_point_defaults_name_cuda():
     for fn in (R.prepare_scene, R.MaterialTable.from_scene,
                R.SamplesDevice.from_samples, R.light_direction,
                GB.DeviceScene.from_scene, CAM.primary_rays, R.render_image,
-               GB.raycast, tile_dp.dryrun_multichip):
+               GB.raycast, tile_dp.dryrun_multichip, entry.entry):
         assert inspect.signature(fn).parameters["device"].default == \
             "cuda", fn.__qualname__
 

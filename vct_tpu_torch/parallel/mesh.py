@@ -152,13 +152,17 @@ def spawn(fn, world: int, *args) -> list:
             _rank_main, args=(fn, world, init, results, args),
             nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + SPAWN_TIMEOUT_S
+        done = False
         try:
-            while len(out) < world or not procs.join(timeout=0.1):
+            while not (done and len(out) == world):
                 try:
                     rank, value = results.get(timeout=0.1)
                     out[rank] = pickle.loads(value)
                 except queue.Empty:
                     pass
+                # every pass, so that a rank that exits with an error
+                # raises here at once (join ends the other ranks)
+                done = done or procs.join(timeout=0)
                 if time.monotonic() > deadline:
                     raise TimeoutError(f"spawn: ranks still running after "
                                        f"{SPAWN_TIMEOUT_S} s")
