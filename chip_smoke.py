@@ -8,9 +8,9 @@ Run from the repository root, on a machine with one CUDA card and nvcc:
 Phases, each reported on its own lines:
   (a) the card (nvidia-smi name and power limit), the kernel build with
       ptxas's registers and spills, and for the tap, raycast, streamed
-      raycast, binned raycast, specular march, prepass and material
-      kernels the registers, spill and shared bytes and resident warps
-      per SM the card reports;
+      raycast, binned raycast, specular march, prepass, material and
+      dense-march kernels the registers, spill and shared bytes and
+      resident warps per SM the card reports;
   (c) twelve paths at full width, each through prepare_scene ->
       build_voxel_state (-> build_frame_tables on the fast path) ->
       render_camera_pass with every kernel's launch count set to 0 just
@@ -33,7 +33,8 @@ Phases, each reported on its own lines:
         5. preset("cornell64_full") unchanged (64^3, 256x256, 6 diffuse
            and 1 specular cone a pixel) on the Cornell box from (0, 0,
            140) through the per-cone oracle render_rays: the build
-           launches the mip kernel and the frame none; build and frame
+           launches the mip kernel and the dense march (its light
+           volume), the frame none; build and frame
            times, the stage split, host syncs, peak memory and the
            profiler's busy share; cornell64 and inverse forward and the
            atrium under cornell64_full, each timed; a 32^3 render on the
@@ -71,25 +72,31 @@ Phases, each reported on its own lines:
            render against the CPU's plain run over the pixels whose PCF
            did not flip; 7b preset("aniso128") unchanged (128^3
            anisotropic mips, 512x512) on the Cornell box from (0, 0, 140)
-           (mip 7, the unlit chain), its pyramid against the CPU's, the
+           (mip 7, the unlit chain; the dense march once, the light
+           volume), its pyramid against the CPU's, the
            dense anisotropic march against cone_march at voxel centers
            at 32^3 (tests/test_aniso.py's bounds); 7c aniso128 with
-           field cones through the fast path (raycast, prepass, tap);
+           field cones through the fast path (raycast, prepass, tap; the
+           dense march 3 times in the build, held to its plain version on
+           the anisotropic stack);
            build split, frame ms, host syncs, peak memory and the
            profiler's busy and gather shares of 7a and 7b;
         8. parallel/ on preset("multihost512") (512^3 float32, 1920x1080,
            6 + 1 cones, volume shadows, a 4 x 2 ('data', 'model') mesh)
            on the atrium from the bench camera: 8a the preset on one rank
            (the mesh cut to 1 x 1) through render_rays, prepare ms, build
-           and frame split, syncs, peak memory, mip 18 in the build and
-           0 in the frame; 8b its model axis, 2 ranks on the card, the
-           512^3 build sharded (samples over 'model', the light volume
-           brick-sharded) against the unsharded one (test_brick.py's
-           bounds), halos, bytes staged and build ms per rank; 8c its
+           and frame split, syncs, peak memory, mip 18 and the dense
+           march once in the build and nothing in the frame; 8b its
+           model axis, 2 ranks on the card, the 512^3 build sharded
+           (samples over 'model', the light volume brick-sharded, one
+           dense-march launch a rank) against the unsharded one
+           (test_brick.py's bounds), halos, bytes staged and build ms
+           per rank; 8c its
            whole 4 x 2 mesh, 8 ranks on the card at 128^3, the
            tile-sharded camera pass (0 torch.distributed calls counted),
            its gathered image against one rank's (test_parallel.py's
-           bounds), mip 14 a rank in the build, and dryrun_multichip(8)
+           bounds), mip 14 and the dense march once a rank in the build,
+           and dryrun_multichip(8)
            with 3 falling losses and its mip and mip_bwd launches
            counted; the ranks share the card, so their process group is
            gloo and collectives stage through the host;
@@ -132,11 +139,12 @@ Phases, each reported on its own lines:
            box, 1, 2, 4 and 8 ranks spawned on the card over gloo, 3
            reps), each record's work held to bench_scaling.py's formulas,
            0 torch.distributed calls in the camera pass, 12 mip launches
-           a rank's build and no other kernel, the march slabs of 2 ranks
+           a rank's build, the dense march 3 times a rank's build and
+           once a timed march, no other kernel, the march slabs of 2 ranks
            gathered bit-equal to one rank's march; then
            vct_tpu_torch.entry.entry()'s forward (cornell64_full at 32^3,
            64x64) on the card against its CPU run (test_torch_oracle.py's
-           render_rays bounds), mip 10;
+           render_rays bounds), mip 10, the dense march once;
       then per path: timings, a small render on the card against the
       plain PyTorch path on the CPU, and for Cornell a determinism check,
       the whole-table raycast against its plain version (hit, material id
@@ -154,7 +162,14 @@ Phases, each reported on its own lines:
       and the diffuse-only tap on path 4's frame), with its time
       beside the plain one, the least time the card could take (bound),
       and, where one PyTorch call computes the same function, that
-      call's time (the whole-table and binned raycasts' bounds count the
+      call's time (the dense march at the operating point's three
+      marches, on path 2's own pyramids: the 256^3 light volume and the
+      two 128^3 x 26-direction fields, in bf16 and float32, each against
+      its plain version, its steps taken against the plain version's,
+      and the bf16 outputs against the build's; every build of paths
+      1-12 marches through it: 3 launches a sponza256 build, the
+      brick-sharded light volume once a rank in 8b and 8c, and path 10's
+      marches make no host sync; the whole-table and binned raycasts' bounds count the
       tests their per-tile cull leaves, `raycast.tile_cull_plain` and
       `binrast.walk_cull_plain`, beside the bound of every ray against
       every row; the binned kernel's own count of kept rows must equal
@@ -392,9 +407,12 @@ def inverse_path(h, base_cfg, dev):
     from vct_tpu_torch.core import grid as G
     from vct_tpu_torch.diff import inverse as I
     from vct_tpu_torch.core import cones as C
+    from vct_tpu_torch.core import dense as D
+    from vct_tpu_torch.ops import dense as OD
     from vct_tpu_torch.ops import (material, mip, prepass, raycast,
                                    specmarch, tap)
     from vct_tpu_torch.profile_stages import count_syncs
+    from vct_tpu_torch.render import shading
     from vct_tpu_torch.render import fast as F
     from vct_tpu_torch.render import renderer as R
     from vct_tpu_torch.scene import textures as TX
@@ -505,7 +523,8 @@ def inverse_path(h, base_cfg, dev):
                                                m.specular, m.shininess)
             g = raycast.raycast_gbuf24(d, origin, isect, attrs)
             out = dict(raycast=(d, origin, isect, attrs),
-                       fgrid=torch.cat(fields, dim=-1))
+                       fgrid=torch.cat(fields, dim=-1),
+                       march=v.radiance_mips)
             pkw = dict(light_dims=tuple(x.shape[0] for x in t.light_mips),
                        field_dims=tuple(x.shape[0] for x in t.field_mips),
                        voxel=voxel, world_size=ws,
@@ -575,7 +594,7 @@ def inverse_path(h, base_cfg, dev):
                               num_steps=INVERSE_STEPS)
         got = run_steps(base_cfg, s, inv, {name: leaf(starts[name])}, target,
                         INVERSE_STEPS, f"main path 6a ({name})",
-                        ("mip", "mip_bwd"))
+                        ("mip", "mip_bwd", "dense_march"))
         h.expect(got, (), nd, f"main path 6a ({name})")
         bwd_6a += got["mip_bwd"]
     unlit6, lit6 = s["voxels"].unlit_mips, s["voxels"].radiance_mips
@@ -600,7 +619,8 @@ def inverse_path(h, base_cfg, dev):
         if cpass == "fast":
             h.say("launches in one fast-pass loss and gradient:",
                   json.dumps(counts))
-            h.expect(counts, ("mip", "mip_bwd", "raycast", "prepass", "tap"),
+            h.expect(counts, ("mip", "mip_bwd", "raycast", "prepass", "tap",
+                              "dense_march"),
                      ("binrast", "raycast_stream", "material", "specmarch"),
                      "main path 6b gradient")
     (lx, gx), (lf, gf) = grads["xla"], grads["fast"]
@@ -638,7 +658,8 @@ def inverse_path(h, base_cfg, dev):
                               camera_pass="fast")
         got = run_steps(fcfg, s, inv, {name: leaf(fast_starts[name])},
                         target, INVERSE_STEPS, f"main path 6b ({name})",
-                        ("mip", "mip_bwd", "raycast", "prepass", "tap"))
+                        ("mip", "mip_bwd", "raycast", "prepass", "tap",
+                         "dense_march"))
         h.expect(got, (), ("binrast", "raycast_stream", "material",
                            "specmarch"), f"main path 6b ({name})")
     inputs_b = frame_inputs(fcfg, s)
@@ -663,7 +684,7 @@ def inverse_path(h, base_cfg, dev):
               f"{xcfg.grid.dim}^3, {xcfg.render.width}x"
               f"{xcfg.render.height}, the bench camera)",
               ("mip", "mip_bwd", "raycast", "prepass", "tap",
-               "material", "specmarch", "raycast_stream"))
+               "material", "specmarch", "raycast_stream", "dense_march"))
     inputs_c = frame_inputs(xcfg, s)
     del s, target, tex0
 
@@ -764,6 +785,25 @@ def inverse_path(h, base_cfg, dev):
         lambda inp: specmarch.spec_march_plain(inp[0], inp[1], slv, swt,
                                                inp[2], **skw),
         (s4.shape[0], 4))
+    # the dense march: 6b's diffuse field from its radiance pyramid, the
+    # kernel's forward and the plain version's replay (DenseMarch)
+    dmips = inputs_b["march"]
+    dplan = D.march_plan(
+        dmips, D.direction_basis(fcfg.cones.field_basis),
+        shading.diffuse_schedule(fcfg), fcfg.grid.world_size,
+        field_dim=shading.field_dim(fcfg), max_alpha=fcfg.cones.max_alpha,
+        occlusion_falloff=fcfg.cones.occlusion_falloff,
+        compute_dtype=shading.march_compute_dtype(fcfg))
+
+    def make_march():
+        flat, views = packed(dmips)
+        return [flat], views
+
+    bwd_ms["dense_march"] = route(
+        "dense_march", make_march,
+        lambda inp: OD.DenseMarch.apply(dplan, OD.dense_march_cuda, *inp),
+        lambda inp: OD.dense_march_plain(inp, dplan),
+        dplan.shape + (dplan.nb * dplan.channels,))
 
     # the mip backward kernel against downsample2x_bwd_plain on the path's
     # own grids: each level of 6a's 64^3 unlit (max) and lit (mean)
@@ -939,6 +979,113 @@ def measure(h, cfg, q, what, chunks=None):
     return out
 
 
+DENSE_REPS = 5            # the dense march's timing samples, one launch each
+
+
+def dense_path(h, cfg, voxels):
+    """The dense-march kernel (csrc/dense.cu) against its plain version on
+    the card at the operating point's three marches, built from this
+    config's own pyramids as build_voxel_state marches them: the light
+    volume over the unlit (max-alpha) pyramid, the diffuse and the
+    specular field over the radiance pyramid, each in bfloat16 (the
+    preset's compute, its outputs held equal to the build's) and in
+    float32.  Per march: the cells, directions and steps, the steps the
+    kernel took before its early-outs (its own count, held equal to the
+    plain version's), max error and unequal elements, the kernel's time
+    (CUDA events around one launch), the plain version's, and the bound
+    from ops/dense.march_work.  The kernels line's row is the bfloat16
+    build's three marches together."""
+    from vct_tpu_torch import bench
+    from vct_tpu_torch.core import dense as D
+    from vct_tpu_torch.ops import dense as OD
+    from vct_tpu_torch.render import shading
+
+    light = np.asarray(cfg.light.direction, np.float64)
+    light = (light / np.linalg.norm(light))[None]
+    basis = D.direction_basis(cfg.cones.field_basis)
+    ws, df = cfg.grid.world_size, shading.field_dim(cfg)
+    field_kw = dict(field_dim=df, max_alpha=cfg.cones.max_alpha,
+                    occlusion_falloff=cfg.cones.occlusion_falloff)
+    marches = (
+        ("light volume", voxels.unlit_mips, light,
+         shading.shadow_schedule(cfg),
+         dict(field_dim=cfg.grid.dim, opacity_gain=cfg.shadow.opacity_gain,
+              transmittance_only=True), voxels.light_volume),
+        ("diffuse field", voxels.radiance_mips, basis,
+         shading.diffuse_schedule(cfg), field_kw, voxels.diffuse_field),
+        ("specular field", voxels.radiance_mips, basis,
+         shading.specular_field_schedule(cfg), field_kw,
+         voxels.specular_field))
+    samples = sum(int(np.prod(out.shape[:3])) * dirs.shape[0]
+                  * sched.num_steps
+                  for _, _, dirs, sched, _, out in marches)
+    if samples != bench.count_dense_samples(cfg):
+        fail(f"the three marches hold {samples} samples, not "
+             f"bench.count_dense_samples' {bench.count_dense_samples(cfg)}")
+    err, row = 0.0, None
+    for compute in (torch.bfloat16, torch.float32):
+        runs, nbytes, ops = [], 0, 0
+        for what, mips, dirs, sched, kw, built in marches:
+            plan = D.march_plan(mips, dirs, sched, ws, compute_dtype=compute,
+                                **kw)
+            wk = torch.empty(plan.shape + (plan.nb,), dtype=torch.int32,
+                             device=mips[0].device)
+            wp = torch.empty_like(wk)
+            out_k = OD.dense_march_cuda(mips, plan, wk)
+            out_p = OD.dense_march_plain(mips, plan, wp)
+            e = h.maxerr(out_k, out_p)
+            err = max(err, e)
+            unequal = int((out_k != out_p).sum())
+            same_walk = torch.equal(wk, wp)
+            # the build marches in the preset's bfloat16
+            as_built = (torch.equal(out_k, built)
+                        if compute == torch.bfloat16 else None)
+            b, o = OD.march_work(mips, plan, wk)
+            nbytes, ops = nbytes + b, ops + o
+            bms, by = bound(b, o, FP32_RN_OPS_PER_S)
+            ms = elapsed_ms(lambda: OD.dense_march_cuda(mips, plan),
+                            DENSE_REPS)
+            plain_ms = elapsed_ms(lambda: OD.dense_march_plain(mips, plan),
+                                  PLAIN_REPS)
+            steps = plan.nb * int(np.prod(plan.shape)) * len(plan.steps)
+            h.say(f"dense march, {what}, {str(compute)[6:]}: "
+                  f"{plan.shape[0]}^3 cells x {plan.nb} directions x "
+                  f"{len(plan.steps)} steps ({steps} samples, "
+                  f"{plan.idx.shape[1]} taps a direction), "
+                  f"{int(wk.sum())} steps taken before the early-outs (the "
+                  f"kernel's count equal to the plain version's "
+                  f"{same_walk}); max_abs_err {e:.3e} (tolerance 1e-6), "
+                  f"{unequal} elements not bit-equal of {out_k.numel()}; "
+                  f"the build's output equal {as_built} (None: the build "
+                  f"marches in bfloat16); kernel "
+                  f"{statistics.median(ms):.4f} ms (median over {ms}), plain "
+                  f"{statistics.median(plain_ms):.3f} ms; bound {bms:.4f} ms "
+                  f"({by}: {b:.4g} B, {o:.4g} ops at {FP32_RN_OPS_PER_S:.4g}"
+                  f"/s)")
+            if not (e <= 1e-6 and same_walk and as_built is not False):
+                fail(f"the dense-march kernel disagrees with its plain "
+                     f"version on the {what} ({compute})")
+            runs.append((mips, plan))
+            del out_k, out_p, wk, wp
+
+        def all_kernel(runs=runs):
+            for mips, plan in runs:
+                OD.dense_march_cuda(mips, plan)
+
+        def all_plain(runs=runs):
+            for mips, plan in runs:
+                OD.dense_march_plain(mips, plan)
+
+        if compute == torch.bfloat16:
+            row = (all_kernel, all_plain, nbytes, ops)
+    all_kernel, all_plain, nbytes, ops = row
+    h.kernel_row("dense_march", "vct_tpu_torch/ops/csrc/dense.cu",
+                 "vct_tpu/core/dense.py:134", err, 1e-6,
+                 elapsed_ms(all_kernel, DENSE_REPS),
+                 elapsed_ms(all_plain, PLAIN_REPS), nbytes, ops,
+                 rate=FP32_RN_OPS_PER_S)
+
+
 def mip_check(h, chains, what):
     """The mip kernel at this path's shapes, as path 5 holds it: each
     level of the path's own pyramids (mips, alpha mode) through the
@@ -977,12 +1124,14 @@ def map_aniso_path(h, dev):
     from vct_tpu_torch.core import camera as CAM
     from vct_tpu_torch.core import dense as D
     from vct_tpu_torch.core import march as M
+    from vct_tpu_torch.ops import dense as OD
     from vct_tpu_torch.ops import prepass as PP
     from vct_tpu_torch.ops import raycast as RC
     from vct_tpu_torch.ops import tap as TP
     from vct_tpu_torch.render import fast as F
     from vct_tpu_torch.render import gbuffer as GB
     from vct_tpu_torch.render import renderer as R
+    from vct_tpu_torch.render import shading
     from vct_tpu_torch.render import shadowmap as SM
     from vct_tpu_torch.scene.atrium import atrium
     from vct_tpu_torch.scene.cornell import cornell_box
@@ -1079,7 +1228,12 @@ def map_aniso_path(h, dev):
     if build_b["mip"] != levels or frame_b["mip"] != 0:
         fail(f"7b: mip launches {build_b['mip']} in the build (expected "
              f"{levels}: the unlit chain) and {frame_b['mip']} in the frame")
-    h.expect(build_b, (), only_mip, "7b build")
+    # the light volume, through the dense-march kernel, once
+    if build_b["dense_march"] != 1:
+        fail(f"7b: dense-march launches {build_b['dense_march']} in the "
+             f"build, expected 1 (the light volume)")
+    h.expect(build_b, (), tuple(k for k in only_mip if k != "dense_march"),
+             "7b build")
     h.expect(frame_b, (), only_mip, "7b frame")
     mip_check(h, ((qb["voxels"].unlit_mips, "max"),), "7b")
     rad = qb["voxels"].radiance_mips
@@ -1118,8 +1272,9 @@ def map_aniso_path(h, dev):
                         - (1e-5 + 1e-4 * color.abs())).max()),
                  float(((field[..., 3] - occ).abs()
                         - (1e-5 + 1e-4 * occ.abs())).max()))
-    h.say(f"7b dense anisotropic march (32^3, {sched.num_steps} steps) "
-          f"against cone_march at the voxel centers on the card: max "
+    h.say(f"7b dense anisotropic march (32^3, {sched.num_steps} steps, "
+          f"the dense-march kernel) against cone_march at the voxel "
+          f"centers on the card: max "
           f"error {h.maxerr(field[..., :3], color):.3e} color, "
           f"{h.maxerr(field[..., 3], occ):.3e} occlusion; largest excess "
           f"over atol 1e-5 + rtol 1e-4: {excess:.3e} (must be <= 0)")
@@ -1135,7 +1290,31 @@ def map_aniso_path(h, dev):
     qc, build_c, frame_c = drive(h, dev, fcfg, cornell_box(size=100.0),
                                  ocam, "7c aniso128 field", fast=True)
     h.expect(build_c, ("mip",), (), "7c build")
+    # the light volume and both fields over the anisotropic stack
+    if build_c["dense_march"] != 3:
+        fail(f"7c: dense-march launches {build_c['dense_march']} in the "
+             f"build, expected 3")
     h.expect(frame_c, ("raycast", "prepass", "tap"), (), "7c frame")
+    # the dense-march kernel against its plain version on 7c's own
+    # anisotropic stack: the build's diffuse field, bit for bit expected
+    vc = qc["voxels"]
+    aplan = D.march_plan(
+        vc.radiance_mips, D.direction_basis(fcfg.cones.field_basis),
+        shading.diffuse_schedule(fcfg), fcfg.grid.world_size,
+        field_dim=shading.field_dim(fcfg), max_alpha=fcfg.cones.max_alpha,
+        occlusion_falloff=fcfg.cones.occlusion_falloff,
+        compute_dtype=shading.march_compute_dtype(fcfg))
+    ak = OD.dense_march_cuda(vc.radiance_mips, aplan)
+    aerr = h.maxerr(ak, OD.dense_march_plain(vc.radiance_mips, aplan))
+    h.say(f"7c dense-march kernel on the anisotropic stack "
+          f"({[tuple(m.shape) for m in vc.radiance_mips[:2]]}..., "
+          f"{aplan.nb} directions, {len(aplan.steps)} steps): max_abs_err "
+          f"{aerr:.3e} against its plain version (tolerance 1e-6), the "
+          f"build's diffuse field equal {torch.equal(ak, vc.diffuse_field)}")
+    if not (aerr <= 1e-6 and torch.equal(ak, vc.diffuse_field)):
+        fail("7c: the dense-march kernel disagrees on the anisotropic "
+             "stack")
+    del ak
     # each kernel of 7c at the path's own shapes: the pyramids of the
     # build and of the frame tables, and the frame's G-buffer, prepass and
     # taps on its own tables (paths 1-4's comparisons)
@@ -1246,7 +1425,7 @@ def rank_8b(dev_type: str, dim: int, width: int, height: int) -> dict:
     atrium at dim^3 (samples over 'model', the light volume
     brick-sharded), and on rank 0 the unsharded build beside it."""
     import torch.distributed as dist
-    from vct_tpu_torch.ops import mip
+    from vct_tpu_torch.ops import dense, mip
     from vct_tpu_torch.parallel import brick, comm
     from vct_tpu_torch.parallel import mesh as ML
     from vct_tpu_torch.render import renderer as R
@@ -1266,13 +1445,14 @@ def rank_8b(dev_type: str, dim: int, width: int, height: int) -> dict:
         2)
     rank_sync(dev)
     dist.barrier()
-    comm.STAGED_BYTES, mip.LAUNCHES = 0, 0
+    comm.STAGED_BYTES, mip.LAUNCHES, dense.LAUNCHES = 0, 0, 0
     t0 = time.perf_counter()
     state = R.build_voxel_state(cfg, samples, mats, mesh=mesh)
     rank_sync(dev)
     out = dict(rank=rank, backend=str(dist.get_backend()),
                build_ms=(time.perf_counter() - t0) * 1e3,
                staged_bytes=comm.STAGED_BYTES, mip=mip.LAUNCHES,
+               dense=dense.LAUNCHES,
                samples=samples.positions.shape[0],
                halos=halos, sharded=sharded)
     if rank == 0:
@@ -1295,7 +1475,7 @@ def rank_8c(dev_type: str, dim: int, width: int, height: int) -> dict:
     import torch.distributed as dist
     from vct_tpu_torch.core import camera as CAM
     from vct_tpu_torch.core import grid as G
-    from vct_tpu_torch.ops import mip
+    from vct_tpu_torch.ops import dense, mip
     from vct_tpu_torch.parallel import comm
     from vct_tpu_torch.parallel import mesh as ML
     from vct_tpu_torch.parallel import tile_dp
@@ -1313,12 +1493,12 @@ def rank_8c(dev_type: str, dim: int, width: int, height: int) -> dict:
     cam = G.constant(bench.position, dev)
     rank_sync(dev)
     dist.barrier()
-    comm.STAGED_BYTES, mip.LAUNCHES = 0, 0
+    comm.STAGED_BYTES, mip.LAUNCHES, dense.LAUNCHES = 0, 0, 0
     t0 = time.perf_counter()
     state = tile_dp.sharded_build_fn(cfg, mesh)(samples, mats)
     rank_sync(dev)
     build_ms = (time.perf_counter() - t0) * 1e3
-    staged, mips = comm.STAGED_BYTES, mip.LAUNCHES
+    staged, mips, marches = comm.STAGED_BYTES, mip.LAUNCHES, dense.LAUNCHES
     levels = len(state.radiance_mips) - 1
     camera = tile_dp.shardmap_camera_fn(cfg, ds, mesh, chunk_size=CHUNK)
     t0 = time.perf_counter()
@@ -1330,7 +1510,7 @@ def rank_8c(dev_type: str, dim: int, width: int, height: int) -> dict:
     out = dict(rank=rank, coord=(mesh.get_local_rank("data"),
                                  mesh.get_local_rank("model")),
                build_ms=build_ms, staged_bytes=staged, mip=mips,
-               levels=levels, camera_ms=camera_ms, camera_calls=dict(calls),
+               dense=marches, levels=levels, camera_ms=camera_ms, camera_calls=dict(calls),
                rows=tuple(rows.shape))
     del state, rows
     if rank == 0:
@@ -1391,7 +1571,11 @@ def multihost_path(h, dev, dim_a=512, dim_c=DIM_8C, size=(WIDTH, HEIGHT)):
     if build_a["mip"] != 2 * levels or frame_a["mip"] != 0:
         fail(f"8a: mip launches {build_a['mip']} in the build (expected "
              f"{2 * levels}) and {frame_a['mip']} in the frame (expected 0)")
-    h.expect(build_a, (), only_mip, "8a build")
+    if build_a["dense_march"] != 1:
+        fail(f"8a: dense-march launches {build_a['dense_march']} in the "
+             f"build, expected 1 (the light volume)")
+    h.expect(build_a, (), tuple(k for k in only_mip if k != "dense_march"),
+             "8a build")
     h.expect(frame_a, (), only_mip, "8a frame")
     mip_check(h, ((qa["voxels"].unlit_mips, "max"),
                   (qa["voxels"].radiance_mips, "mean")), "8a")
@@ -1415,7 +1599,9 @@ def multihost_path(h, dev, dim_a=512, dim_c=DIM_8C, size=(WIDTH, HEIGHT)):
           f"{json.dumps(r0['sharded'])}; per rank build ms "
           f"{[round(r['build_ms'], 3) for r in ranks]}, bytes staged "
           f"through the host {[r['staged_bytes'] for r in ranks]}, mip "
-          f"launches {[r['mip'] for r in ranks]}; path 8b "
+          f"launches {[r['mip'] for r in ranks]}, dense-march launches "
+          f"(the brick-sharded light volume) {[r['dense'] for r in ranks]}; "
+          f"path 8b "
           f"{time.perf_counter() - t0:.1f} s")
     h.say("8b sharded against unsharded on rank 0: light volume "
           + json.dumps(r0["light_volume"]) + f" (rtol/atol {LIGHT_TOL}), "
@@ -1427,6 +1613,9 @@ def multihost_path(h, dev, dim_a=512, dim_c=DIM_8C, size=(WIDTH, HEIGHT)):
         fail("8b: level 0 did not shard")
     if any(r["mip"] != 2 * levels for r in ranks):
         fail("8b: a rank did not launch the mip kernel for both pyramids")
+    if any(r["dense"] != 1 for r in ranks):
+        fail("8b: a rank did not march its light-volume slab through the "
+             "dense-march kernel once")
     result["8b"] = dict(build_ms=[r["build_ms"] for r in ranks],
                         staged_bytes=[r["staged_bytes"] for r in ranks],
                         light=r0["light_volume"], radiance=r0["radiance"])
@@ -1440,7 +1629,8 @@ def multihost_path(h, dev, dim_a=512, dim_c=DIM_8C, size=(WIDTH, HEIGHT)):
           f"(data, model) {[r['coord'] for r in ranks]}, build ms "
           f"{[round(r['build_ms'], 1) for r in ranks]}, bytes staged "
           f"{[r['staged_bytes'] for r in ranks]}, mip launches "
-          f"{[r['mip'] for r in ranks]}, camera pass ms "
+          f"{[r['mip'] for r in ranks]}, dense-march launches "
+          f"{[r['dense'] for r in ranks]}, camera pass ms "
           f"{[round(r['camera_ms'], 1) for r in ranks]} for rows "
           f"{ranks[0]['rows']}, torch.distributed calls in the camera pass "
           f"{[r['camera_calls'] for r in ranks]}")
@@ -1456,6 +1646,9 @@ def multihost_path(h, dev, dim_a=512, dim_c=DIM_8C, size=(WIDTH, HEIGHT)):
     if any(r["mip"] != 2 * r["levels"] for r in ranks):
         fail("8c: a rank did not launch the mip kernel once a level for "
              "both pyramids")
+    if any(r["dense"] != 1 for r in ranks):
+        fail("8c: a rank did not march its light-volume slab through the "
+             "dense-march kernel once")
     # each step builds both pyramids and differentiates the radiance
     # one; the field build after the steps builds both again
     dry = (2 * DRYRUN_LEVELS * (DRYRUN_STEPS + 1),
@@ -1481,14 +1674,14 @@ def multihost_path(h, dev, dim_a=512, dim_c=DIM_8C, size=(WIDTH, HEIGHT)):
 CLI_WRAPPER = """
 import json, runpy
 runpy.run_module("vct_tpu_torch", run_name="__main__", alter_sys=True)
-from vct_tpu_torch.ops import (binrast, material, mip, prepass, raycast,
-                               specmarch, tap)
+from vct_tpu_torch.ops import (binrast, dense, material, mip, prepass,
+                               raycast, specmarch, tap)
 print("launches " + json.dumps({
     "mip": mip.LAUNCHES, "raycast": raycast.LAUNCHES,
     "prepass": prepass.LAUNCHES, "tap": tap.LAUNCHES,
     "material": material.LAUNCHES, "raycast_stream": raycast.STREAM_LAUNCHES,
     "binrast": binrast.LAUNCHES, "specmarch": specmarch.LAUNCHES,
-    "mip_bwd": mip.BWD_LAUNCHES}))
+    "mip_bwd": mip.BWD_LAUNCHES, "dense_march": dense.LAUNCHES}))
 """
 
 
@@ -1525,8 +1718,8 @@ def cli_path(h, out_dir, extra=()):
                     str(png)])
     h.say("9 render launches: " + json.dumps(launches))
     h.expect(launches, ("mip", "raycast", "raycast_stream", "prepass",
-                        "material", "tap"), ("binrast", "specmarch"),
-             "CLI render")
+                        "material", "tap", "dense_march"),
+             ("binrast", "specmarch"), "CLI render")
     img = read_png(str(png))
     h.say(f"9 render wrote {png.name} {img.shape}, mean {img.mean():.3f}")
     if img.shape[:2] != (HEIGHT, WIDTH) or not img.mean() > 1.0:
@@ -1553,7 +1746,10 @@ ASSET_TRIS = 287_232
 ASSET_SAMPLES = 11_283_968     # at 256^3, 2 samples a voxel width
 ASSET_REPS = 5                 # timed frames after the warm-up
 ASSET_PHASES = ("load", "prepare", "build", "tables", "frame")
-ASSET_KERNELS = ("mip", "binrast", "prepass", "material", "tap")
+ASSET_KERNELS = ("mip", "binrast", "prepass", "material", "tap",
+                 "dense_march")
+# the build's stages that march, one dense-march launch each
+MARCH_STAGES = ("light_volume", "diffuse_field", "specular_field")
 
 
 def asset_path(h, dev, cfg, subdiv=ASSET_SUBDIV,
@@ -1619,6 +1815,10 @@ def asset_path(h, dev, cfg, subdiv=ASSET_SUBDIV,
         fail("10: the build or the tables launched no mip")
     if phases["frame"]["binrast"] != 1 or phases["frame"]["tap"] != 1:
         fail("10: the frame must launch binrast and tap once each")
+    if phases["build"]["dense_march"] != len(MARCH_STAGES):
+        fail(f"10: the build launched the dense march "
+             f"{phases['build']['dense_march']} times, not "
+             f"{len(MARCH_STAGES)}")
     h.check_image(st["img"], "asset path", (cfg.render.width,
                                             cfg.render.height))
     h.say(f"10 image: finite, mean {res['image_mean']:.6f}")
@@ -1773,8 +1973,14 @@ def asset_path(h, dev, cfg, subdiv=ASSET_SUBDIV,
              "frame": syncs_by_stage(lambda: F.render_frame(
                  cfg, ds, tables, mats, st["origins"], st["dirs"],
                  st["cam"]))}
-    h.say(f"10 on {h.card}: host syncs by stage " + json.dumps(syncs))
     res["syncs"] = {k: sum(v.values()) for k, v in syncs.items()}
+    march_syncs = {k: syncs["build"].get(k, 0) for k in MARCH_STAGES}
+    h.say(f"10 on {h.card}: host syncs by stage " + json.dumps(syncs)
+          + f"; the build's {res['syncs']['build']} in all, its marches' "
+          + json.dumps(march_syncs) + " (one tap table a march, copied "
+          "through pinned memory)")
+    if any(march_syncs.values()):
+        fail("10: a dense march synchronized the host")
     # device ms by stage: the build once after a warm-up, the frame's
     # medians of 3
     for what, fn, reps in (
@@ -1845,8 +2051,19 @@ def operating_point_path(h, dev, dim=256, size=(WIDTH, HEIGHT), subdiv=4,
             for k in BENCH_TIMES):
         fail("11a: a bench figure is missing, not finite or not positive")
     h.expect(launches_a, ("mip", "binrast", "prepass", "material",
-                          "raycast_stream", "tap"), ("specmarch", "mip_bwd"),
-             "bench")
+                          "raycast_stream", "tap", "dense_march"),
+             ("specmarch", "mip_bwd"), "bench")
+    # the dense march: 3 launches a sponza256 build (the light volume and
+    # both fields) over bench.run's 2 x (1 + reps) builds, and the
+    # diffuse march alone 1 + reps times (its timed calls and the call
+    # that counts its steps)
+    builds = 2 * (1 + reps)
+    if launches_a["dense_march"] != 3 * builds + reps + 1:
+        fail(f"11a: {launches_a['dense_march']} dense-march launches, not 3 "
+             f"a build over {builds} builds and {reps + 1} lone marches")
+    h.say(f"11a dense-march launches {launches_a['dense_march']}: 3 a "
+          f"sponza256 build over {builds} builds, and {reps + 1} lone "
+          f"diffuse marches")
     t11b = time.perf_counter()
 
     h.reset_counts()
@@ -1859,8 +2076,8 @@ def operating_point_path(h, dev, dim=256, size=(WIDTH, HEIGHT), subdiv=4,
           + (" all hold" if not broken else " broken: " + "; ".join(broken)))
     if broken:
         fail("11b: the fidelity gate failed: " + "; ".join(broken))
-    h.expect(launches_b, ("mip", "raycast", "prepass", "tap", "specmarch"),
-             ("binrast", "mip_bwd"), "fidelity")
+    h.expect(launches_b, ("mip", "raycast", "prepass", "tap", "specmarch",
+                          "dense_march"), ("binrast", "mip_bwd"), "fidelity")
 
     # 11b's own inputs: its G-buffer and its specular pass
     prim, arrays = st["prim"], st["arrays"]
@@ -1906,7 +2123,9 @@ def scaling_path(h, dev, settings=None, counts=None):
     record's rays and cone samples equal bench_scaling.py's formulas
     (:140, :173, written out here), the camera pass makes no
     torch.distributed call, each rank's build launches mip twice a level
-    (both pyramids) and no rank launches another kernel, at 2 ranks the
+    (both pyramids), the dense march is launched 3 times a rank's build
+    and once a timed march (bench_scaling's count), no rank launches
+    another kernel, at 2 ranks the
     gathered march slabs equal one rank's march bit for bit, and the
     entry image is finite and within test_torch_oracle.py's render_rays
     bounds of its CPU run.  Returns (the launches of the path: the
@@ -1949,9 +2168,17 @@ def scaling_path(h, dev, settings=None, counts=None):
                      f"{rec['mip_launches']}, expected {2 * levels} (2 x "
                      f"{levels} levels)")
             others = {k: v for k, v in rec["launches"].items()
-                      if k != "mip" and v}
+                      if k not in ("mip", "dense_march") and v}
             if others:
                 fail(f"12 {mode} n={n}: the ranks launched {others}")
+            # the dense march: 3 a rank's build, one a timed march call
+            # (1 + reps a rank), one for the 2-rank check on rank 0, and
+            # weak mode's one-rank control on rank 0 (1 + reps)
+            marches = (n * (3 + 1 + settings.reps) + (n == 2)
+                       + (1 + settings.reps) * (mode == "weak" and n > 1))
+            if rec["launches"]["dense_march"] != marches:
+                fail(f"12 {mode} n={n}: dense-march launches "
+                     f"{rec['launches']['dense_march']}, expected {marches}")
             if not all(0 < rec[k] < float("inf") for k in (
                     "rays_per_s", "cone_samples_per_s")):
                 fail(f"12 {mode} n={n}: a throughput is not finite")
@@ -1982,10 +2209,13 @@ def scaling_path(h, dev, settings=None, counts=None):
           f"{float(err.max()):.3e} (bounds {ENTRY_BOUNDS}); launches "
           + json.dumps(entry_launches) + f"; {time.perf_counter() - t0:.1f} s")
     entry_levels = E.DIM.bit_length() - 1      # 32 -> 1: 5 downsamples
-    if entry_launches["mip"] != 2 * entry_levels or any(
-            v for k, v in entry_launches.items() if k != "mip"):
+    if entry_launches["mip"] != 2 * entry_levels or entry_launches[
+            "dense_march"] != 1 or any(
+            v for k, v in entry_launches.items()
+            if k not in ("mip", "dense_march")):
         fail(f"12 entry(): launches {entry_launches}, expected mip "
-             f"{2 * entry_levels} and no other kernel")
+             f"{2 * entry_levels}, dense_march 1 (the light volume) and no "
+             f"other kernel")
     if not (img.shape == (E.HEIGHT, E.WIDTH, 3)
             and bool(torch.isfinite(img).all())
             and mean < ENTRY_BOUNDS[0] and p99 < ENTRY_BOUNDS[1]):
@@ -2056,7 +2286,9 @@ def main() -> int:
             ("binrast", "vct_binrast_occupancy", ()),
             ("specmarch", "vct_specmarch_occupancy", ()),
             ("prepass", "vct_prepass_occupancy", ()),
-            ("material", "vct_material_occupancy", ())):
+            ("material", "vct_material_occupancy", ()),
+            ("dense march, field", "vct_dense_occupancy", (0,)),
+            ("dense march, transmittance", "vct_dense_occupancy", (1,))):
         occ = _build.occupancy(reporter, *args)
         say(f"kernel {what}: {occ['registers']} registers, "
             f"{occ['spill_bytes']} spill bytes a thread, "
@@ -2363,7 +2595,7 @@ def main() -> int:
         f"{tuple(p['voxels'].diffuse_field.shape)} x2, {WIDTH}x{HEIGHT}; "
         f"first run {first_s:.2f} s")
     say("launches in main path 1 (Cornell):", json.dumps(launches))
-    expect(launches, ("mip", "raycast", "prepass", "tap"),
+    expect(launches, ("mip", "raycast", "prepass", "tap", "dense_march"),
            ("material", "raycast_stream", "binrast", "specmarch"), "Cornell")
     check_image(p["img"], "Cornell")
     g = raycast.raycast_gbuf24(*primary_gbuf(p))
@@ -2407,7 +2639,12 @@ def main() -> int:
         f"{WIDTH}x{HEIGHT}; first run {first_s:.2f} s")
     say("launches in main path 2 (atrium):", json.dumps(launches))
     expect(launches, ("mip", "raycast", "prepass", "tap", "material",
-                      "raycast_stream"), ("binrast", "specmarch"), "atrium")
+                      "raycast_stream", "dense_march"),
+           ("binrast", "specmarch"), "atrium")
+    if launches["dense_march"] != 3:
+        fail(f"the sponza256 build launched the dense march "
+             f"{launches['dense_march']} times, not 3 (the light volume "
+             f"and both fields)")
     check_image(p["img"], "atrium")
     say(f"atrium image: finite, mean {float(p['img'].mean()):.6f}")
     say(f"atrium prepare_scene ms (host clock): median "
@@ -2483,6 +2720,12 @@ def main() -> int:
                grid.numel() * 4 * (1 + 1 / 8), grid.numel() / 8 * 8,
                elapsed_ms(lambda: lib(cf, 2), KERNEL_REPS, KERNEL_BATCH))
     del grid, cf
+
+    # the dense march at the operating point's three shapes, on path 2's
+    # own pyramids
+    dense_path(types.SimpleNamespace(say=say, maxerr=maxerr,
+                                     kernel_row=kernel_row), cfg,
+               p["voxels"])
 
     # raycast: the atrium's primary rays, whole table; the kernel tests
     # each 256-ray block against the rows its cone keeps (tile_cull_plain
@@ -2772,7 +3015,8 @@ def main() -> int:
     say(f"alpha re-cast at {ds_hi.v0.shape[0]} triangles: {n_cand3} "
         f"candidate pixels, {-(-ds_hi.v0.shape[0] // raycast.CHUNK)} chunks; "
         f"streamed-raycast launches {launches3['raycast_stream']}")
-    expect(launches3, ("mip", "prepass", "tap", "material", "binrast")
+    expect(launches3, ("mip", "prepass", "tap", "material", "binrast",
+                       "dense_march")
            + (("raycast_stream",) if n_cand3 else ()),
            ("raycast", "specmarch"), "atrium x4")
     for what, test in (("(a) the frame's own input", True),
@@ -2855,8 +3099,11 @@ def main() -> int:
         f"{first_s:.2f} s")
     say("launches in main path 4 (exact specular):", json.dumps(launches4))
     expect(launches4, ("mip", "raycast", "prepass", "tap", "material",
-                       "raycast_stream", "specmarch"), ("binrast",),
-           "exact-specular")
+                       "raycast_stream", "specmarch", "dense_march"),
+           ("binrast",), "exact-specular")
+    if launches4["dense_march"] != 2:
+        fail("the exact-specular build must march the light volume and the "
+             "diffuse field, one launch each")
     if launches4["specmarch"] != 1 or launches4["tap"] != 1:
         fail("the exact-specular frame must launch specmarch and tap once "
              "each")
@@ -3006,7 +3253,7 @@ def main() -> int:
         say(f"launches in the {what} oracle run:", json.dumps(launches_))
         if R.use_fast_path(run_cfg):
             fail(f"{what} routes to the fast path")
-        expect(launches_, ("mip",), not_oracle, what)
+        expect(launches_, ("mip", "dense_march"), not_oracle, what)
         check_image(q["img"], what, (run_cfg.render.width,
                                      run_cfg.render.height))
         return launches_, first, q

@@ -1,5 +1,6 @@
 """vct_tpu_torch.bench against bench.py: the dense-sample count for every
-preset, the byte counter on a known op sequence, the peak table, and
+preset, the diffuse march's plan against the build's field, the peak
+tables, and
 run() end to end on the CPU at 16^3 / 64x36 on the atrium subdivided
 once (4,488 triangles, the binned raycast), whose frame geometry is the
 JAX package's prepare_scene's."""
@@ -60,26 +61,34 @@ def test_count_dense_samples_matches_bench_py(name, dim):
         assert want == 3_598_712_832      # BENCH_r05: 3598.7M
 
 
-def test_bytes_counted_known_ops():
-    """Each op's tensor inputs read once and outputs written once; views
-    move nothing; copy_'s destination counts as written only."""
-    x = torch.arange(32, dtype=torch.float32).reshape(4, 8)   # 128 B
-    src = torch.ones(4)
-    with B.BytesCounted() as c:
-        y = x.t()                      # view: 0
-        z = y.contiguous()             # clone: 128 + 128
-        w = z + z                      # one input read once: 128 + 128
-        v = w.reshape(32)              # view: 0
-        s = v.sum()                    # 128 + 4
-        v[:4].copy_(src)               # slice view 0, copy_ 16 + 16
-        m = x * y.t()                  # t view 0, mul 128 + 128 + 128
-    assert c.bytes == 256 + 256 + 132 + 32 + 384
-    assert c.ops == 5
-    assert float(s) == 2 * sum(range(32)) and m.shape == (4, 8)
+def test_march_plan_is_the_builds_diffuse_march():
+    """run() counts the bytes and operations of the plan it builds
+    beside build_cone_field: that plan's march is the field itself."""
+    from vct_tpu_torch.core import dense as D
+    from vct_tpu_torch.core import grid as G
+    from vct_tpu_torch.ops import dense as OD
+    from vct_tpu_torch.render import shading
+
+    f32, _ = B.bench_configs(16, 64, 36)
+    g = torch.rand(16, 16, 16, 4, generator=torch.Generator().manual_seed(0))
+    g[..., 3] = (g[..., 3] > 0.8).float()
+    mips = G.build_mips(g)
+    sched = shading.diffuse_schedule(f32)
+    plan = D.march_plan(
+        mips, D.direction_basis(f32.cones.field_basis), sched,
+        f32.grid.world_size, field_dim=shading.field_dim(f32),
+        max_alpha=f32.cones.max_alpha,
+        occlusion_falloff=f32.cones.occlusion_falloff,
+        compute_dtype=shading.march_compute_dtype(f32))
+    assert torch.equal(OD.dense_march(mips, plan),
+                       shading.build_cone_field(f32, mips, sched))
+    nbytes, ops = OD.march_work(mips, plan)
+    assert nbytes > sum(m.numel() * 4 for m in mips) and ops > 0
 
 
 def test_peak_table():
     assert B.peak_bytes_per_s("NVIDIA H100 80GB HBM3") == 3.35e12
+    assert B.FP32_OPS_PER_S["NVIDIA H100 80GB HBM3"] == 67e12
     with pytest.raises(ValueError, match="no peak memory rate"):
         B.peak_bytes_per_s("TPU v5 lite")
     assert B.power_limit_w("NVIDIA H100 80GB HBM3, 700.00 W") == 700.0
@@ -120,11 +129,12 @@ def test_run_on_cpu():
     assert res["fast_path"] is True and res["device"] == "cpu"
     f32, _ = B.bench_configs(16, 64, 36)
     assert res["dense_samples"] == B.count_dense_samples(f32)
-    assert res["march_bytes"] > 0
+    assert res["march_bytes"] > 0 and res["march_ops"] > 0
     # no device figure from a CPU run: the host times stand apart
     for k in ("value", "vs_baseline", "build_ms", "frame_ms_1080p",
               "raycast_ms", "march_achieved_gbps", "peak_gbps",
-              "power_limit_w", "march_mxu_util"):
+              "power_limit_w", "march_mxu_util", "march_bound_ms",
+              "march_bound_share"):
         assert res[k] is None, k
     host = res["host_ms"]
     assert set(host["raycast_split_ms"]) == {"pack", "bin", "raycast"}

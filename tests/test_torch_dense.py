@@ -1,0 +1,350 @@
+"""Kernel 9, the direction-major dense march (vct_tpu_torch/ops/dense.py,
+csrc/dense.cu), on the CPU: its tap table, its plain version against the
+JAX package's directional_march_multi, its dispatch and its autograd
+Function.  The CUDA kernel is held to the plain version on the card by
+chip_smoke.py.
+
+Bounds:
+  * the tap table (core/dense.direction_taps, every direction at once):
+    equal to the bit to a table built one (direction, tap, axis) at a
+    time from the JAX package's _axis_indices, with the clamped rows'
+    weights merged and rounded to the compute dtype as the march rounds
+    them;
+  * the plain march fed from the table against JAX's under jax.jit, as
+    the JAX package runs it (eager JAX evaluates x ** 0.5 as a pow one
+    ulp away from the square root on some inputs, and the
+    optical-depth correction's 1 - keep magnifies it): atol 1e-6 on
+    values of order 1, tests/test_torch_host.py's dense bound, in float32 and
+    bfloat16, transmittance and field mode, isotropic and anisotropic
+    stacks, step factors 0.5, 1 and 2;
+  * DenseMarch with the plain version injected: gradients within 1e-6 of
+    the largest gradient of autograd through the plain version, and no
+    gradient edge to a level no tap reads.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vct_tpu.core import aniso as JA
+from vct_tpu.core import dense as JD
+from vct_tpu.core import grid as JG
+from vct_tpu.core import march as JM
+from vct_tpu_torch.config import preset
+from vct_tpu_torch.core import aniso as A
+from vct_tpu_torch.core import dense as D
+from vct_tpu_torch.core import grid as G
+from vct_tpu_torch.core import march as M
+from vct_tpu_torch.ops import dense as OD
+from vct_tpu_torch.render import shading as S
+
+torch.set_num_threads(1)    # all torch math on the main thread: PERF.md §7 item 4
+
+WS = 150.0
+DIM = 16
+
+
+def pyramid(aniso: bool, seed: int = 3):
+    """The same random 16^3 stack for both packages, as the voxel build
+    makes one (render/voxelize.splat_finish): alpha the occupancy, 0 or
+    1, on a tenth of the cells, rgb a color in occupied cells and 0 in
+    empty ones: (JAX levels, port levels)."""
+    rng = np.random.default_rng(seed)
+    g = rng.random((DIM, DIM, DIM, 4), np.float32)
+    g[..., 3] = rng.random((DIM, DIM, DIM)) < 0.1
+    g[..., :3] *= g[..., 3:]
+    if aniso:
+        jm = JA.build_aniso_mips(jnp.asarray(g))
+    else:
+        jm = JG.build_mips(jnp.asarray(g))
+    return jm, [torch.from_numpy(np.array(m)) for m in jm]
+
+
+def reference_taps(dirs, schedule, dims, df, dtype):
+    """The table one (direction, tap, axis) at a time, as the port built
+    it per direction before the kernel: JAX's _axis_indices, the two
+    nonzeros of each clamped row merged, the weights rounded to dtype."""
+    _, groups = D.plan_groups(schedule.lods, len(dims))
+    idx, wts = [], []
+    for d in dirs:
+        for (l0, l1), steps in groups:
+            for k in steps:
+                for lvl in ((l0, l1) if l1 != l0 else (l0,)):
+                    dl = dims[lvl]
+                    shift = d * schedule.dists[k] / (WS / dl)
+                    for ax in range(3):
+                        i0, i1, f = JD._axis_indices(df, dl, float(shift[ax]))
+                        one_m = np.float32(1.0) - f
+                        same = i0 == i1
+                        idx.append(np.stack([i0, i1]))
+                        wts.append(np.stack([
+                            np.where(same, one_m + f, one_m),
+                            np.where(same, np.float32(0.0), f)]))
+    shape = (len(dirs), -1, 3, 2, df)
+    w = torch.as_tensor(np.stack(wts).reshape(shape)).to(dtype).float()
+    return np.stack(idx).reshape(shape), w.numpy()
+
+
+def sponza32():
+    cfg = preset("sponza256")
+    return dataclasses.replace(cfg, grid=dataclasses.replace(cfg.grid,
+                                                             dim=32))
+
+
+def schedules_32():
+    """sponza256 cut to 32^3: (name, schedule, directions' basis or the
+    light, field dim)."""
+    cfg = sponza32()
+    light = np.asarray(cfg.light.direction, np.float64)
+    light = (light / np.linalg.norm(light))[None]
+    return [("light", S.shadow_schedule(cfg), light, cfg.grid.dim),
+            ("diffuse", S.diffuse_schedule(cfg), None, S.field_dim(cfg)),
+            ("specular", S.specular_field_schedule(cfg), None,
+             S.field_dim(cfg))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("basis", [6, 26])
+@pytest.mark.parametrize("which", ["light", "diffuse", "specular"])
+def test_tap_table_matches_per_direction(which, basis, dtype):
+    _, sched, dirs, df = {s[0]: s for s in schedules_32()}[which]
+    if dirs is None:
+        dirs = D.direction_basis(basis).astype(np.float64)
+    else:
+        dirs = np.concatenate([dirs, D.direction_basis(basis)])
+    dims = [32 >> i for i in range(6)]
+    _, groups = D.plan_groups(sched.lods, len(dims))
+    idx, w = D.direction_taps(dirs, sched, groups, dims, df, WS, dtype)
+    ridx, rw = reference_taps(dirs, sched, dims, df, dtype)
+    assert idx.dtype == np.int32 and w.dtype == np.float32
+    np.testing.assert_array_equal(idx, ridx)
+    np.testing.assert_array_equal(w, rw)
+    assert idx.shape[1] == len(D.tap_levels(groups))
+
+
+def test_step_table_consumes_every_tap_once():
+    for _, sched, _, _ in schedules_32():
+        lod_plan, groups = D.plan_groups(sched.lods, 6)
+        steps = D.step_table(sched, lod_plan, groups, 0.03)
+        levels = D.tap_levels(groups)
+        taps = []
+        for k, (j0, l0, j1, l1, w, one_m, atten) in enumerate(steps):
+            taps.append((j0, l0))
+            if j1 >= 0:
+                taps.append((j1, l1))
+                assert w == float(np.float32(lod_plan[k][2])) and w > 0
+                assert one_m == float(np.float32(1.0) - np.float32(w))
+            assert atten == float(np.float32(
+                1.0 + 0.03 * sched.diameters[k]))
+        assert taps == list(enumerate(levels))
+
+
+@pytest.mark.parametrize("sf", [0.5, 1.0, 2.0])
+@pytest.mark.parametrize("stack", ["iso", "aniso"])
+@pytest.mark.parametrize("transmittance", [False, True])
+@pytest.mark.parametrize("compute", [None, "bfloat16"])
+def test_plain_matches_jax(compute, transmittance, stack, sf):
+    jm, pm = pyramid(stack == "aniso")
+    sched = JM.march_schedule(0.3, WS / DIM, 75.0, step_factor=sf)
+    basis = JD.direction_basis(6)[[0, 3, 5]]
+    basis = np.concatenate([basis, [[0.6, -0.64, 0.48]]])
+    df = 8 if sf == 2.0 else DIM
+    kw = dict(field_dim=df, opacity_gain=2.0 if transmittance else 1.0,
+              transmittance_only=transmittance)
+    b = np.asarray(jax.jit(lambda m: JD.directional_march_multi(
+        m, basis, sched, WS,
+        compute_dtype=jnp.bfloat16 if compute else None, **kw))(jm))
+    b = np.moveaxis(b, 0, -2).reshape(df, df, df, -1)
+    before = OD.LAUNCHES
+    a = D.directional_march_multi(
+        pm, basis, sched, WS,
+        compute_dtype=torch.bfloat16 if compute else None, **kw)
+    assert OD.LAUNCHES == before          # CPU tensors never launch
+    assert a.dtype == torch.float32 and a.shape == b.shape
+    np.testing.assert_allclose(a.numpy(), b, atol=1e-6, rtol=0)
+    assert float(a.abs().max()) > 0
+
+
+def _plan(mips, dirs, sched, df, transmittance=False, compute=None):
+    wd = compute or torch.float32
+    dims = [m.shape[0] for m in mips]
+    lod_plan, groups = D.plan_groups(sched.lods, len(dims))
+    idx, w = D.direction_taps(np.asarray(dirs, np.float64), sched, groups,
+                              dims, df, WS, wd)
+    return OD.make_plan([(idx[:, :, a], w[:, :, a]) for a in range(3)],
+                        D.tap_levels(groups),
+                        D.step_table(sched, lod_plan, groups, 0.03), dirs,
+                        (df, df, df), mips[0].device, wd, sched.step_factor,
+                        0.95, 1.0, transmittance)
+
+
+def test_plan_layout_and_extent():
+    _, pm = pyramid(False)
+    sched = M.march_schedule(0.3, WS / DIM, 75.0)
+    dirs = D.direction_basis(6)
+    plan = _plan(pm, dirs, sched, 8)
+    assert plan.idx.dtype == torch.int32 and plan.w.dtype == torch.float32
+    assert tuple(plan.idx.shape) == (6, plan.idx.shape[1], 2 * 3 * 8)
+    assert plan.step_i.shape == (len(plan.steps), 4)
+    assert torch.equal(plan.w6, torch.as_tensor(np.stack(
+        [A.aniso_weights_static(d) for d in dirs])))
+    # the attenuation's float32 reciprocal, as the kernel multiplies
+    for row, s in zip(plan.step_f.numpy(), plan.steps):
+        assert row[2] == np.float32(1.0) / np.float32(s[6])
+    for lvl, ext in plan.extent.items():
+        assert all(1 <= e <= pm[lvl].shape[a] for a, e in enumerate(ext))
+
+
+def test_dispatch_refuses_mixed_devices_and_cpu_kernel():
+    _, pm = pyramid(False)
+    sched = M.march_schedule(0.3, WS / DIM, 75.0)
+    plan = _plan(pm, D.direction_basis(6)[:2], sched, 8)
+    with pytest.raises(ValueError):
+        OD.dense_march([m.to("meta") for m in pm], plan)
+    with pytest.raises(ValueError):             # the kernel takes CUDA
+        OD.dense_march_cuda(pm, plan)
+
+
+@pytest.mark.parametrize("stack", ["iso", "aniso"])
+@pytest.mark.parametrize("transmittance", [False, True])
+def test_function_gradient_matches_plain(stack, transmittance):
+    """DenseMarch with the plain forward injected (as the mip tests drive
+    Downsample2x): its backward replays the plain version."""
+    _, pm = pyramid(stack == "aniso", seed=5)
+    sched = M.march_schedule(0.3, WS / DIM, 75.0, step_factor=2.0)
+    plan = _plan(pm, D.direction_basis(6)[:3], sched, 8, transmittance,
+                 torch.bfloat16)
+    rng = np.random.default_rng(7)
+
+    def grads(fn):
+        lv = [m.detach().clone().requires_grad_() for m in pm]
+        out = fn(lv)
+        wgt = torch.as_tensor(rng.random(out.shape, np.float32))
+        return out, torch.autograd.grad((out * wgt).sum(), lv,
+                                        allow_unused=True)
+
+    rng = np.random.default_rng(7)
+    got_out, got = grads(lambda lv: OD.DenseMarch.apply(
+        plan, OD.dense_march_plain, *lv))
+    rng = np.random.default_rng(7)
+    ref_out, ref = grads(lambda lv: OD.dense_march_plain(lv, plan))
+    assert torch.equal(got_out, ref_out)
+    top = max(float(r.abs().max()) for r in ref if r is not None)
+    assert top > 0
+    for g, r in zip(got, ref):
+        if r is None:
+            assert g is None or float(g.abs().max()) == 0
+        else:
+            assert float((g - r).abs().max()) <= 1e-6 * top
+
+
+def test_kernel_route_leaves_untouched_levels_out_of_the_graph(
+        monkeypatch):
+    """Through DenseMarch (the kernel's route, the plain forward injected)
+    the levels no tap reads get no gradient edge, as through the plain
+    version: their producers' backward (the mip's) must not run."""
+    from vct_tpu_torch.ops import _build
+    rng = np.random.default_rng(13)
+    g = rng.random((DIM, DIM, DIM, 4), np.float32)
+    # alphas below 1: sqrt's derivative at 1 - a = 0 is infinite
+    g[..., 3] = 0.5 * (rng.random((DIM, DIM, DIM)) < 0.2)
+    sched = M.march_schedule(0.03, WS / DIM, 40.0, step_factor=0.5)
+    dirs = np.array([[0.6, -0.64, 0.48]])
+
+    def grads(kernel_route):
+        x = torch.as_tensor(g).requires_grad_()
+        mips = G.build_mips(x, alpha_mode="max")
+        plan = _plan(mips, dirs, sched, DIM, transmittance=True)
+        with monkeypatch.context() as mp:
+            if kernel_route:
+                mp.setattr(_build, "uses_kernel", lambda *t: True)
+                mp.setattr(OD, "dense_march_cuda",
+                           lambda lv, p, walked=None:
+                           OD.dense_march_plain(lv, p, walked))
+            out = OD.dense_march(mips, plan)
+        assert set(plan.extent) != set(range(len(mips)))
+        return torch.autograd.grad(out.sum(), mips, allow_unused=True)
+
+    got, ref = grads(True), grads(False)
+    top = max(float(r.abs().max()) for r in ref if r is not None)
+    for a, b in zip(got, ref):
+        assert (a is None) == (b is None)
+        if b is not None:       # summed in another order: 1e-6 of the top
+            assert float((a - b).abs().max()) <= 1e-6 * top
+
+
+def test_brick_slab_plan_matches_whole_march():
+    """A plan of x rows of their own length (a slab of the output, as
+    parallel/brick.py builds them) gives the whole march's rows."""
+    _, pm = pyramid(False, seed=9)
+    sched = M.march_schedule(0.3, WS / DIM, 75.0, step_factor=0.5)
+    dirs = D.direction_basis(26)[:4].astype(np.float64)
+    whole = D.directional_march_multi(pm, dirs, sched, WS, field_dim=DIM)
+    dims = [m.shape[0] for m in pm]
+    lod_plan, groups = D.plan_groups(sched.lods, len(dims))
+    idx, w = D.direction_taps(dirs, sched, groups, dims, DIM, WS,
+                              torch.float32)
+    xs = slice(4, 10)
+    plan = OD.make_plan(
+        [(idx[:, :, 0, :, xs], w[:, :, 0, :, xs]), (idx[:, :, 1], w[:, :, 1]),
+         (idx[:, :, 2], w[:, :, 2])], D.tap_levels(groups),
+        D.step_table(sched, lod_plan, groups, 0.03), dirs, (6, DIM, DIM),
+        pm[0].device, torch.float32, sched.step_factor, 0.95, 1.0, False)
+    assert torch.equal(OD.dense_march(pm, plan), whole[xs])
+
+
+@pytest.mark.parametrize("transmittance", [False, True])
+def test_walked_counts_the_steps_before_the_early_out(transmittance):
+    rng = np.random.default_rng(11)
+    g = rng.random((DIM, DIM, DIM, 4), np.float32)
+    g[..., 3] = rng.random((DIM, DIM, DIM)) < 0.6      # dense occupancy
+    pm = G.build_mips(torch.as_tensor(g))
+    sched = M.march_schedule(0.3, WS / DIM, 75.0)
+    n = sched.num_steps
+    dirs = D.direction_basis(6)[:3]
+    for max_alpha, every in ((0.95, transmittance), (1.5, True)):
+        plan = dataclasses.replace(_plan(pm, dirs, sched, 8, transmittance),
+                                   max_alpha=max_alpha)
+        walked = torch.full((8, 8, 8, 3), -1, dtype=torch.int32)
+        out = OD.dense_march(pm, plan, walked)
+        assert torch.equal(out, OD.dense_march(pm, plan))
+        assert int(walked.min()) >= 1 and int(walked.max()) == n
+        assert bool((walked == n).all()) == every
+        if not every:
+            # the cells that stopped after m steps: the march cut to its
+            # first m steps gives them the whole march's output
+            m = int(walked.min())
+            cut = dataclasses.replace(plan, steps=plan.steps[:m])
+            stopped = (walked == m).repeat_interleave(4, dim=-1)
+            assert m < n and bool(stopped.any())
+            assert torch.equal(OD.dense_march(pm, cut)[stopped], out[stopped])
+
+
+def test_march_work_by_hand():
+    """One 4^3 rgba level, one direction, a 3-step schedule at step
+    factor 1 in field mode: 97 operations a step (21 a channel of the
+    resample, 13 of the composite) for every cell; the level, the tables
+    and the output's bytes once."""
+    level = torch.rand(4, 4, 4, 4)
+    sched = M.march_schedule(0.0, 1.0, 3.5)
+    assert sched.num_steps == 3
+    plan = _plan([level], np.array([[1.0, 0.0, 0.0]]), sched, 4)
+    nbytes, ops = OD.march_work([level], plan)
+    tables = (plan.idx.numel() + plan.w.numel() + plan.step_i.numel()
+              + plan.step_f.numel() + plan.w6.numel()) * 4
+    assert nbytes == 64 * 16 + tables + 64 * 16
+    assert ops == 64 * 3 * (4 * 21 + 13)
+    walked = torch.full((4, 4, 4, 1), 2, dtype=torch.int32)
+    walked[0] = 1
+    assert OD.march_work([level], plan, walked)[1] == (
+        48 * 2 + 16) * (4 * 21 + 13)
+    # transmittance reads the alpha channel alone: 2 operations a step
+    tplan = _plan([level], np.array([[1.0, 0.0, 0.0]]), sched, 4, True)
+    nbytes, ops = OD.march_work([level], tplan)
+    assert nbytes == 64 * 4 + (tplan.idx.numel() * 2 + 3 * 4 + 3 * 3
+                               + 6) * 4 + 64 * 4
+    assert ops == 64 * 3 * (21 + 2)

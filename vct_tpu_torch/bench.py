@@ -21,11 +21,19 @@ What it measures, as bench.py does (bench.py:104-271):
     median build time.  The preset's own bfloat16 march is built and
     timed beside it (`build_ms_bf16`, a labelled stderr line);
   * the diffuse-field march (shading.build_cone_field over the diffuse
-    schedule) alone: its bytes are counted by BytesCounted, the eager
-    analogue of XLA's per-op "bytes accessed" (each aten op's tensor
-    inputs read once and outputs written once, views nothing), and
-    divided by its time; march_mxu_util is null, as the port's march
-    runs no matmul (it gathers and lerps, core/dense.py);
+    schedule) alone, one launch of the dense-march kernel (csrc/dense.cu)
+    on the card: its bytes and float operations come from its shapes
+    (ops/dense.march_work: each pyramid level it taps read once, the tap
+    and step tables, the field written once; the operations of the steps
+    each cell and direction takes before its early-out, the kernel's own
+    count), march_achieved_gbps is those bytes over its time, and
+    march_bound_share the least time the card could take for that work
+    (the larger of bytes over the memory rate and operations over the
+    float32 rate, halved as the kernel rounds every operation on its own)
+    over its time.  Before the kernel the bytes were the eager march's
+    op-by-op traffic, which a dispatch mode no longer sees on the kernel
+    route.  march_mxu_util is null, as the march runs no matmul (it
+    gathers and lerps);
   * the primary raycast at the frame's triangle count, itemized: above
     raycast.MAX_TRIANGLES the binned pipeline (binrast.pack_rows,
     bin_triangles, then the kernel, which writes the G-buffer itself on
@@ -50,8 +58,9 @@ Prints one JSON line on stdout with bench.py's keys (metric, value,
 unit, vs_baseline, frame_ms_1080p, fps_1080p, fast_path, frame_tris,
 raycast_ms, march_achieved_gbps, peak_gbps, march_mxu_util, build_ms)
 and device (the card's name), power_limit_w (nvidia-smi's power limit),
-dense_samples, build_ms_bf16, march_ms, march_bytes, raycast_split_ms
-and frame_ms (min/median/max); diagnostics go to stderr.  vs_baseline
+dense_samples, build_ms_bf16, march_ms, march_bytes, march_ops,
+march_bound_ms, march_bound_share, raycast_split_ms and frame_ms
+(min/median/max); diagnostics go to stderr.  vs_baseline
 keeps bench.py's definition: samples/s over the no-reuse roofline, the
 card's peak bytes/s over BYTES_PER_SAMPLE (16 taps of RGBA float32).
 On the CPU the device keys are null and the host-clock times sit under
@@ -68,11 +77,12 @@ import sys
 import time
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from vct_tpu_torch.config import GridConfig, VCTConfig, preset
 from vct_tpu_torch.core import camera as CAM
+from vct_tpu_torch.core import dense as D
 from vct_tpu_torch.ops import binrast as BR
+from vct_tpu_torch.ops import dense as OD
 from vct_tpu_torch.ops import raycast as RP
 from vct_tpu_torch.render import fast as F
 from vct_tpu_torch.render import renderer as R
@@ -84,6 +94,10 @@ from vct_tpu_torch.utils.profiling import card_line
 # peak HBM bytes/s by torch.cuda.get_device_name (NVIDIA's data sheet:
 # H100 SXM, 80 GB HBM3)
 HBM_BYTES_PER_S = {"NVIDIA H100 80GB HBM3": 3.35e12}
+# dense float32 operations a second outside the tensor cores (a fused
+# multiply-add counted as two); the march rounds every operation on its
+# own, one instruction each, so its rate is half of it
+FP32_OPS_PER_S = {"NVIDIA H100 80GB HBM3": 67e12}
 BYTES_PER_SAMPLE = 16 * 4 * 4   # quadrilinear: 16 taps x RGBA x f32
 CAMERA = dict(position=(48.0, -10.0, 0.0), yaw=180.0)   # bench.py:122
 
@@ -122,53 +136,6 @@ def count_dense_samples(cfg: VCTConfig) -> int:
         # the field build marches the coarser field schedule
         total += b * shading.specular_field_schedule(cfg).num_steps * df ** 3
     return total
-
-
-def _tensors(x):
-    if isinstance(x, torch.Tensor):
-        yield x
-    elif isinstance(x, (list, tuple)):
-        for y in x:
-            yield from _tensors(y)
-    elif isinstance(x, dict):
-        for y in x.values():
-            yield from _tensors(y)
-
-
-def _nbytes(ts) -> int:
-    seen, n = set(), 0
-    for t in ts:
-        if id(t) not in seen:
-            seen.add(id(t))
-            n += t.numel() * t.element_size()
-    return n
-
-
-class BytesCounted(TorchDispatchMode):
-    """Bytes the aten ops issued under it move: each op's tensor inputs
-    read once and its outputs written once.  An op whose output is a view
-    of its input (OpOverload.is_view: view, slice, permute, ...) moves
-    nothing; an argument an op writes in place (copy_'s destination)
-    counts as written, not read."""
-
-    def __init__(self):
-        super().__init__()
-        self.bytes = 0
-        self.ops = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
-        if not func.is_view:
-            schema = func._schema.arguments
-            written = {a.name for a in schema
-                       if a.alias_info is not None and a.alias_info.is_write}
-            read = [v for a, v in zip(schema, args) if a.name not in written]
-            read += [v for k, v in kwargs.items() if k not in written]
-            self.bytes += (_nbytes(_tensors(read))
-                           + _nbytes(_tensors(out)))
-            self.ops += 1
-        return out
 
 
 def _split_ms(dev: torch.device, stages):
@@ -269,26 +236,39 @@ def run(dim: int = 256, width: int = 1920, height: int = 1080,
         f"-> {dense_samples / (statistics.median(bf16_ts) * 1e-3):.3e} "
         f"samples/s")
 
-    # --- the diffuse-field march alone: bytes and time -------------------
+    # --- the diffuse-field march alone: time, bytes and operations -------
     def march():
         return shading.build_cone_field(cfg, voxels.radiance_mips,
                                         shading.diffuse_schedule(cfg))
 
-    with BytesCounted() as counted:
-        march()
     march_ts = [_ms(dev, march)[1] for _ in range(reps)]
     march_ms = statistics.median(march_ts)
+    mips = voxels.radiance_mips
+    plan = D.march_plan(
+        mips, D.direction_basis(cfg.cones.field_basis),
+        shading.diffuse_schedule(cfg), cfg.grid.world_size,
+        field_dim=shading.field_dim(cfg), max_alpha=cfg.cones.max_alpha,
+        occlusion_falloff=cfg.cones.occlusion_falloff,
+        compute_dtype=shading.march_compute_dtype(cfg))
+    walked = torch.empty(plan.shape + (plan.nb,), dtype=torch.int32,
+                         device=dev)
+    OD.dense_march(mips, plan, walked)
+    march_bytes, march_ops = OD.march_work(mips, plan, walked)
     log(f"dense march (diffuse field): median {march_ms:.1f} ms over "
         f"{reps} (min {min(march_ts):.1f}, max {max(march_ts):.1f}); "
-        f"{counted.ops} aten ops move {counted.bytes / 1e9:.2f} GB "
-        f"(inputs read and outputs written once an op, views free)")
+        f"from its shapes {march_bytes / 1e9:.4f} GB and "
+        f"{march_ops / 1e9:.3f} G float operations (the steps taken "
+        f"before each early-out)")
     if cuda:
         bw = peak_bytes_per_s(kind)
-        march_gbps = counted.bytes / (march_ms * 1e-3) / 1e9
-        log(f"dense march achieved {march_gbps:.0f} GB/s "
-            f"({march_gbps * 1e9 / bw:.2f} of the {bw / 1e9:.0f} GB/s "
-            f"peak); march_mxu_util null: the march gathers and lerps "
-            f"(core/dense.py), it runs no matmul")
+        rate = FP32_OPS_PER_S[kind] / 2
+        march_gbps = march_bytes / (march_ms * 1e-3) / 1e9
+        march_bound = max(march_bytes / bw, march_ops / rate) * 1e3
+        log(f"dense march achieved {march_gbps:.1f} GB/s "
+            f"({march_gbps * 1e9 / bw:.4f} of the {bw / 1e9:.0f} GB/s "
+            f"peak); bound {march_bound:.4f} ms, {march_bound / march_ms:.4f}"
+            f" of it reached; march_mxu_util null: the march gathers and "
+            f"lerps, it runs no matmul")
 
     # --- the frame: the atrium subdivided, on the base samples -----------
     scene_hi = subdivide_scene(scene, subdiv) if subdiv else scene
@@ -366,13 +346,16 @@ def run(dim: int = 256, width: int = 1920, height: int = 1080,
         "raycast_ms": None, "march_achieved_gbps": None, "peak_gbps": None,
         "march_mxu_util": None, "build_ms": None, "device": kind,
         "power_limit_w": None, "dense_samples": dense_samples,
-        "march_bytes": counted.bytes}
+        "march_bytes": march_bytes, "march_ops": march_ops,
+        "march_bound_ms": None, "march_bound_share": None}
     if cuda:
         sol = bw / BYTES_PER_SAMPLE
         log(f"HBM no-reuse SoL: {sol:.3e} samples/s; fraction: "
             f"{sps / sol:.3f}")
         res.update(timed, vs_baseline=sps / sol,
                    march_achieved_gbps=march_gbps, peak_gbps=bw / 1e9,
+                   march_bound_ms=march_bound,
+                   march_bound_share=march_bound / march_ms,
                    power_limit_w=power_limit_w(card_line()))
     else:
         # host-clock times of CPU kernels: none of them is a device figure

@@ -38,7 +38,8 @@ What each rank does, at n:
     (direction_basis, tiled n times in weak mode) over the state's
     radiance pyramid: core/dense.directional_march_multi at n = 1,
     parallel/brick.sharded_directional_march_multi over a mesh of n
-    'model' ranks above, which returns the rank's x-slab.
+    'model' ranks above, which returns the rank's x-slab; on the card
+    each is one launch of the dense-march kernel (csrc/dense.cu).
 Each timed part: one warm-up call, then `reps` calls between two marks,
 each a synchronize of the card and a barrier of the n ranks; the time is
 the slowest rank's, which is what bench_scaling.py's sync() gives.
@@ -60,8 +61,9 @@ rays_weak_overhead_efficiency and samples_weak_overhead_efficiency),
 and beside them rays and cone_samples (the work), t_camera_ms,
 t_march_ms, the weak controls, collective_calls (summed over the ranks),
 staged_bytes and mip_launches (a list, a rank each: each rank's build),
-launches (every kernel's launches, summed over the ranks: the camera
-pass and the march launch none), card (nvidia-smi's name and power
+launches (every kernel's launches, summed over the ranks: the builds'
+mip and dense-march launches and one dense-march launch a timed march;
+the camera pass launches none), card (nvidia-smi's name and power
 limit) and ranks_share_one_card; then a summary line.
 Where the ranks share one card, the efficiencies measure that card's
 ranks over gloo, not more cards: weak_overhead_efficiency, t(n-fold work
@@ -87,8 +89,8 @@ from vct_tpu_torch.config import VCTConfig, preset
 from vct_tpu_torch.core import camera as CAM
 from vct_tpu_torch.core import dense as D
 from vct_tpu_torch.core import grid as G
-from vct_tpu_torch.ops import (binrast, material, mip, prepass, raycast,
-                               specmarch, tap)
+from vct_tpu_torch.ops import (binrast, dense, material, mip, prepass,
+                               raycast, specmarch, tap)
 from vct_tpu_torch.parallel import brick, comm
 from vct_tpu_torch.parallel import mesh as ML
 from vct_tpu_torch.parallel import tile_dp
@@ -119,7 +121,8 @@ COUNTERS = {"mip": (mip, "LAUNCHES"), "mip_bwd": (mip, "BWD_LAUNCHES"),
             "prepass": (prepass, "LAUNCHES"),
             "material": (material, "LAUNCHES"), "tap": (tap, "LAUNCHES"),
             "binrast": (binrast, "LAUNCHES"),
-            "specmarch": (specmarch, "LAUNCHES")}
+            "specmarch": (specmarch, "LAUNCHES"),
+            "dense_march": (dense, "LAUNCHES")}
 
 
 def log(*a):
@@ -304,7 +307,8 @@ def sweep_rank(n: int, mode: str, settings: Settings, dev_type: str,
                                              dev)
         dist.barrier(group=group)
     # every kernel's launches since the build began (on the card the
-    # build's mip launches: the camera pass and the march launch none)
+    # build's mip and dense-march launches and the timed marches' dense
+    # ones: the camera pass launches none)
     out["launches"] = {k: getattr(mod, attr)
                        for k, (mod, attr) in COUNTERS.items()}
     return out

@@ -12,10 +12,11 @@ level (parallel/comm.halo_pad_x), then marches its slab alone.  A level
 whose halo would not fit its shard (small grids, coarse levels) is read
 whole.
 
-The march is dense.march_direction on the rank's x-slab, with the x taps
-sliced to the slab's rows and rebased into the halo block; the y and z
-taps and the composite are the unsharded march's, so each cell gets the
-same arithmetic.  Like the JAX package, the sharded march runs in the
+The march is one ops/dense.dense_march call on the rank's x-slab (one
+kernel launch on the card), its tap table holding x rows of the slab's
+length, rebased into the halo block, beside full y and z rows; the taps
+and the composite are the unsharded march's, so each cell gets the same
+arithmetic.  Like the JAX package, the sharded march runs in the
 pyramid's dtype and ignores grid.compute.  Gradients flow through the
 exchange (its backward returns the halo rows' gradients to their
 owners).
@@ -31,6 +32,7 @@ import torch
 from vct_tpu_torch.core import aniso as A
 from vct_tpu_torch.core import dense as D
 from vct_tpu_torch.core import march as M
+from vct_tpu_torch.ops import dense as OD
 from vct_tpu_torch.parallel import comm
 
 Tensor = torch.Tensor
@@ -97,14 +99,12 @@ def sharded_directional_march_multi(
     dirs = np.asarray(directions, np.float64)
     if dirs.ndim == 1:
         dirs = dirs[None]
-    nb = dirs.shape[0]
     if df % n:
         raise ValueError(f"field_dim {df} not divisible by {n} shards")
     ldf = df // n
     if transmittance_only:
         mips = [m[..., -1:] for m in mips]
     dims = [m.shape[0] for m in mips]
-    plan, groups = D.plan_groups(schedule.lods, len(mips))
     halos, sharded = shard_plan(dirs, schedule, dims, world_size, n,
                                 min_shard_rows)
 
@@ -117,39 +117,25 @@ def sharded_directional_march_multi(
                                           halos[lvl], ax))
         else:
             blocks.append(m)
-    # the level each tap reads, in _direction_taps' order
-    tap_levels = [lvl for (l0, l1), steps in groups for _ in steps
-                  for lvl in ((l0, l1) if l1 != l0 else (l0,))]
+    # every direction's taps; the x taps sliced to the slab's rows and,
+    # on a sharded level, rebased into its halo block
+    lod_plan, groups = D.plan_groups(schedule.lods, len(mips))
+    levels = D.tap_levels(groups)
+    idx, w = D.direction_taps(dirs, schedule, groups, dims, df, world_size,
+                              dtype)
     xs = slice(row0 * ldf, (row0 + 1) * ldf)
-
-    cout = 1 if transmittance_only else 4
-    out = torch.empty((ldf, df, df, nb * cout), dtype=torch.float32,
-                      device=dev)
-    for b in range(nb):
-        idx, wts = D._direction_taps(dirs[b], schedule, plan, groups, dims,
-                                     df, world_size, dtype, dev)
-        taps = []
-        for j, lvl in enumerate(tap_levels):
-            ix = idx[j, 0, :, xs]
-            if sharded[lvl]:     # rebase the slab's rows into the block
-                base = row0 * (dims[lvl] // n) - halos[lvl]
-                ix = torch.clamp(ix - base, 0, blocks[lvl].shape[0] - 1)
-            taps.append(((ix, idx[j, 1], idx[j, 2]),
-                         (wts[j, 0, :, xs], wts[j, 1], wts[j, 2])))
-
-        def take(lvl, j):
-            return D._take3(blocks[lvl], taps[j][0], taps[j][1], dtype)
-
-        res = D.march_direction(take, plan, groups, schedule,
-                                (ldf, df, df), dev, max_alpha,
-                                occlusion_falloff, opacity_gain,
-                                transmittance_only)
-        if transmittance_only:
-            out[..., b:b + 1] = res[0]
-        else:
-            out[..., 4 * b:4 * b + 3] = res[0]
-            out[..., 4 * b + 3:4 * b + 4] = res[1]
-    return out
+    ix = idx[:, :, 0, :, xs].copy()
+    for j, lvl in enumerate(levels):
+        if sharded[lvl]:
+            base = row0 * (dims[lvl] // n) - halos[lvl]
+            ix[:, j] = np.clip(ix[:, j] - base, 0, blocks[lvl].shape[0] - 1)
+    plan = OD.make_plan(
+        [(ix, w[:, :, 0, :, xs]), (idx[:, :, 1], w[:, :, 1]),
+         (idx[:, :, 2], w[:, :, 2])], levels,
+        D.step_table(schedule, lod_plan, groups, occlusion_falloff), dirs,
+        (ldf, df, df), dev, dtype, schedule.step_factor, max_alpha,
+        opacity_gain, transmittance_only)
+    return OD.dense_march(blocks, plan)
 
 
 def sharded_directional_march(mips: Sequence[Tensor], direction,
