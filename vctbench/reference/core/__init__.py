@@ -1,0 +1,1 @@
+"""Part of the plain reference: see vctbench/reference/pipeline.py."""
