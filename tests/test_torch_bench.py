@@ -88,7 +88,6 @@ def test_march_plan_is_the_builds_diffuse_march():
 
 def test_peak_table():
     assert B.peak_bytes_per_s("NVIDIA H100 80GB HBM3") == 3.35e12
-    assert B.FP32_OPS_PER_S["NVIDIA H100 80GB HBM3"] == 67e12
     with pytest.raises(ValueError, match="no peak memory rate"):
         B.peak_bytes_per_s("TPU v5 lite")
     assert B.power_limit_w("NVIDIA H100 80GB HBM3, 700.00 W") == 700.0
@@ -133,8 +132,7 @@ def test_run_on_cpu():
     # no device figure from a CPU run: the host times stand apart
     for k in ("value", "vs_baseline", "build_ms", "frame_ms_1080p",
               "raycast_ms", "march_achieved_gbps", "peak_gbps",
-              "power_limit_w", "march_mxu_util", "march_bound_ms",
-              "march_bound_share"):
+              "power_limit_w", "march_mxu_util"):
         assert res[k] is None, k
     host = res["host_ms"]
     assert set(host["raycast_split_ms"]) == {"pack", "bin", "raycast"}

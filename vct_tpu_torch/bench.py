@@ -26,11 +26,10 @@ What it measures, as bench.py does (bench.py:104-271):
     (ops/dense.march_work: each pyramid level it taps read once, the tap
     and step tables, the field written once; the operations of the steps
     each cell and direction takes before its early-out, the kernel's own
-    count), march_achieved_gbps is those bytes over its time, and
-    march_bound_share the least time the card could take for that work
-    (the larger of bytes over the memory rate and operations over the
-    float32 rate, halved as the kernel rounds every operation on its own)
-    over its time.  Before the kernel the bytes were the eager march's
+    count), and march_achieved_gbps is those bytes over its time (the
+    march's share of its roofline is the benchmark's
+    dense_march_roofline.relight, vctbench/).  Before the kernel the
+    bytes were the eager march's
     op-by-op traffic, which a dispatch mode no longer sees on the kernel
     route.  march_mxu_util is null, as the march runs no matmul (it
     gathers and lerps);
@@ -59,10 +58,11 @@ unit, vs_baseline, frame_ms_1080p, fps_1080p, fast_path, frame_tris,
 raycast_ms, march_achieved_gbps, peak_gbps, march_mxu_util, build_ms)
 and device (the card's name), power_limit_w (nvidia-smi's power limit),
 dense_samples, build_ms_bf16, march_ms, march_bytes, march_ops,
-march_bound_ms, march_bound_share, raycast_split_ms and frame_ms
-(min/median/max); diagnostics go to stderr.  vs_baseline
-keeps bench.py's definition: samples/s over the no-reuse roofline, the
-card's peak bytes/s over BYTES_PER_SAMPLE (16 taps of RGBA float32).
+raycast_split_ms and frame_ms (min/median/max); diagnostics go to
+stderr.  vs_baseline keeps bench.py's definition: samples/s over the
+no-reuse roofline, the card's peak bytes/s over BYTES_PER_SAMPLE (16
+taps of RGBA float32), a TPU-era yardstick kept beside bench.py's keys,
+not a measure of any kernel's work.
 On the CPU the device keys are null and the host-clock times sit under
 host_ms.
 """
@@ -94,10 +94,6 @@ from vct_tpu_torch.utils.profiling import card_line
 # peak HBM bytes/s by torch.cuda.get_device_name (NVIDIA's data sheet:
 # H100 SXM, 80 GB HBM3)
 HBM_BYTES_PER_S = {"NVIDIA H100 80GB HBM3": 3.35e12}
-# dense float32 operations a second outside the tensor cores (a fused
-# multiply-add counted as two); the march rounds every operation on its
-# own, one instruction each, so its rate is half of it
-FP32_OPS_PER_S = {"NVIDIA H100 80GB HBM3": 67e12}
 BYTES_PER_SAMPLE = 16 * 4 * 4   # quadrilinear: 16 taps x RGBA x f32
 CAMERA = dict(position=(48.0, -10.0, 0.0), yaw=180.0)   # bench.py:122
 
@@ -261,14 +257,11 @@ def run(dim: int = 256, width: int = 1920, height: int = 1080,
         f"before each early-out)")
     if cuda:
         bw = peak_bytes_per_s(kind)
-        rate = FP32_OPS_PER_S[kind] / 2
         march_gbps = march_bytes / (march_ms * 1e-3) / 1e9
-        march_bound = max(march_bytes / bw, march_ops / rate) * 1e3
         log(f"dense march achieved {march_gbps:.1f} GB/s "
             f"({march_gbps * 1e9 / bw:.4f} of the {bw / 1e9:.0f} GB/s "
-            f"peak); bound {march_bound:.4f} ms, {march_bound / march_ms:.4f}"
-            f" of it reached; march_mxu_util null: the march gathers and "
-            f"lerps, it runs no matmul")
+            f"peak); march_mxu_util null: the march gathers and lerps, it "
+            f"runs no matmul")
 
     # --- the frame: the atrium subdivided, on the base samples -----------
     scene_hi = subdivide_scene(scene, subdiv) if subdiv else scene
@@ -346,16 +339,13 @@ def run(dim: int = 256, width: int = 1920, height: int = 1080,
         "raycast_ms": None, "march_achieved_gbps": None, "peak_gbps": None,
         "march_mxu_util": None, "build_ms": None, "device": kind,
         "power_limit_w": None, "dense_samples": dense_samples,
-        "march_bytes": march_bytes, "march_ops": march_ops,
-        "march_bound_ms": None, "march_bound_share": None}
+        "march_bytes": march_bytes, "march_ops": march_ops}
     if cuda:
         sol = bw / BYTES_PER_SAMPLE
         log(f"HBM no-reuse SoL: {sol:.3e} samples/s; fraction: "
             f"{sps / sol:.3f}")
         res.update(timed, vs_baseline=sps / sol,
                    march_achieved_gbps=march_gbps, peak_gbps=bw / 1e9,
-                   march_bound_ms=march_bound,
-                   march_bound_share=march_bound / march_ms,
                    power_limit_w=power_limit_w(card_line()))
     else:
         # host-clock times of CPU kernels: none of them is a device figure

@@ -36,6 +36,7 @@ import torch
 from vct_tpu_torch.core import grid as G
 from vct_tpu_torch.core import march as M
 from vct_tpu_torch.ops import dense as OD
+from vct_tpu_torch.stages import span
 
 Tensor = torch.Tensor
 
@@ -169,8 +170,9 @@ def directional_march_multi(mips: Sequence[Tensor], directions,
     of ops/dense.dense_march: one kernel launch on the card.  Levels of
     an anisotropic stack blend by aniso_weights_static of each
     direction."""
-    return OD.dense_march(mips, march_plan(mips, directions, schedule,
-                                           world_size, **kw))
+    with span("dense.plan", mark=False):
+        plan = march_plan(mips, directions, schedule, world_size, **kw)
+    return OD.dense_march(mips, plan)
 
 
 def directional_march(mips: Sequence[Tensor], direction: Sequence[float],

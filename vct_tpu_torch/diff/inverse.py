@@ -40,7 +40,7 @@ from vct_tpu_torch.ops import raycast as RP
 from vct_tpu_torch.render import renderer as R
 from vct_tpu_torch.render import shading
 from vct_tpu_torch.render.voxelize import splat
-from vct_tpu_torch.stages import mark
+from vct_tpu_torch.stages import span
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -221,13 +221,13 @@ def make_step_fn(inv: InverseConfig, cfg: VCTConfig, ds,
     loss_fn = make_loss_fn(inv, cfg, ds, camera_position)
 
     def step(params, opt_state, samples, mats, origins, dirs, target):
-        opt_state.zero_grad(set_to_none=True)
-        loss = loss_fn(params, samples, mats, origins, dirs, target)
-        mark("loss")
-        loss.backward()
-        mark("backward")
-        opt_state.step()
-        mark("optimizer")
+        with span("loss"):
+            opt_state.zero_grad(set_to_none=True)
+            loss = loss_fn(params, samples, mats, origins, dirs, target)
+        with span("backward"):
+            loss.backward()
+        with span("optimizer"):
+            opt_state.step()
         return params, opt_state, loss.detach()
 
     return step, optimizer

@@ -74,6 +74,12 @@ def _budgets(t_real: int) -> Tuple[int, int]:
     return nb_med, nb_col
 
 
+def dropped(n_col_total: Tensor, t_real: int) -> Tensor:
+    """bin_triangles' column-tier triangles beyond the column budget, the
+    ones it drops (0-d, on the device)."""
+    return torch.clamp_min(n_col_total - _budgets(t_real)[1], 0)
+
+
 def _check_ids(t: int) -> None:
     if t > MAX_IDS:
         raise ValueError(f"{t} triangles: the binned raycast carries "
@@ -151,7 +157,7 @@ def bin_triangles(ds: DeviceScene, origin: Tensor, dflat: Tensor,
     JAX package's isect_p, transposed) and n_col_total, a 0-d tensor.
     Budgets overflow conservatively: medium overflow joins the column
     tier, and column overflow beyond the column budget is dropped from
-    binning (check n_col_total <= _budgets(T)[1] to rule that out)."""
+    binning (dropped(n_col_total, T) counts them)."""
     hp, wp = dimg.shape[:2]
     if hp % 16 or wp % 64:
         raise ValueError(f"padded image {hp}x{wp}: need hp % 16 == 0 and "

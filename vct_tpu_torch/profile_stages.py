@@ -19,9 +19,10 @@ measurement:
   * "syncs": host synchronizations in one frame, counted by torch's CUDA
     sync debug mode;
   * "profile": over --reps frames under torch.profiler, the summed device
-    time of all kernels against the host wall time of the loop (the
-    device's busy share), the kernel count, and the ten largest kernels
-    by device time per frame.
+    time of all kernels, the union of their intervals against the host
+    wall time of the loop (the device's busy share: overlapping kernels
+    count once), the kernel count, and the ten largest kernels by device
+    time per frame.
 It needs a card and exits non-zero without one.
 """
 
@@ -123,6 +124,16 @@ def syncs_by_stage(fn) -> dict:
     return counts
 
 
+def union_length(intervals) -> float:
+    """The length of the union of [(start, end)] intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
 def profile(fn, reps: int):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -145,11 +156,14 @@ def profile(fn, reps: int):
                      getattr(e, "self_cuda_time_total", 0))
         if us > 0:
             rows.append((us / 1e3, e.count, e.key))
-    busy = sum(r[0] for r in rows)
+    device_ms = sum(r[0] for r in rows)
+    busy_ms = union_length(
+        [(e.time_range.start, e.time_range.end) for e in prof.events()
+         if e.device_type == DeviceType.CUDA]) / 1e3
     rows.sort(reverse=True)
     return {"wall_ms_per_frame": wall_ms / reps,
-            "device_ms_per_frame": busy / reps,
-            "busy_share": busy / wall_ms if wall_ms else None,
+            "device_ms_per_frame": device_ms / reps,
+            "busy_share": busy_ms / wall_ms if wall_ms else None,
             "kernels_per_frame": sum(r[1] for r in rows) / reps,
             "top": [{"name": k[:80], "ms_per_frame": ms / reps,
                      "calls_per_frame": n / reps} for ms, n, k in rows[:10]]}

@@ -48,7 +48,7 @@ from vct_tpu_torch.render.gbuffer import DeviceScene
 from vct_tpu_torch.render.renderer import (MaterialTable, VoxelState,
                                            light_direction)
 from vct_tpu_torch.scene import textures as TX
-from vct_tpu_torch.stages import mark
+from vct_tpu_torch.stages import count, counting, span
 
 Tensor = torch.Tensor
 
@@ -146,13 +146,16 @@ def spec_percone_pass(cfg: VCTConfig, spec_mips, pos: Tensor, nrm: Tensor,
     order (fast.spec_percone_pass).  A group shares one mip level per step
     group, so groups are made world-space compact by percone_order.  The
     sort, the level selection and the march stay on the device."""
-    start4, refl4, step_lv, weights, perm = spec_march_inputs(
-        cfg, spec_mips, pos, nrm, shade_normal, eye, hit)
-    so = SM.spec_march_tiles(start4, refl4, step_lv, weights, spec_mips,
-                             world_size=cfg.grid.world_size,
-                             max_alpha=cfg.cones.max_alpha)
-    out = torch.empty_like(so)
-    out[perm] = so
+    with span("specmarch.inputs", mark=False):
+        start4, refl4, step_lv, weights, perm = spec_march_inputs(
+            cfg, spec_mips, pos, nrm, shade_normal, eye, hit)
+    with span("specmarch.kernel", mark=False):
+        so = SM.spec_march_tiles(start4, refl4, step_lv, weights, spec_mips,
+                                 world_size=cfg.grid.world_size,
+                                 max_alpha=cfg.cones.max_alpha)
+    with span("specmarch.scatter", mark=False):
+        out = torch.empty_like(so)
+        out[perm] = so
     return out
 
 
@@ -171,25 +174,32 @@ def build_frame_tables(cfg: VCTConfig, voxels: VoxelState,
     field specular can feed a percone frame."""
     if not supported(cfg):
         raise ValueError("fast path needs volume shadows + field cones")
-    light = _mips_to(voxels.light_volume, TP.BRICK_L)
     fields = [voxels.diffuse_field]
     if _spec_field(cfg):
         if voxels.specular_field is None:
             raise ValueError("specular_mode='field' needs a VoxelState "
                              "built with the specular field")
         fields.append(voxels.specular_field)
-    fused = torch.cat(fields, dim=-1) if len(fields) > 1 else fields[0]
-    pages = None
-    if mats.atlas is not None:
-        pages = MT.atlas_mip_pages(mats.atlas.albedo, mats.atlas.specular,
-                                   mats.atlas.height)
-    spec_mips = None
-    if _spec_percone(cfg):
-        spec_mips = SM.pack_spec_mips(voxels.radiance_mips)
-    return FrameTables(
-        light_mips=TP.pack_mips([m[..., 0] for m in light]),
-        field_mips=TP.pack_mips(_mips_to(fused, TP.BRICK_F)),
-        atlas_pages=pages, spec_mips=spec_mips)
+    with span("tables", mark=False):
+        with span("tables.light_mips", mark=False):
+            light = _mips_to(voxels.light_volume, TP.BRICK_L)
+            light_mips = TP.pack_mips([m[..., 0] for m in light])
+        with span("tables.fuse", mark=False):
+            fused = torch.cat(fields, dim=-1) if len(fields) > 1 else fields[0]
+        with span("tables.field_mips", mark=False):
+            field_mips = TP.pack_mips(_mips_to(fused, TP.BRICK_F))
+        pages = None
+        if mats.atlas is not None:
+            with span("tables.atlas_pages", mark=False):
+                pages = MT.atlas_mip_pages(mats.atlas.albedo,
+                                           mats.atlas.specular,
+                                           mats.atlas.height)
+        spec_mips = None
+        if _spec_percone(cfg):
+            with span("tables.spec_mips", mark=False):
+                spec_mips = SM.pack_spec_mips(voxels.radiance_mips)
+    return FrameTables(light_mips=light_mips, field_mips=field_mips,
+                       atlas_pages=pages, spec_mips=spec_mips)
 
 
 def _tile_order(img: Tensor, hp: int, wp: int) -> Tensor:
@@ -234,7 +244,16 @@ def render_frame(cfg: VCTConfig,
                  dirs: Tensor,               # (H, W, 3)
                  camera_position: Tensor,    # (3,)
                  light_dir: Optional[Tensor] = None) -> Tensor:
-    """Full camera pass -> (H, W, 3) linear RGB."""
+    """Full camera pass -> (H, W, 3) linear RGB.  Above
+    raycast.MAX_TRIANGLES, counts the triangles the binning dropped as
+    "binning.dropped" (stages.count)."""
+    with span("frame", mark=False):
+        return _render_frame(cfg, ds, tables, mats, origins, dirs,
+                             camera_position, light_dir)
+
+
+def _render_frame(cfg, ds, tables, mats, origins, dirs, camera_position,
+                  light_dir):
     if (mats.atlas is None) != (tables.atlas_pages is None):
         raise ValueError("the material table and the frame tables disagree "
                          "on the texture atlas: build the tables from "
@@ -242,33 +261,37 @@ def render_frame(cfg: VCTConfig,
     if _spec_percone(cfg) and tables.spec_mips is None:
         raise ValueError("specular_mode='percone' needs frame tables built "
                          "under it (the radiance pyramid, spec_mips)")
-    h, w = dirs.shape[:2]
-    hp = -(-h // TSY) * TSY
-    wp = -(-w // 64) * 64          # binned raycast strip granularity
-    if light_dir is None:
-        light_dir = light_direction(cfg, dirs.device)
-    origin = origins.reshape(-1, 3)[0].contiguous()
-    dimg = _pad_edge(dirs, hp, wp)
-    d = _tile_order(dimg, hp, wp).contiguous()
-    if ds.v0.shape[0] <= RP.MAX_TRIANGLES:
-        isect, attrs = RP.pack_tables(ds, origin, mats.albedo, mats.specular,
-                                      mats.shininess)
-        mark("rays_and_tables")
-        g = RP.raycast_gbuf24(d, origin, isect, attrs)
+    whole = ds.v0.shape[0] <= RP.MAX_TRIANGLES
+    with span("rays_and_tables" if whole else "rays"):
+        h, w = dirs.shape[:2]
+        hp = -(-h // TSY) * TSY
+        wp = -(-w // 64) * 64          # binned raycast strip granularity
+        if light_dir is None:
+            light_dir = light_direction(cfg, dirs.device)
+        origin = origins.reshape(-1, 3)[0].contiguous()
+        dimg = _pad_edge(dirs, hp, wp)
+        d = _tile_order(dimg, hp, wp).contiguous()
+        if whole:
+            isect, attrs = RP.pack_tables(ds, origin, mats.albedo,
+                                          mats.specular, mats.shininess)
+    if whole:
+        with span("raycast"):
+            g = RP.raycast_gbuf24(d, origin, isect, attrs)
     else:
         # the raster-style binned raycast: work per strip scales with the
         # triangles that project onto it
-        mark("rays")
-        isect, attrs = BR.pack_rows(ds, origin, mats.albedo, mats.specular,
-                                    mats.shininess)
-        mark("pack_rows")
-        scal, table, _ = BR.bin_triangles(ds, origin, d, dimg, isect)
-        mark("bin")
-        g = BR.raycast_binned(d, origin, scal, table, attrs)
-    mark("raycast")
+        with span("pack_rows"):
+            isect, attrs = BR.pack_rows(ds, origin, mats.albedo,
+                                        mats.specular, mats.shininess)
+        with span("bin"):
+            scal, table, n_col = BR.bin_triangles(ds, origin, d, dimg, isect)
+            if counting():
+                count("binning.dropped", BR.dropped(n_col, ds.v0.shape[0]))
+        with span("raycast"):
+            g = BR.raycast_binned(d, origin, scal, table, attrs)
     if mats.atlas is not None and cfg.render.alpha_mask_depth > 0:
-        g = alpha_resolve(cfg, ds, mats, g, d, origin)
-        mark("alpha_resolve")
+        with span("alpha_resolve"):
+            g = alpha_resolve(cfg, ds, mats, g, d, origin)
     return _shade(cfg, tables, g, camera_position, light_dir, (h, w, hp, wp))
 
 
@@ -351,98 +374,108 @@ def alpha_resolve(cfg: VCTConfig, ds: DeviceScene, mats: MaterialTable,
     stacks keep the background.  The flag that decides a pass is read on
     the host: one sync per pass."""
     n = g.shape[0]
-    maskable = _maskable(mats, cfg.render.alpha_threshold)
-    isect, attrs, spheres = RP.pack_tables_stream(
-        ds, origin, mats.albedo, mats.specular, mats.shininess)
-    flag = _candidates(g, maskable).any()
+    with span("alpha_resolve.pack", mark=False):
+        maskable = _maskable(mats, cfg.render.alpha_threshold)
+        isect, attrs, spheres = RP.pack_tables_stream(
+            ds, origin, mats.albedo, mats.specular, mats.shininess)
+        flag = _candidates(g, maskable).any()
     for _ in range(cfg.render.alpha_mask_depth):
-        if not bool(flag):                    # host sync: the pass's flag
+        with span("alpha_resolve.flag", mark=False):
+            again = bool(flag)                # host sync: the pass's flag
+        if not again:
             break
-        idx, masked, d_sub, tmin = recast_inputs(cfg, mats, g, d)
-        lists, counts = RP.select_chunks(
-            d_sub.reshape(-1, RP.TILE, 3), spheres)
-        g_sub = RP.raycast_stream(d_sub, origin, isect, attrs, lists, counts,
-                                  spheres, tmin=tmin)
-        # write back only the masked rows; index n takes the padding
-        out = torch.cat([g, g.new_zeros((1, g.shape[1]))])
-        out[torch.where(masked, idx, n)] = g_sub
-        g = out[:n]
-        # another pass only when a re-cast ray landed on a maskable
-        # material again (a stacked mask)
-        flag = (masked & _candidates(g_sub, maskable)).any()
+        with span("alpha_resolve.inputs", mark=False):
+            idx, masked, d_sub, tmin = recast_inputs(cfg, mats, g, d)
+            lists, counts = RP.select_chunks(
+                d_sub.reshape(-1, RP.TILE, 3), spheres)
+        with span("alpha_resolve.kernel", mark=False):
+            g_sub = RP.raycast_stream(d_sub, origin, isect, attrs, lists,
+                                      counts, spheres, tmin=tmin)
+        with span("alpha_resolve.writeback", mark=False):
+            # write back only the masked rows; index n takes the padding
+            out = torch.cat([g, g.new_zeros((1, g.shape[1]))])
+            out[torch.where(masked, idx, n)] = g_sub
+            g = out[:n]
+            # another pass only when a re-cast ray landed on a maskable
+            # material again (a stacked mask)
+            flag = (masked & _candidates(g_sub, maskable)).any()
     return g
 
 
 def _shade(cfg: VCTConfig, tables: FrameTables, g: Tensor,
            camera_position: Tensor, light_dir: Tensor, hw) -> Tensor:
     h, w, hp, wp = hw
-    voxel = cfg.grid.voxel_world_size
-    ws = cfg.grid.world_size
-    pos = g[:, 0:3]
-    nrm = g[:, 3:6]
-    hit = g[:, 19] > 0.5
-    pkw = dict(light_dims=tuple(m.shape[0] for m in tables.light_mips),
-               field_dims=tuple(m.shape[0] for m in tables.field_mips),
-               voxel=voxel, world_size=ws,
-               shadow_offset=cfg.shadow.normal_offset)
+    textured = tables.atlas_pages is not None
+    with span("prepass"):
+        voxel = cfg.grid.voxel_world_size
+        ws = cfg.grid.world_size
+        pos = g[:, 0:3]
+        nrm = g[:, 3:6]
+        hit = g[:, 19] > 0.5
+        pkw = dict(light_dims=tuple(m.shape[0] for m in tables.light_mips),
+                   field_dims=tuple(m.shape[0] for m in tables.field_mips),
+                   voxel=voxel, world_size=ws,
+                   shadow_offset=cfg.shadow.normal_offset)
+        if not textured:
+            # per-tile light/field level + brick selection; material
+            # constants ride the raycast's attribute rows
+            scal = PP.prepass_tiles(g, **pkw)
+        else:
+            # the prepass adds per-material atlas entries and pixel slots;
+            # the material kernel fetches albedo, specular and the bump
+            # heights
+            pages = tables.atlas_pages
+            res = MT.pages_resolution(pages)
+            atlas = PP.AtlasShape(pages.shape[0], res, res.bit_length())
+            scal, mscal, mlists, mslots = PP.prepass_tiles(g, atlas=atlas,
+                                                           **pkw)
+    if textured:
+        with span("material"):
+            mout = MT.material_tiles(g, mslots, mscal, mlists, pages,
+                                     resolution=res)
+        with span("bump_normal"):
+            albedo4 = mout[:, 0:4]
+            spec = mout[:, 4:7]
+            shade_normal = TX.bump_normal_from_heights(
+                mout[:, 7], mout[:, 8], mout[:, 9], g[:, 9:12], g[:, 12:15],
+                nrm)
+    with span("tap"):
+        if not textured:
+            albedo4 = g[:, 20:24]
+            spec = g[:, 24:27]
+            shade_normal = nrm
+        spec = shading.spec_gray_fallback(spec)
+        eye = C.normalize(camera_position - pos)
+        nb = cfg.cones.field_basis
 
-    if tables.atlas_pages is None:
-        # per-tile light/field level + brick selection; material constants
-        # ride the raycast's attribute rows
-        scal = PP.prepass_tiles(g, **pkw)
-        mark("prepass")
-        albedo4 = g[:, 20:24]
-        spec = g[:, 24:27]
-        shade_normal = nrm
-    else:
-        # the prepass adds per-material atlas entries and pixel slots; the
-        # material kernel fetches albedo, specular and the bump heights
-        pages = tables.atlas_pages
-        res = MT.pages_resolution(pages)
-        atlas = PP.AtlasShape(pages.shape[0], res, res.bit_length())
-        scal, mscal, mlists, mslots = PP.prepass_tiles(g, atlas=atlas, **pkw)
-        mark("prepass")
-        mout = MT.material_tiles(g, mslots, mscal, mlists, pages,
-                                 resolution=res)
-        mark("material")
-        albedo4 = mout[:, 0:4]
-        spec = mout[:, 4:7]
-        shade_normal = TX.bump_normal_from_heights(
-            mout[:, 7], mout[:, 8], mout[:, 9], g[:, 9:12], g[:, 12:15], nrm)
-        mark("bump_normal")
-    spec = shading.spec_gray_fallback(spec)
-    eye = C.normalize(camera_position - pos)
-    nb = cfg.cones.field_basis
-
-    # shadow + basis-weighted diffuse (+ specular in field mode) taps, one
-    # kernel
-    bumpn = torch.cat([shade_normal, torch.zeros_like(shade_normal[:, :1])],
-                      dim=1)
-    cfield = 4 * nb * (2 if _spec_field(cfg) else 1)
-    taps = TP.tap_tiles(
-        g, scal, bumpn, camera_position.contiguous(), tables.light_mips,
-        tables.field_mips, cfield=cfield, nb=nb, world_size=ws, voxel=voxel,
-        shadow_offset=cfg.shadow.normal_offset,
-        power_diffuse=int(cfg.cones.basis_power_diffuse),
-        power_specular=int(cfg.cones.basis_power_specular),
-        cones_static=_cones_static(cfg))
-    mark("tap")
+        # shadow + basis-weighted diffuse (+ specular in field mode) taps,
+        # one kernel
+        bumpn = torch.cat([shade_normal,
+                           torch.zeros_like(shade_normal[:, :1])], dim=1)
+        cfield = 4 * nb * (2 if _spec_field(cfg) else 1)
+        taps = TP.tap_tiles(
+            g, scal, bumpn, camera_position.contiguous(), tables.light_mips,
+            tables.field_mips, cfield=cfield, nb=nb, world_size=ws,
+            voxel=voxel, shadow_offset=cfg.shadow.normal_offset,
+            power_diffuse=int(cfg.cones.basis_power_diffuse),
+            power_specular=int(cfg.cones.basis_power_specular),
+            cones_static=_cones_static(cfg))
     ind_spec = taps[:, 5:9]
     if _spec_percone(cfg):
         # the exact per-pixel specular cone march in place of the field
-        ind_spec = spec_percone_pass(cfg, tables.spec_mips, pos, nrm,
-                                     shade_normal, eye, hit)
-        mark("specmarch")
+        with span("specmarch"):
+            ind_spec = spec_percone_pass(cfg, tables.spec_mips, pos, nrm,
+                                         shade_normal, eye, hit)
 
-    rgb = shading.combine(
-        cfg, albedo=albedo4[:, :3], spec_color=spec, normal=shade_normal,
-        light_dir=light_dir, eye_dir=eye, shadow=taps[:, 0],
-        ind_diffuse_rgb=taps[:, 1:4], ind_diffuse_occ=taps[:, 4],
-        ind_spec_rgb=ind_spec[:, 0:3], ind_spec_occ=ind_spec[:, 3],
-        shininess=g[:, 27])
-    bg = G.constant(cfg.render.background, rgb.device, rgb.dtype)
-    visible = hit & (albedo4[:, 3] >= cfg.render.alpha_threshold)
-    rgb = torch.where(visible[:, None], rgb, bg)
-    out = _untile(rgb, hp, wp)[:h, :w]
-    mark("combine")
+    with span("combine"):
+        rgb = shading.combine(
+            cfg, albedo=albedo4[:, :3], spec_color=spec, normal=shade_normal,
+            light_dir=light_dir, eye_dir=eye, shadow=taps[:, 0],
+            ind_diffuse_rgb=taps[:, 1:4], ind_diffuse_occ=taps[:, 4],
+            ind_spec_rgb=ind_spec[:, 0:3], ind_spec_occ=ind_spec[:, 3],
+            shininess=g[:, 27])
+        bg = G.constant(cfg.render.background, rgb.device, rgb.dtype)
+        visible = hit & (albedo4[:, 3] >= cfg.render.alpha_threshold)
+        rgb = torch.where(visible[:, None], rgb, bg)
+        out = _untile(rgb, hp, wp)[:h, :w]
     return out

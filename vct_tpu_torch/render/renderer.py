@@ -39,7 +39,7 @@ from vct_tpu_torch.render.gbuffer import (DeviceScene, GBuffer, map_gbuffer,
 from vct_tpu_torch.render.voxelize import (SurfaceSamples,
                                            generate_surface_samples, splat)
 from vct_tpu_torch.scene import textures as TX
-from vct_tpu_torch.stages import mark
+from vct_tpu_torch.stages import span
 
 Tensor = torch.Tensor
 
@@ -213,73 +213,82 @@ def build_voxel_state(cfg: VCTConfig, samples: SamplesDevice,
     grids (and the shadow map) are reduced over it before the finish,
     and the dense marches run brick-sharded along x; every rank returns
     the whole state."""
-    dim, ws = cfg.grid.dim, cfg.grid.world_size
-    reduce = None
-    if shading._use_brick_sharding(cfg, mesh):
-        from vct_tpu_torch.parallel import comm
-        from vct_tpu_torch.parallel.mesh import local_samples
-        samples = local_samples(samples, mesh, cfg.sharding.model_axis)
-        reduce = comm.reducer(comm.axis(mesh, cfg.sharding.model_axis))
-    dev = samples.positions.device
-    if light_dir is None:
-        light_dir = light_direction(cfg, dev)
-    if light_color is None:
-        light_color = G.constant(cfg.light.color, dev)
-    albedo = mats.sample_albedo(samples.material_ids, samples.uvs)
-    emissive = mats.emissive[samples.material_ids.long()]
-    weights = torch.ones(samples.positions.shape[0], dtype=albedo.dtype,
-                         device=dev)
+    with span("build", mark=False):
+        return _build_voxel_state(cfg, samples, mats, light_dir, light_color,
+                                  mesh)
 
-    unlit = splat(samples.positions, albedo[:, :3], weights, dim, ws,
-                  mode=cfg.voxelize.mode, reduce=reduce)
-    mark("albedo_splat")
+
+def _build_voxel_state(cfg, samples, mats, light_dir, light_color, mesh):
+    dim, ws = cfg.grid.dim, cfg.grid.world_size
+    with span("albedo_splat"):
+        reduce = None
+        if shading._use_brick_sharding(cfg, mesh):
+            from vct_tpu_torch.parallel import comm
+            from vct_tpu_torch.parallel.mesh import local_samples
+            samples = local_samples(samples, mesh, cfg.sharding.model_axis)
+            reduce = comm.reducer(comm.axis(mesh, cfg.sharding.model_axis))
+        dev = samples.positions.device
+        if light_dir is None:
+            light_dir = light_direction(cfg, dev)
+        if light_color is None:
+            light_color = G.constant(cfg.light.color, dev)
+        albedo = mats.sample_albedo(samples.material_ids, samples.uvs)
+        emissive = mats.emissive[samples.material_ids.long()]
+        weights = torch.ones(samples.positions.shape[0], dtype=albedo.dtype,
+                             device=dev)
+        unlit = splat(samples.positions, albedo[:, :3], weights, dim, ws,
+                      mode=cfg.voxelize.mode, reduce=reduce)
     # conservative (max-alpha) mips: shadow cones must not leak through
     # thin occluders diluted by mean reduction
-    unlit_mips = mip.build_mips(unlit, cfg.grid.num_levels, alpha_mode="max")
-    mark("occupancy_mips")
+    with span("occupancy_mips"):
+        unlit_mips = mip.build_mips(unlit, cfg.grid.num_levels,
+                                    alpha_mode="max")
 
     light_volume = shadow_map = None
-    if cfg.shadow.mode == "volume":
-        light_volume = shading.build_light_volume(cfg, unlit_mips,
-                                                  mesh=mesh)
-        mark("light_volume")
-        shadow = shading.shadow_volume_tap_packed(
-            cfg, shading.pack_light_corners(light_volume), dim,
-            samples.positions, samples.normals)
-    elif cfg.shadow.mode == "map":
-        shadow_map = SM.build_shadow_map(cfg, samples.positions)
-        if reduce is not None:     # a min is exact in any order
-            shadow_map = reduce(shadow_map, "min")
-        mark("shadow_map")
-        shadow = SM.pcf_shadow(cfg, shadow_map, samples.positions,
-                               normalization="voxelize")
+    mode = cfg.shadow.mode
+    if mode == "volume":
+        with span("light_volume"):
+            light_volume = shading.build_light_volume(cfg, unlit_mips,
+                                                      mesh=mesh)
+    elif mode == "map":
+        with span("shadow_map"):
+            shadow_map = SM.build_shadow_map(cfg, samples.positions)
+            if reduce is not None:     # a min is exact in any order
+                shadow_map = reduce(shadow_map, "min")
     else:
-        shadow = shading.shadow_cone_value(
-            unlit_mips, samples.positions, samples.normals, light_dir,
-            shading.shadow_schedule(cfg), cfg)
-        mark("shadow_cones")
-    radiance = albedo[:, :3] * light_color * shadow[:, None] + emissive
-    lit = splat(samples.positions, radiance, weights, dim, ws,
-                mode=cfg.voxelize.mode, reduce=reduce)
-    mark("shadow_and_radiance_splat")
-    radiance_mips = _radiance_mips(cfg, lit)
-    mark("radiance_mips")
+        with span("shadow_cones"):
+            shadow = shading.shadow_cone_value(
+                unlit_mips, samples.positions, samples.normals, light_dir,
+                shading.shadow_schedule(cfg), cfg)
+    with span("shadow_and_radiance_splat"):
+        if mode == "volume":
+            shadow = shading.shadow_volume_tap_packed(
+                cfg, shading.pack_light_corners(light_volume), dim,
+                samples.positions, samples.normals)
+        elif mode == "map":
+            shadow = SM.pcf_shadow(cfg, shadow_map, samples.positions,
+                                   normalization="voxelize")
+        radiance = albedo[:, :3] * light_color * shadow[:, None] + emissive
+        lit = splat(samples.positions, radiance, weights, dim, ws,
+                    mode=cfg.voxelize.mode, reduce=reduce)
+    with span("radiance_mips"):
+        radiance_mips = _radiance_mips(cfg, lit)
     for _ in range(max(0, cfg.light.gi_bounces - 2)):
-        radiance_mips = _inject_bounce(cfg, samples, albedo[:, :3], radiance,
-                                       weights, radiance_mips, mesh=mesh,
-                                       reduce=reduce)
-        mark("bounce")
+        with span("bounce"):
+            radiance_mips = _inject_bounce(cfg, samples, albedo[:, :3],
+                                           radiance, weights, radiance_mips,
+                                           mesh=mesh, reduce=reduce)
 
     diffuse_field = specular_field = None
     if cfg.cones.diffuse_mode == "field":
-        diffuse_field = shading.build_cone_field(
-            cfg, radiance_mips, shading.diffuse_schedule(cfg), mesh=mesh)
-        mark("diffuse_field")
+        with span("diffuse_field"):
+            diffuse_field = shading.build_cone_field(
+                cfg, radiance_mips, shading.diffuse_schedule(cfg), mesh=mesh)
     if cfg.cones.trace_specular and cfg.cones.specular_mode == "field":
-        specular_field = shading.build_cone_field(
-            cfg, radiance_mips, shading.specular_field_schedule(cfg),
-            mesh=mesh)
-        mark("specular_field")
+        with span("specular_field"):
+            specular_field = shading.build_cone_field(
+                cfg, radiance_mips, shading.specular_field_schedule(cfg),
+                mesh=mesh)
     return VoxelState(radiance_mips=radiance_mips, unlit_mips=unlit_mips,
                       light_volume=light_volume, diffuse_field=diffuse_field,
                       specular_field=specular_field, shadow_map=shadow_map)
@@ -405,17 +414,18 @@ def render_rays(cfg: VCTConfig, ds: DeviceScene, voxels: VoxelState,
     out = []
     for s in range(0, n + pad, chunk_size):
         dc = d[s:s + chunk_size]
+        with span("raycast"):
+            if pinhole:
+                gbuf = raycast_chunk_pinhole(ds, pc, origin0, dc)
+            else:
+                gbuf = raycast_chunk(ds, o[s:s + chunk_size], dc)
         if pinhole:
-            gbuf = raycast_chunk_pinhole(ds, pc, origin0, dc)
-            mark("raycast")
-            gbuf = alpha_mask_recast(cfg, ds, pc, origin0, dc, gbuf, mats)
-            mark("alpha_recast")
-        else:
-            gbuf = raycast_chunk(ds, o[s:s + chunk_size], dc)
-            mark("raycast")
-        out.append(shade_gbuffer(cfg, voxels, gbuf, mats, camera_position,
-                                 light_dir))
-        mark("shade")
+            with span("alpha_recast"):
+                gbuf = alpha_mask_recast(cfg, ds, pc, origin0, dc, gbuf,
+                                         mats)
+        with span("shade"):
+            out.append(shade_gbuffer(cfg, voxels, gbuf, mats,
+                                     camera_position, light_dir))
     return torch.cat(out)[:n].reshape(shape + (3,))
 
 

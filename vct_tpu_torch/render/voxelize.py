@@ -19,6 +19,7 @@ import torch
 from vct_tpu_torch import native
 from vct_tpu_torch.scene.mesh import Scene
 from vct_tpu_torch.core.grid import world_to_uvw
+from vct_tpu_torch.stages import span
 
 Tensor = torch.Tensor
 
@@ -143,8 +144,10 @@ def splat_partials(
 
     # stable sort by cell, then one reduction per occupied cell in sample
     # order: deterministic on every device (no atomics)
-    order = torch.sort(flat, stable=True).indices
-    cells, counts = torch.unique_consecutive(flat[order], return_counts=True)
+    with span("splat.sort", mark=False):    # the count syncs the host
+        order = torch.sort(flat, stable=True).indices
+        cells, counts = torch.unique_consecutive(flat[order],
+                                                 return_counts=True)
 
     def segments(x, reduce):
         return torch.segment_reduce(x[order], reduce, lengths=counts, axis=0)

@@ -1,0 +1,9 @@
+"""recast_idle_ms.frame: the device's idle ms a frame while the host is
+inside the alpha re-cast's span (vct.alpha_resolve, its parts nested in
+it), over the profiled frames (vctbench/spans.py)."""
+
+from vctbench import spans
+
+
+def read(ctx):
+    return spans.mean(spans.idle_ms(ctx, ("alpha_resolve",)))
