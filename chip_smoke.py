@@ -119,7 +119,13 @@ Phases, each reported on its own lines:
            syncs in a build and a frame; on this host at full size the
            native OBJ arrays bit-equal to the Python parser's and the
            native samples to numpy's after a stable sort by tri_ids; the
-           binning's column tier within its budget; binrast, prepass,
+           binning's column tier within its budget; the binning kernels
+           (csrc/binning.cu) against pack_rows_plain and
+           bin_triangles_plain on the same tensors, isect, attrs, scal,
+           table and n_col_total bit for bit, at the bench camera and
+           three poses of vctbench's walk (seed 2200000022, steps 0, 50,
+           100), and on the scene subdivided once more (1,148,928
+           triangles: the stable sort) at two of them; binrast, prepass,
            material, tap and mip against their plain versions on this
            scene (paths 2's, 3's and 5's tolerances); the streamed
            raycast's launches beside the alpha candidates (none: the MTL
@@ -158,7 +164,8 @@ Phases, each reported on its own lines:
       kept-row counts against stream_walk_plain's, timed and bounded;
   (b) each kernel against its plain PyTorch version on the card, at the
       shapes the atrium paths give it (the binned raycast at 287,232
-      triangles, also against the whole-table kernel; the specular march
+      triangles, also against the whole-table kernel; the binning's
+      pack and bin together at 287,232, bit for bit; the specular march
       and the diffuse-only tap on path 4's frame), with its time
       beside the plain one, the least time the card could take (bound),
       and, where one PyTorch call computes the same function, that
@@ -241,6 +248,12 @@ OPS_PER_HIT_TEST = 21
 OPS_PER_MARCH_STEP = 28
 OPS_PER_TAP = 99
 OPS_PER_MIP_LERP = 13
+# bytes of one triangle the binning's pack reads: v0, e1, e2, vn, vt, vb,
+# vuv, face_normal, material (gbuffer.DeviceScene)
+TRI_INPUT_BYTES = 3 * 12 + 3 * 36 + 24 + 12 + 4
+# csrc/binning.cu kernels a frame above raycast.MAX_TRIANGLES: the pack,
+# then strips, envelopes, triangles, scan, ranks, bounds, padding, table
+BINNING_LAUNCHES = 9
 
 
 def fail(msg: str):
@@ -567,8 +580,8 @@ def inverse_path(h, base_cfg, dev):
         return out
 
     cornell = cornell_box(size=100.0)
-    nd = ("raycast", "raycast_stream", "binrast", "prepass", "material",
-          "tap", "specmarch")
+    nd = ("raycast", "raycast_stream", "binrast", "binning", "prepass",
+          "material", "tap", "specmarch")
 
     # 6a: preset inverse unchanged through render_rays
     s = setup(base_cfg, cornell, CAM.Camera(**ORACLE_CAMERA))
@@ -621,8 +634,8 @@ def inverse_path(h, base_cfg, dev):
                   json.dumps(counts))
             h.expect(counts, ("mip", "mip_bwd", "raycast", "prepass", "tap",
                               "dense_march"),
-                     ("binrast", "raycast_stream", "material", "specmarch"),
-                     "main path 6b gradient")
+                     ("binrast", "binning", "raycast_stream", "material",
+                      "specmarch"), "main path 6b gradient")
     (lx, gx), (lf, gf) = grads["xla"], grads["fast"]
     gx64, gf64 = gx.double().flatten(), gf.double().flatten()
     cos = float(gx64 @ gf64 / (gx64.norm() * gf64.norm()))
@@ -660,8 +673,8 @@ def inverse_path(h, base_cfg, dev):
                         target, INVERSE_STEPS, f"main path 6b ({name})",
                         ("mip", "mip_bwd", "raycast", "prepass", "tap",
                          "dense_march"))
-        h.expect(got, (), ("binrast", "raycast_stream", "material",
-                           "specmarch"), f"main path 6b ({name})")
+        h.expect(got, (), ("binrast", "binning", "raycast_stream",
+                           "material", "specmarch"), f"main path 6b ({name})")
     inputs_b = frame_inputs(fcfg, s)
     del s, target, t2, fast_starts
 
@@ -1680,7 +1693,8 @@ print("launches " + json.dumps({
     "mip": mip.LAUNCHES, "raycast": raycast.LAUNCHES,
     "prepass": prepass.LAUNCHES, "tap": tap.LAUNCHES,
     "material": material.LAUNCHES, "raycast_stream": raycast.STREAM_LAUNCHES,
-    "binrast": binrast.LAUNCHES, "specmarch": specmarch.LAUNCHES,
+    "binrast": binrast.LAUNCHES, "binning": binrast.BIN_LAUNCHES,
+    "specmarch": specmarch.LAUNCHES,
     "mip_bwd": mip.BWD_LAUNCHES, "dense_march": dense.LAUNCHES}))
 """
 
@@ -1719,7 +1733,7 @@ def cli_path(h, out_dir, extra=()):
     h.say("9 render launches: " + json.dumps(launches))
     h.expect(launches, ("mip", "raycast", "raycast_stream", "prepass",
                         "material", "tap", "dense_march"),
-             ("binrast", "specmarch"), "CLI render")
+             ("binrast", "binning", "specmarch"), "CLI render")
     img = read_png(str(png))
     h.say(f"9 render wrote {png.name} {img.shape}, mean {img.mean():.3f}")
     if img.shape[:2] != (HEIGHT, WIDTH) or not img.mean() > 1.0:
@@ -1746,7 +1760,7 @@ ASSET_TRIS = 287_232
 ASSET_SAMPLES = 11_283_968     # at 256^3, 2 samples a voxel width
 ASSET_REPS = 5                 # timed frames after the warm-up
 ASSET_PHASES = ("load", "prepare", "build", "tables", "frame")
-ASSET_KERNELS = ("mip", "binrast", "prepass", "material", "tap",
+ASSET_KERNELS = ("mip", "binrast", "binning", "prepass", "material", "tap",
                  "dense_march")
 # the build's stages that march, one dense-march launch each
 MARCH_STAGES = ("light_volume", "diffuse_field", "specular_field")
@@ -1761,7 +1775,8 @@ def asset_path(h, dev, cfg, subdiv=ASSET_SUBDIV,
     Then, on the card's host at full size, the native OBJ arrays against
     the Python parser's and the native samples against numpy's (after a
     stable sort by tri_ids), bit for bit; the binning's column tier
-    against its budget; each kernel of the path against its plain version
+    against its budget; the binning kernels against the plain binning
+    (binning_check); each kernel of the path against its plain version
     on this scene with paths 2's and 3's tolerances; host syncs in a build
     and a frame and their device ms by stage.  Returns the main path's
     launches (load to the first frame) and the run's result.  h carries
@@ -1815,6 +1830,9 @@ def asset_path(h, dev, cfg, subdiv=ASSET_SUBDIV,
         fail("10: the build or the tables launched no mip")
     if phases["frame"]["binrast"] != 1 or phases["frame"]["tap"] != 1:
         fail("10: the frame must launch binrast and tap once each")
+    if phases["frame"]["binning"] != BINNING_LAUNCHES:
+        fail(f"10: the frame launched {phases['frame']['binning']} binning "
+             f"kernels, not {BINNING_LAUNCHES} (pack 1, bin 8)")
     if phases["build"]["dense_march"] != len(MARCH_STAGES):
         fail(f"10: the build launched the dense march "
              f"{phases['build']['dense_march']} times, not "
@@ -1871,6 +1889,8 @@ def asset_path(h, dev, cfg, subdiv=ASSET_SUBDIV,
     if int(n_col) > nb_col:
         fail("10: the column tier overflowed its budget: geometry was "
              "dropped")
+    binning_check(h, dev, cfg, scene, ds, mats, (origin, d, dimg),
+                  stable=tris == ASSET_TRIS)
 
     # binrast: hit, material and the winners' rows exact, t and u, v
     # within 1e-6, every column within 1e-4 (path 3)
@@ -1998,6 +2018,72 @@ def asset_path(h, dev, cfg, subdiv=ASSET_SUBDIV,
     return main_run, res
 
 
+# path 10's binning check: three poses of vctbench's walk (walk.json's
+# paths under this seed, these steps) beside the bench camera
+BIN_WALK_SEED = 2200000022
+BIN_WALK_STEPS = (0, 50, 100)
+
+
+def binning_check(h, dev, cfg, scene, ds, mats, bench_inputs, stable=True):
+    """Path 10: csrc/binning.cu (binrast.pack_rows_cuda,
+    bin_triangles_cuda) against pack_rows_plain and bin_triangles_plain on
+    the same CUDA tensors: isect, attrs, scal, table and n_col_total equal
+    bit for bit (torch.equal, dtypes included) on `ds` at the bench camera
+    (`bench_inputs`: origin, tile-major rays, padded ray image) and at
+    three poses of vctbench's walk (BIN_WALK_SEED, BIN_WALK_STEPS, its
+    rays as vctbench makes them), then on `scene` subdivided once more at
+    the bench camera and the first walk pose; with `stable`, that scene
+    must reach 2**19 triangles, the stable sort's branch, whose unused
+    slots carry real triangle ids into the table's padding rows."""
+    from vct_tpu_torch.ops import binrast
+    from vct_tpu_torch.render import fast as F
+    from vct_tpu_torch.render.gbuffer import DeviceScene
+    from vct_tpu_torch.scene.mesh import subdivide_scene
+    from vctbench.inputs import traffic
+
+    width, height = cfg.render.width, cfg.render.height
+    hp, wp = -(-height // F.TSY) * F.TSY, -(-width // 64) * 64
+    mix = json.loads((pathlib.Path(__file__).resolve().parent / "vctbench"
+                      / "traffic" / "walk.json").read_text())
+    maker = traffic.RayMaker(width, height, cfg.render.fov_degrees, dev)
+    basis = maker.basis(traffic.make_paths(mix, BIN_WALK_SEED,
+                                           max(BIN_WALK_STEPS) + 1))
+    poses = [("bench camera", bench_inputs)]
+    for step in BIN_WALK_STEPS:
+        origins, dirs, _ = maker.rays(basis[step])
+        dimg = F._pad_edge(dirs, hp, wp)
+        poses.append((f"walk step {step}",
+                      (origins.reshape(-1, 3)[0].contiguous(),
+                       F._tile_order(dimg, hp, wp).contiguous(), dimg)))
+    consts = (mats.albedo, mats.specular, mats.shininess)
+
+    def case(q, what, inputs):
+        origin, d, dimg = inputs
+        isect, attrs = binrast.pack_rows_plain(q, origin, *consts)
+        packed = binrast.pack_rows_cuda(q, origin, *consts)
+        plain = binrast.bin_triangles_plain(q, origin, d, dimg, isect)
+        kern = binrast.bin_triangles_cuda(q, origin, d, dimg, isect)
+        same = {k: a.dtype == b.dtype and torch.equal(a, b)
+                for k, a, b in zip(("isect", "attrs", "scal", "table",
+                                    "n_col_total"), (*packed, *kern),
+                                   (isect, attrs, *plain))}
+        h.say(f"10 binning kernels at {q.v0.shape[0]} triangles, {what}: "
+              f"bit-equal to the plain versions {json.dumps(same)}; table "
+              f"{plain[1].shape[0]} rows, column tier {int(plain[2])}")
+        if not all(same.values()):
+            fail(f"10: the binning kernels differ from the plain binning at "
+                 f"{q.v0.shape[0]} triangles, {what}")
+
+    for what, inputs in poses:
+        case(ds, what, inputs)
+    big = DeviceScene.from_scene(subdivide_scene(scene, 1), device=dev)
+    if stable and big.v0.shape[0] < 1 << 19:
+        fail(f"10: {big.v0.shape[0]} triangles do not reach the stable "
+             f"sort's 2**19")
+    for what, inputs in poses[:2]:
+        case(big, what, inputs)
+
+
 # ---- path 11: the operating point, bench and fidelity gate --------------
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "frame_ms_1080p",
               "fps_1080p", "fast_path", "frame_tris", "raycast_ms",
@@ -2050,8 +2136,8 @@ def operating_point_path(h, dev, dim=256, size=(WIDTH, HEIGHT), subdiv=4,
             isinstance(res_a[k], float) and 0 < res_a[k] < float("inf")
             for k in BENCH_TIMES):
         fail("11a: a bench figure is missing, not finite or not positive")
-    h.expect(launches_a, ("mip", "binrast", "prepass", "material",
-                          "raycast_stream", "tap", "dense_march"),
+    h.expect(launches_a, ("mip", "binrast", "binning", "prepass",
+                          "material", "raycast_stream", "tap", "dense_march"),
              ("specmarch", "mip_bwd"), "bench")
     # the dense march: 3 launches a sponza256 build (the light volume and
     # both fields) over bench.run's 2 x (1 + reps) builds, and the
@@ -2077,7 +2163,8 @@ def operating_point_path(h, dev, dim=256, size=(WIDTH, HEIGHT), subdiv=4,
     if broken:
         fail("11b: the fidelity gate failed: " + "; ".join(broken))
     h.expect(launches_b, ("mip", "raycast", "prepass", "tap", "specmarch",
-                          "dense_march"), ("binrast", "mip_bwd"), "fidelity")
+                          "dense_march"), ("binrast", "binning", "mip_bwd"),
+             "fidelity")
 
     # 11b's own inputs: its G-buffer and its specular pass
     prim, arrays = st["prim"], st["arrays"]
@@ -2596,7 +2683,8 @@ def main() -> int:
         f"first run {first_s:.2f} s")
     say("launches in main path 1 (Cornell):", json.dumps(launches))
     expect(launches, ("mip", "raycast", "prepass", "tap", "dense_march"),
-           ("material", "raycast_stream", "binrast", "specmarch"), "Cornell")
+           ("material", "raycast_stream", "binrast", "binning", "specmarch"),
+           "Cornell")
     check_image(p["img"], "Cornell")
     g = raycast.raycast_gbuf24(*primary_gbuf(p))
     raycast_equal(g, raycast.raycast_plain(*primary_gbuf(p)), "Cornell")
@@ -2640,7 +2728,7 @@ def main() -> int:
     say("launches in main path 2 (atrium):", json.dumps(launches))
     expect(launches, ("mip", "raycast", "prepass", "tap", "material",
                       "raycast_stream", "dense_march"),
-           ("binrast", "specmarch"), "atrium")
+           ("binrast", "binning", "specmarch"), "atrium")
     if launches["dense_march"] != 3:
         fail(f"the sponza256 build launched the dense march "
              f"{launches['dense_march']} times, not 3 (the light volume "
@@ -3016,7 +3104,7 @@ def main() -> int:
         f"candidate pixels, {-(-ds_hi.v0.shape[0] // raycast.CHUNK)} chunks; "
         f"streamed-raycast launches {launches3['raycast_stream']}")
     expect(launches3, ("mip", "prepass", "tap", "material", "binrast",
-                       "dense_march")
+                       "binning", "dense_march")
            + (("raycast_stream",) if n_cand3 else ()),
            ("raycast", "specmarch"), "atrium x4")
     for what, test in (("(a) the frame's own input", True),
@@ -3074,6 +3162,34 @@ def main() -> int:
                    d3, scal3, table3), PLAIN_REPS),
                b_bytes, kept_pairs3 * raycast.TILE * OPS_PER_HIT_TEST,
                rate=FP32_RN_OPS_PER_S)
+
+    # binning's row: pack_rows and bin_triangles at the bench camera; its
+    # bound counts what they must read once (the rays, each triangle's
+    # rows) and write once (isect, attrs, scal, the table)
+    row_launches["binning"] = launches3["binning"]
+    t3 = ds_hi.v0.shape[0]
+    mkw = (m3.albedo, m3.specular, m3.shininess)
+    ik, ak = binrast.pack_rows_cuda(ds_hi, origin3, *mkw)
+    ip, ap = binrast.pack_rows_plain(ds_hi, origin3, *mkw)
+    kern = binrast.bin_triangles_cuda(ds_hi, origin3, d3, dimg3, ip)
+    plain = binrast.bin_triangles_plain(ds_hi, origin3, d3, dimg3, ip)
+    bin_err = max(maxerr(a, b) for a, b in zip((ik, ak, *kern),
+                                                (ip, ap, *plain)))
+    bin_bytes = (d3.numel() * 4 + t3 * TRI_INPUT_BYTES
+                 + t3 * (raycast.NISECT + raycast.NATTR) * 4
+                 + scal3.numel() * 4 + table3.numel() * 4)
+    kernel_row("binning", "vct_tpu_torch/ops/csrc/binning.cu",
+               "none (XLA: vct_tpu/ops/binrast_pallas.py:128-275)", bin_err,
+               0.0, elapsed_ms(lambda: binrast.bin_triangles_cuda(
+                   ds_hi, origin3, d3, dimg3,
+                   binrast.pack_rows_cuda(ds_hi, origin3, *mkw)[0]),
+                   KERNEL_REPS, KERNEL_BATCH),
+               elapsed_ms(lambda: binrast.bin_triangles_plain(
+                   ds_hi, origin3, d3, dimg3,
+                   binrast.pack_rows_plain(ds_hi, origin3, *mkw)[0]),
+                   PLAIN_REPS),
+               bin_bytes, 0)
+    del ik, ak, ip, ap, kern, plain
     small_check(subdivide_scene(scene, 1), camera, 128, 64, "atrium x1")
     del p3, gb_k, gb_p, o8_p, table3, scal3, isect3, attrs3, d3, dimg3
     del kept3, kept_tile
@@ -3100,7 +3216,7 @@ def main() -> int:
     say("launches in main path 4 (exact specular):", json.dumps(launches4))
     expect(launches4, ("mip", "raycast", "prepass", "tap", "material",
                        "raycast_stream", "specmarch", "dense_march"),
-           ("binrast",), "exact-specular")
+           ("binrast", "binning"), "exact-specular")
     if launches4["dense_march"] != 2:
         fail("the exact-specular build must march the light volume and the "
              "diffuse field, one launch each")
@@ -3239,8 +3355,8 @@ def main() -> int:
     ocfg = preset("cornell64_full")
     osize = (ocfg.render.width, ocfg.render.height)
     ocam = CAM.Camera(**ORACLE_CAMERA)
-    not_oracle = ("raycast", "raycast_stream", "binrast", "prepass",
-                  "material", "tap", "specmarch")
+    not_oracle = ("raycast", "raycast_stream", "binrast", "binning",
+                  "prepass", "material", "tap", "specmarch")
 
     def oracle_frame(q, run_cfg):
         return lambda: R.render_camera_pass(

@@ -307,6 +307,97 @@ def test_stable_order_branch():
     assert (sb.numpy()[n:] == nbins).all() and (st.numpy()[n:] == 0).all()
 
 
+def _argsort_selection(area, nb_med, nb_col):
+    """bin_triangles_plain's selection of the budgeted tiers, its lines on
+    a given area: (m_sel, c_sel, is_m, is_c, n_col_total).  Its is_c0 also
+    requires ~all_behind, nw >= 1 and nh >= 1, which area > KB or a medium
+    overflow (4 < area <= 16) imply, since area = nw * nh, 0 all behind."""
+    t = area.shape[0]
+    is_m0 = (area > BR.KA) & (area <= BR.KB)
+    m_over = is_m0 & (torch.cumsum(is_m0.int(), 0) > nb_med)
+    is_m = is_m0 & ~m_over
+    is_c0 = (area > BR.KB) | m_over
+    is_c = is_c0 & (torch.cumsum(is_c0.int(), 0) <= nb_col)
+    key3 = torch.where(is_m, 0, torch.where(is_c, 1, 2))
+    order = torch.argsort(key3, stable=True)
+    start = torch.clamp_max(is_m.sum(), t - nb_col)
+    return (order[:nb_med], order[start + torch.arange(nb_col)], is_m, is_c,
+            is_c0.sum())
+
+
+# (triangles, shares of area 0 / 1..KA / medium / wide): below 2**19 with
+# both budgets overflowing and with both kept, at or above 2**19 (the
+# stable-sort branch's budgets), and a small scene whose column budget is
+# every triangle, so that start = min(count_m, T - nb_col) clamps to 0
+SLOT_CASES = {
+    "below-2^19-overflow": (100_000, (0.2, 0.4, 0.25, 0.15)),
+    "below-2^19-within": (100_000, (0.3, 0.6, 0.08, 0.02)),
+    "at-2^19": ((1 << 19) + 4321, (0.2, 0.4, 0.3, 0.1)),
+    "start-clamps": (3000, (0.1, 0.4, 0.3, 0.2)),
+}
+
+
+@pytest.mark.parametrize("case", list(SLOT_CASES))
+def test_slot_order_matches_argsort(case):
+    """csrc/binning.cu's slot-order rule (slot_order_plain: ranks from one
+    scan of the tier flags, no sort) selects the medium and column tiers'
+    triangles exactly as bin_triangles_plain's stable argsort does, the
+    triangles of unused slots included, with the same tier flags and
+    column count."""
+    t, shares = SLOT_CASES[case]
+    rng = np.random.default_rng(7)
+    tier = rng.choice(4, size=t, p=shares)
+    lo = np.array([0, 1, BR.KA + 1, BR.KB + 1])[tier]
+    hi = np.array([0, BR.KA, BR.KB, 30 * 68])[tier]
+    area = torch.as_tensor(rng.integers(lo, hi + 1))
+    nb_med, nb_col = BR._budgets(t)
+    got = BR.slot_order_plain(area, nb_med, nb_col)
+    want = _argsort_selection(area, nb_med, nb_col)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    is_m, is_c, n_col = want[2:]
+    if case == "start-clamps":
+        assert nb_col == t and int(is_m.sum()) > 0
+    if case == "below-2^19-overflow":
+        assert int(is_m.sum()) == nb_med and int(n_col) > nb_col
+    if case == "below-2^19-within":
+        assert int(is_m.sum()) < nb_med and int(n_col) < nb_col
+    if case == "at-2^19":
+        assert t >= 1 << 19 and int(is_c.sum()) == nb_col
+
+
+def test_dispatch_takes_plain_on_cpu(scenes):
+    """On CPU tensors pack_rows and bin_triangles are their plain versions,
+    output for output, and launch nothing."""
+    _, pds, mats = scenes[1]
+    o, dflat, dimg = _rays(CAMERAS[2])
+    launches = BR.BIN_LAUNCHES
+    isect, attrs = BR.pack_rows(pds, t(o), *map(t, mats))
+    isect_p, attrs_p = BR.pack_rows_plain(pds, t(o), *map(t, mats))
+    assert torch.equal(isect, isect_p) and torch.equal(attrs, attrs_p)
+    got = BR.bin_triangles(pds, t(o), t(dflat), t(dimg), isect)
+    want = BR.bin_triangles_plain(pds, t(o), t(dflat), t(dimg), isect)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert BR.BIN_LAUNCHES == launches
+
+
+def test_dispatch_refuses_mixed_devices(scenes):
+    """Operands on two devices raise before anything runs (a meta tensor
+    stands in for the card's here)."""
+    _, pds, _ = scenes[0]
+    o, dflat, dimg = _rays(CAMERAS[0])
+    meta = torch.empty(3, device="meta")
+    with pytest.raises(ValueError, match="on CUDA or all on the CPU"):
+        BR.pack_rows(pds, meta)
+    isect, _ = BR.pack_rows(pds, t(o))
+    with pytest.raises(ValueError, match="on CUDA or all on the CPU"):
+        BR.bin_triangles(pds, meta, t(dflat), t(dimg), isect)
+    with pytest.raises(ValueError, match="on CUDA or all on the CPU"):
+        BR.bin_triangles(pds, t(o), t(dflat), t(dimg),
+                         torch.empty(isect.shape, device="meta"))
+
+
 def test_column_tier_within_budget(scenes):
     """Camera 1 stands inside the scene, where near-plane straddlers would
     fill the column tier: it must fit its budget (overflow drops

@@ -121,6 +121,7 @@ COUNTERS = {"mip": (mip, "LAUNCHES"), "mip_bwd": (mip, "BWD_LAUNCHES"),
             "prepass": (prepass, "LAUNCHES"),
             "material": (material, "LAUNCHES"), "tap": (tap, "LAUNCHES"),
             "binrast": (binrast, "LAUNCHES"),
+            "binning": (binrast, "BIN_LAUNCHES"),
             "specmarch": (specmarch, "LAUNCHES"),
             "dense_march": (dense, "LAUNCHES")}
 

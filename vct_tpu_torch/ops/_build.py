@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 
 # launcher name -> argument types (every launcher returns its cudaError_t)
 SIGNATURES = {
@@ -58,6 +59,21 @@ SIGNATURES = {
     # dirs, origin, scal, ns, table, np_rows, attrs, out, kept (or null),
     # stream
     "vct_binrast": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P),
+    # v0, e1, e2, vn, vt, vb, vuv, face_normal, material, origin, albedo,
+    # specular, shininess (each of the last three or null), t, isect,
+    # attrs, stream
+    "vct_bin_pack": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                     _P, _P, _P),
+    # dirs, fsum, xsum, ns, srows, scols, hp, wp, smm, ssum, frame, stream
+    "vct_bin_strips": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # v0, e1, e2, origin, frame, t, ns, srows, scols, nb_med, nb_col, info,
+    # blk, blkoff, totals, n_col_total, keys, tris (or null), stream
+    "vct_bin_tris": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                     _P, _P, _P, _P, _P),
+    # sorted, perm (or null), tris (or null), slots_total, nbins, ns, scols,
+    # isect, bounds, pad_off, shift, scal, table, np_rows, stream
+    "vct_bin_table": (_P, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P, _P, _P, _L,
+                      _P),
     # start4, refl4, ntiles, step_lv, weights, nsteps, pyramid, d0, nl,
     # half_ws, max_alpha, out, stream
     "vct_specmarch": (_P, _P, _I, _P, _P, _I, _P, _I, _I, _F, _F, _P, _P),

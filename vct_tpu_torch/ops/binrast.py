@@ -5,15 +5,20 @@ The frame raycast above raycast.MAX_TRIANGLES.  Its work scales with the
 triangles that project onto each part of the screen, not with rays x
 triangles:
 
-  1. `bin_triangles` (plain PyTorch on the device, as XLA in the JAX
-     package) projects every triangle gnomonically in a frame built from
-     the ray grid, clips it against the near plane z = ZEPS, and bins it
-     to the 16x64-pixel strips (STRIPE rays, four consecutive 16x16 tiles
-     of render/fast.py's tile-major order) its screen box overlaps.
-     Triangles over at most KA strips, or KB within the medium budget, go
-     to per-strip bins; wider ones to per-column bins.  One sort of the
-     (bin, triangle) pairs puts each bin's triangles in one SEGAL-aligned
-     segment of a row table (NP, 16).
+  1. `bin_triangles` projects every triangle gnomonically in a frame
+     built from the ray grid, clips it against the near plane z = ZEPS,
+     and bins it to the 16x64-pixel strips (STRIPE rays, four consecutive
+     16x16 tiles of render/fast.py's tile-major order) its screen box
+     overlaps.  Triangles over at most KA strips, or KB within the medium
+     budget, go to per-strip bins; wider ones to per-column bins.  One
+     sort of the (bin, triangle) pairs puts each bin's triangles in one
+     SEGAL-aligned segment of a row table (NP, 16).  `pack_rows` makes the
+     rows it bins.  On CUDA tensors both launch `csrc/binning.cu`
+     (`pack_rows_cuda`, `bin_triangles_cuda`: nine kernels and one
+     torch.sort a frame, bit-equal to the plain versions on the same
+     tensors, `slot_order_plain` stating how they pick the budgeted
+     tiers without a sort); on CPU tensors they run `pack_rows_plain` and
+     `bin_triangles_plain`, plain PyTorch as XLA in the JAX package.
   2. `raycast_binned` walks, for each strip, its own segment and then its
      column's, GANGW rows at a time, and keeps the first minimum in walk
      order; `csrc/binrast.cu` fuses the G-buffer row (`finish_binned`)
@@ -65,6 +70,9 @@ MAX_IDS = 1 << 24    # triangle ids ride in a float32 column: exact below
 PLAIN_TESTS = 1 << 25  # hit tests per batch of the plain walk (memory)
 
 LAUNCHES = 0
+BIN_LAUNCHES = 0     # kernels of csrc/binning.cu launched (pack 1, bin 8)
+BIN_TRI_BLOCK = 256  # triangles a block of its triangle passes (kTriBlock)
+FRAME_HEAD = 12      # f3 ex3 ey3 su sv pad ahead of its envelopes (kHead)
 
 
 def _budgets(t_real: int) -> Tuple[int, int]:
@@ -87,10 +95,11 @@ def _check_ids(t: int) -> None:
                          f"{MAX_IDS}")
 
 
-def pack_rows(ds: DeviceScene, origin: Tensor,
-              albedo: Optional[Tensor] = None,
-              specular: Optional[Tensor] = None,
-              shininess: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+def pack_rows_plain(ds: DeviceScene, origin: Tensor,
+                    albedo: Optional[Tensor] = None,
+                    specular: Optional[Tensor] = None,
+                    shininess: Optional[Tensor] = None
+                    ) -> Tuple[Tensor, Tensor]:
     """raycast.pack_tables with the triangle id in isect column 10:
     (isect (T, 16), attrs (T, 48)).  The JAX package concatenates the two
     into one (Tp, 64) table and writes the id when it gathers rows."""
@@ -143,9 +152,9 @@ def _sort_slots(bins_all: Tensor, tris_all: Tensor, t_real: int,
     return sorted_bin, tris_all[perm]
 
 
-def bin_triangles(ds: DeviceScene, origin: Tensor, dflat: Tensor,
-                  dimg: Tensor, isect: Tensor
-                  ) -> Tuple[Tensor, Tensor, Tensor]:
+def bin_triangles_plain(ds: DeviceScene, origin: Tensor, dflat: Tensor,
+                        dimg: Tensor, isect: Tensor
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
     """Screen-space binning -> per-strip contiguous triangle segments.
 
     dflat: (ns*STRIPE, 3) unit rays in tile-major order; dimg: the same
@@ -309,6 +318,209 @@ def bin_triangles(ds: DeviceScene, origin: Tensor, dflat: Tensor,
     scal = torch.stack([pad_off[:ns], gseg, pad_off[col_of], gcol]).to(
         torch.int32)
     return scal.contiguous(), table, n_col_total
+
+
+def slot_order_plain(area: Tensor, nb_med: int, nb_col: int
+                     ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """The rule by which csrc/binning.cu fills the medium and column
+    tiers, in plain PyTorch: bin_triangles_plain's order[:nb_med] and
+    order[start : start + nb_col] of its stable argsort of key3 (medium,
+    then column, then the rest, each by id), from each triangle's rank,
+    which exclusive prefix counts of the medium and wide flags give.
+    area (T,): each triangle's strip count (0 where all behind).  Returns
+    (m_sel (nb_med,), c_sel (nb_col,), is_m, is_c, n_col_total): the
+    triangles of each tier's slots, unused slots included, which tier
+    keeps each triangle, and the column tier's count before its budget."""
+    t = area.shape[0]
+    m0 = (area > KA) & (area <= KB)
+    big = area > KB
+    pm0 = torch.cumsum(m0.long(), 0) - m0.long()
+    pbig = torch.cumsum(big.long(), 0) - big.long()
+    is_m = m0 & (pm0 < nb_med)
+    # medium triangles past the medium budget join the column tier
+    pc0 = pbig + torch.clamp_min(pm0 - nb_med, 0)
+    is_c = (big | (m0 & ~is_m)) & (pc0 < nb_col)
+    n_col_total = big.sum() + torch.clamp_min(m0.sum() - nb_med, 0)
+    count_m = torch.clamp_max(m0.sum(), nb_med)
+    count_c = torch.clamp_max(n_col_total, nb_col)
+    pm = torch.clamp_max(pm0, nb_med)
+    pc = torch.clamp_max(pc0, nb_col)
+    ids = torch.arange(t, device=area.device)
+    rank = torch.where(is_m, pm, torch.where(
+        is_c, count_m + pc, count_m + count_c + ids - pm - pc))
+    order = torch.empty_like(ids)
+    order[rank] = ids
+    start = torch.clamp_max(count_m, t - nb_col)
+    c_sel = order[start + torch.arange(nb_col, device=area.device)]
+    return order[:nb_med], c_sel, is_m, is_c, n_col_total
+
+
+def _scene_rows(ds: DeviceScene) -> Tuple[Tensor, ...]:
+    """The DeviceScene's tensors in csrc/binning.cu's argument order."""
+    return (ds.v0, ds.e1, ds.e2, ds.vn, ds.vt, ds.vb, ds.vuv,
+            ds.face_normal, ds.material)
+
+
+def _require(x: Tensor, dtype: torch.dtype, shape: tuple, what: str) -> None:
+    """Raise unless x is a contiguous CUDA tensor of this dtype and shape
+    (the message is built only then: these checks run every frame)."""
+    if not (x.is_cuda and x.dtype == dtype and x.is_contiguous()
+            and tuple(x.shape) == tuple(shape)):
+        raise ValueError(f"{what}: expected contiguous {dtype} CUDA "
+                         f"{tuple(shape)}, got {tuple(x.shape)} {x.dtype} on "
+                         f"{x.device}")
+
+
+def _ptr(x: Optional[Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
+
+
+def _carve(dev: torch.device, **words: int) -> Tuple[Tensor, dict]:
+    """One int32 scratch tensor cut into 16-byte aligned parts of the given
+    lengths in int32 words: (the tensor, which must outlive the launches'
+    queueing, and each part's device address)."""
+    offsets, at = {}, 0
+    for name, n in words.items():
+        offsets[name] = at
+        at += -(-n // 4) * 4
+    buf = torch.empty(at, dtype=torch.int32, device=dev)
+    return buf, {k: buf.data_ptr() + 4 * o for k, o in offsets.items()}
+
+
+def pack_rows(ds: DeviceScene, origin: Tensor,
+              albedo: Optional[Tensor] = None,
+              specular: Optional[Tensor] = None,
+              shininess: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """(isect (T, 16), attrs (T, 48)): pack_rows_plain's rows.  CUDA
+    tensors launch csrc/binning.cu (pack_rows_cuda), CPU tensors take
+    pack_rows_plain."""
+    mats = [x for x in (albedo, specular, shininess) if x is not None]
+    if _build.uses_kernel(*_scene_rows(ds), origin, *mats):
+        return pack_rows_cuda(ds, origin, albedo, specular, shininess)
+    return pack_rows_plain(ds, origin, albedo, specular, shininess)
+
+
+def pack_rows_cuda(ds: DeviceScene, origin: Tensor,
+                   albedo: Optional[Tensor] = None,
+                   specular: Optional[Tensor] = None,
+                   shininess: Optional[Tensor] = None
+                   ) -> Tuple[Tensor, Tensor]:
+    """Launch csrc/binning.cu's pack kernel: pack_rows_plain's (isect,
+    attrs), bit for bit, one thread a triangle.  Material ids must index
+    the per-material tables (the kernel does not check them)."""
+    global BIN_LAUNCHES
+    t = ds.v0.shape[0]
+    _check_ids(t)
+    mats = [x for x in (albedo, specular, shininess) if x is not None]
+    _build.refuse_grad("the binning's pack (pack_rows)", *_scene_rows(ds),
+                       origin, *mats)
+    what = "binning pack kernel"
+    f32 = torch.float32
+    for x, shape in ((ds.v0, (t, 3)), (ds.e1, (t, 3)), (ds.e2, (t, 3)),
+                     (ds.vn, (t, 3, 3)), (ds.vt, (t, 3, 3)),
+                     (ds.vb, (t, 3, 3)), (ds.vuv, (t, 3, 2)),
+                     (ds.face_normal, (t, 3)), (origin, (3,))):
+        _require(x, f32, shape, what)
+    _require(ds.material, torch.int32, (t,), what)
+    for x, width in ((albedo, 4), (specular, 3), (shininess, None)):
+        if x is not None:
+            _require(x, f32, (x.shape[0],) + ((width,) if width else ()),
+                     what)
+    _build.require(t > 0, f"{what}: no triangles")
+    isect = torch.empty((t, RP.NISECT), dtype=f32, device=origin.device)
+    attrs = torch.empty((t, RP.NATTR), dtype=f32, device=origin.device)
+    status = _build.library().vct_bin_pack(
+        *(x.data_ptr() for x in _scene_rows(ds)), origin.data_ptr(),
+        _ptr(albedo), _ptr(specular), _ptr(shininess), t, isect.data_ptr(),
+        attrs.data_ptr(), _build.stream())
+    _build.check(status, "vct_bin_pack")
+    BIN_LAUNCHES += 1
+    return isect, attrs
+
+
+def bin_triangles(ds: DeviceScene, origin: Tensor, dflat: Tensor,
+                  dimg: Tensor, isect: Tensor
+                  ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Screen-space binning -> (scal, table, n_col_total), as
+    bin_triangles_plain states it.  CUDA tensors launch csrc/binning.cu
+    (bin_triangles_cuda), CPU tensors take bin_triangles_plain."""
+    if _build.uses_kernel(ds.v0, ds.e1, ds.e2, origin, dflat, dimg, isect):
+        return bin_triangles_cuda(ds, origin, dflat, dimg, isect)
+    return bin_triangles_plain(ds, origin, dflat, dimg, isect)
+
+
+def bin_triangles_cuda(ds: DeviceScene, origin: Tensor, dflat: Tensor,
+                       dimg: Tensor, isect: Tensor
+                       ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Launch csrc/binning.cu: bin_triangles_plain's (scal, table,
+    n_col_total), bit for bit on the same tensors, with no host read.  The
+    frame's two ray sums stay PyTorch's (their order decides their last
+    bits), and so does the sort of the slots: the packed words below 2**19
+    triangles, the bins stably at or above."""
+    global BIN_LAUNCHES
+    hp, wp = dimg.shape[:2]
+    if hp % 16 or wp % 64:
+        raise ValueError(f"padded image {hp}x{wp}: need hp % 16 == 0 and "
+                         "wp % 64 == 0")
+    srows, scols = hp // 16, wp // 64
+    if scols > KC:
+        raise ValueError(f"{scols} strip columns: raise KC for frames wider "
+                         f"than {64 * KC} px")
+    ns = srows * scols
+    t = ds.v0.shape[0]
+    _check_ids(t)
+    if dflat.shape[0] != ns * STRIPE:
+        raise ValueError(f"{dflat.shape[0]} rays for {ns} strips")
+    _build.refuse_grad("the binning (bin_triangles)", isect)
+    what = "binning kernels"
+    f32 = torch.float32
+    for x, shape in ((ds.v0, (t, 3)), (ds.e1, (t, 3)), (ds.e2, (t, 3)),
+                     (origin, (3,)), (dflat, (ns * STRIPE, 3)),
+                     (isect, (t, RP.NISECT))):
+        _require(x, f32, shape, what)
+    _build.require(dimg.is_cuda and dimg.dtype == f32 and dimg.dim() == 3
+                   and t > 0, f"{what}: a float32 CUDA (hp, wp, 3) ray "
+                   "image and one triangle at least")
+    nb_med, nb_col = _budgets(t)
+    nbins = ns + scols
+    slots_total = t * KA + nb_med * KB + nb_col * KC
+    np_rows = slots_total + SEGAL * nbins + GANGW
+    _build.require(np_rows < 2 ** 31, f"{what}: a table of {np_rows} rows "
+                   "(fewer than 2**31)")
+    dev = dflat.device
+    lib, stream = _build.library(), _build.stream()
+    fsum = dflat.sum(dim=0)
+    xsum = (dimg[:, -1] - dimg[:, 0]).sum(dim=0)
+    nblk = -(-t // BIN_TRI_BLOCK)
+    work, p = _carve(dev, smm=4 * ns, ssum=4 * ns,
+                     frame=FRAME_HEAD + 2 * (srows + scols), info=4 * t,
+                     blk=2 * nblk, blkoff=2 * nblk, totals=4,
+                     bounds=nbins + 1, pad_off=nbins + 1, shift=nbins)
+    stable = t >= (1 << 19)
+    keys = torch.empty(slots_total, dtype=torch.int32, device=dev)
+    tris = torch.empty_like(keys) if stable else None
+    n_col = torch.empty((), dtype=torch.int64, device=dev)
+    _build.check(lib.vct_bin_strips(
+        dflat.data_ptr(), fsum.data_ptr(), xsum.data_ptr(), ns, srows,
+        scols, hp, wp, p["smm"], p["ssum"], p["frame"], stream),
+        "vct_bin_strips")
+    _build.check(lib.vct_bin_tris(
+        ds.v0.data_ptr(), ds.e1.data_ptr(), ds.e2.data_ptr(),
+        origin.data_ptr(), p["frame"], t, ns, srows, scols, nb_med, nb_col,
+        p["info"], p["blk"], p["blkoff"], p["totals"], n_col.data_ptr(),
+        keys.data_ptr(), _ptr(tris), stream), "vct_bin_tris")
+    if stable:
+        keys, perm = torch.sort(keys, stable=True)
+    else:
+        keys, perm = torch.sort(keys).values, None
+    scal = torch.empty((4, ns), dtype=torch.int32, device=dev)
+    table = torch.empty((np_rows, RP.NISECT), dtype=f32, device=dev)
+    _build.check(lib.vct_bin_table(
+        keys.data_ptr(), _ptr(perm), _ptr(tris), slots_total, nbins, ns,
+        scols, isect.data_ptr(), p["bounds"], p["pad_off"], p["shift"],
+        scal.data_ptr(), table.data_ptr(), np_rows, stream), "vct_bin_table")
+    BIN_LAUNCHES += 8
+    return scal, table, n_col
 
 
 def _batches(scal: Tensor, per_row: int) -> Iterator[Tuple[Tensor, int]]:
