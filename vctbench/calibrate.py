@@ -8,11 +8,12 @@ and the lower-precision control's over a few (the upper readings).
 For each seed the program runs the mix's steps up to the last one its
 check samples (as a run's window would, untimed), and the sampled
 outputs are compared with the reference, as in a run.  For each control
-seed the control (vctbench/reference/pipeline.py, lower_precision) is
-put in the program's place on the same sampled steps.  One JSON line a
-seed and kind on stdout, then a summary line: per number the largest
-program reading and the smallest control reading.  It needs the cell's
-CUDA card; --device cpu runs it on the CPU (tests, tiny configs).
+seed the control (the reference the configuration names, with
+lower_precision; spec.reference_class) is put in the program's place on
+the same sampled steps.  One JSON line a seed and kind on stdout, then a
+summary line: per number the largest program reading and the smallest
+control reading.  It needs the cell's CUDA card; --device cpu runs it on
+the CPU (tests, tiny configs).
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ import torch
 from vctbench import harness, spec
 from vctbench.inputs import traffic as T
 from vctbench.program import Program
-from vctbench.reference.pipeline import Reference
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -42,8 +42,8 @@ def calibrate(root: Path, name: str, seeds, control_seeds, device="cuda"):
     r = tree["render"]
     rays = T.RayMaker(r["width"], r["height"], r["fov_degrees"], dev)
     program = Program(tree, base, frame, dev)
-    reference = Reference(tree, base, frame, dev)
-    control = Reference(tree, base, frame, dev, lower_precision=True)
+    reference = cell.reference(tree, base, frame, dev)
+    control = cell.reference(tree, base, frame, dev, lower_precision=True)
     fixed = None
     out = []
     for kind, seed in ([("program", s) for s in seeds]

@@ -9,8 +9,12 @@ Numbers compared, each against the cell's limit
     channel;
   * state_rel_rms: in cells whose steps rebuild the voxel state, the
     largest relative RMS error, (RMS of the difference) / (RMS of the
-    reference), over the light volume, every level of the radiance and
-    occupancy pyramids and the diffuse and specular fields.
+    reference), over every piece of the state that the reference's route
+    builds: the light volume, every level of the radiance and occupancy
+    pyramids, the diffuse and specular fields and the shadow map.  A
+    piece of any shape compares as it is, so the anisotropic pyramid's
+    6-direction levels (5-D) need nothing of their own; a piece the
+    reference's route does not build (None) is not compared.
 A sample fails when any of its numbers exceeds its limit; the run is
 correct when no sample fails and at least one was compared.
 """
@@ -22,7 +26,7 @@ from typing import Dict, Iterator, Tuple
 import torch
 
 STATE_FIELDS = ("light_volume", "radiance_mips", "unlit_mips",
-                "diffuse_field", "specular_field")
+                "diffuse_field", "specular_field", "shadow_map")
 
 
 def _pieces(state) -> Iterator[Tuple[str, torch.Tensor]]:

@@ -4,12 +4,12 @@ readings, then the comparison with the plain reference.
 The loop is closed: one viewer, each step ends when its image has been
 synchronised (`torch.cuda.synchronize`), and the next starts then.  A
 step of a mix whose steps rebuild (`rebuild_every`) first builds the
-voxel state and frame tables under its own sun; every step then renders
-one frame on its own rays.  The end-to-end metrics, named by the mix's
-`step` ("frame" or "relight"): `<step>_ms`, the window's time over the
-steps completed in it, and `<step>_p95_ms`, the 95th percentile of every
-step's time in it; `setup_s`, the process's start to the first timed
-step.
+voxel state (and on the fast path the frame tables) under its own sun;
+every step then renders one frame on its own rays.  The end-to-end
+metrics, named by the mix's `step` ("frame" or "relight"): `<step>_ms`,
+the window's time over the steps completed in it, and `<step>_p95_ms`,
+the 95th percentile of every step's time in it; `setup_s`, the
+process's start to the first timed step.
 """
 
 from __future__ import annotations
@@ -112,9 +112,10 @@ class TraceContext:
 
 def run_cell(root: Path, name: str, seed: int, seconds: float,
              trace: bool, t_start: float, device="cuda",
-             make_program: Optional[Callable] = None,
-             make_reference: Optional[Callable] = None) -> dict:
-    """The result line of one run (see run.py)."""
+             make_program: Optional[Callable] = None) -> dict:
+    """The result line of one run (see run.py), against the reference the
+    cell's configuration names (spec.reference_class); `make_program`
+    stands in for the program (vctbench/program.py)."""
     cell = spec.load_cell(root, name)
     mix = cell.traffic
     tree = cell.config["config"]
@@ -122,8 +123,6 @@ def run_cell(root: Path, name: str, seed: int, seconds: float,
     cuda = dev.type == "cuda"
     if make_program is None:
         from vctbench.program import Program as make_program
-    if make_reference is None:
-        from vctbench.reference.pipeline import Reference as make_reference
 
     def sync():
         if cuda:
@@ -220,7 +219,7 @@ def run_cell(root: Path, name: str, seed: int, seconds: float,
     if cuda:
         torch.cuda.empty_cache()
 
-    reference = make_reference(tree, base, frame, dev)
+    reference = cell.reference(tree, base, frame, dev)
     samples = check_samples(reference, kept, paths, rays, basis)
     failed = sum(not check.passes(s, cell.limits) for s in samples)
 

@@ -4,9 +4,13 @@ program, and it imports nothing else of it than the configuration and
 scene types, `render/renderer`, `render/fast.build_frame_tables` and the
 stage hook (`stages.MARK`).
 
-A step of the program under a light is `build_voxel_state` ->
+A step of the program under a light is `build_voxel_state`, then, where
+the configuration takes the fast path (`renderer.use_fast_path`),
 `build_frame_tables`; a frame is `render_camera_pass` with those tables,
-on rays the benchmark made.
+on rays the benchmark made.  Off the fast path (anisotropic mips with
+per-cone specular, per-cone diffuse, the shadow map or shadow cones)
+there are no tables, and `render_camera_pass` routes to the per-cone
+oracle (`render_rays`), as the port does on its own.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ class State(NamedTuple):
 
     cfg: PC.VCTConfig
     voxels: R.VoxelState
-    tables: F.FrameTables
+    tables: Optional[F.FrameTables]      # None off the fast path
 
 
 class Program:
@@ -71,24 +75,29 @@ class Program:
 
     def set_marks(self, record: Optional[Callable[[str], None]]) -> None:
         """Record `record(name)` at every stage mark of the program and at
-        the benchmark's own ("frame_tables"); None turns them off."""
+        the benchmark's own ("frame_tables", on the fast path); None turns
+        them off."""
         stages.MARK = record
         self.mark = record or (lambda name: None)
 
     def build(self, light=None) -> State:
-        """The voxel state and frame tables under `light` (toward the
-        light, (3,)), or the configuration's own light."""
+        """The voxel state, and on the fast path the frame tables, under
+        `light` (toward the light, (3,)), or the configuration's own
+        light."""
         cfg = self.cfg
         if light is not None:
             cfg = dataclasses.replace(cfg, light=dataclasses.replace(
                 cfg.light, direction=tuple(float(x) for x in light)))
         voxels = R.build_voxel_state(cfg, self.samples, self.mats)
-        tables = F.build_frame_tables(cfg, voxels, self.mats)
-        self.mark("frame_tables")
+        tables = None
+        if R.use_fast_path(cfg):
+            tables = F.build_frame_tables(cfg, voxels, self.mats)
+            self.mark("frame_tables")
         return State(cfg, voxels, tables)
 
     def frame(self, state: State, origins, dirs, position) -> torch.Tensor:
-        """One camera pass -> (H, W, 3) linear RGB."""
+        """One camera pass -> (H, W, 3) linear RGB: the fast frame with the
+        state's tables, or without them the per-cone oracle."""
         return R.render_camera_pass(state.cfg, self.ds, state.voxels,
                                     self.mats, origins, dirs, position,
                                     frame_tables=state.tables)

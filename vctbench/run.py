@@ -12,6 +12,11 @@ with --trace 1), `device`, with --trace 1 `breakdown`, and last `checks`
 checks are the last lines on stderr.  Without CUDA, with fewer cards than
 the cell asks for, or if a JAX module is loaded once the window has
 closed, it exits 1 and prints no result.
+
+The process runs with one intra-op CPU thread (OpenMP, MKL, OpenBLAS):
+one host thread dispatches the program's work, and a pool of threads
+spinning on the host's cores beside it makes each step's host side
+slower and its time less steady.
 """
 
 from __future__ import annotations
@@ -22,10 +27,15 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import json  # noqa: E402
+import os  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
+
+# before torch and numpy load their thread pools
+for _var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
+    os.environ[_var] = "1"
 
 
 def main(argv=None) -> int:

@@ -1,6 +1,7 @@
 """What the benchmark imports, in fresh interpreters: the harness loads no
 module whose top-level name is jax, jaxlib, flax or vct_tpu (compared
-whole: vct_tpu_torch is the program), and the reference and the inputs
+whole: vct_tpu_torch is the program), and the inputs and every reference
+a configuration names (vctbench/configs/*.json, spec.reference_module)
 load nothing of vct_tpu_torch either.  Without a card, run.py exits 1 and
 prints no result."""
 
@@ -8,6 +9,7 @@ from __future__ import annotations
 
 import ast
 import json
+import os
 import re
 import subprocess
 import sys
@@ -37,14 +39,25 @@ def test_harness_loads_no_jax():
     assert not top & {"jax", "jaxlib", "flax", "vct_tpu"}
 
 
+def _references() -> set:
+    """The reference module of every configuration file."""
+    from vctbench import spec
+    return {spec.reference_module(json.loads(p.read_text()))
+            for p in (PKG / "configs").glob("*.json")}
+
+
 def test_reference_and_inputs_load_nothing_of_the_program():
-    top = _loaded("vctbench.reference.pipeline", "vctbench.inputs.scene",
+    refs = _references()
+    assert "vctbench.reference.pipeline" in refs
+    top = _loaded(*sorted(refs), "vctbench.inputs.scene",
                   "vctbench.inputs.traffic")
     assert not top & {"vct_tpu_torch", "vct_tpu", "jax", "jaxlib", "flax"}
 
 
 def _sources(*dirs):
     for d in dirs:
+        if (PKG / f"{d}.py").exists():
+            yield PKG / f"{d}.py"
         yield from (p for p in (PKG / d).rglob("*.py"))
 
 
@@ -71,7 +84,8 @@ def test_no_source_names_the_jax_side():
         assert not bad.search(text), p
         for s in _strings(ast.parse(text)):
             assert not re.search(r"BENCH_r|FIDELITY_r|vct_tpu/", s), (p, s)
-    for p in _sources("reference", "inputs"):
+    packages = {m.split(".")[1] for m in _references()}
+    for p in _sources("inputs", *sorted(packages)):
         assert "import vct_tpu_torch" not in p.read_text(), p
         assert "from vct_tpu_torch" not in p.read_text(), p
 
@@ -85,3 +99,13 @@ def test_run_refuses_without_a_card(tmp_path):
          "sponza256.walk", "--seed", "1", "--seconds", "1", "--trace", "0"],
         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0 and out.stdout.strip() == ""
+
+
+def test_run_takes_one_intra_op_thread():
+    code = ("import vctbench.run, torch; "
+            "print(torch.get_num_threads())")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "OMP_NUM_THREADS": "8"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["1"]
