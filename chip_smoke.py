@@ -72,8 +72,11 @@ Phases, each reported on its own lines:
            render against the CPU's plain run over the pixels whose PCF
            did not flip; 7b preset("aniso128") unchanged (128^3
            anisotropic mips, 512x512) on the Cornell box from (0, 0, 140)
-           (mip 7, the unlit chain; the dense march once, the light
-           volume), its pyramid against the CPU's, the
+           (mip 7, the unlit chain; the anisotropic pyramid kernel 7,
+           the radiance pyramid; the dense march once, the light
+           volume), its pyramid against the CPU's bit for bit, the
+           anisotropic pyramid kernel against its plain version on the
+           path's pyramid and at 256^3 x 4 (bit for bit, and timed), the
            dense anisotropic march against cone_march at voxel centers
            at 32^3 (tests/test_aniso.py's bounds); 7c aniso128 with
            field cones through the fast path (raycast, prepass, tap; the
@@ -1099,11 +1102,13 @@ def dense_path(h, cfg, voxels):
                  rate=FP32_RN_OPS_PER_S)
 
 
-def mip_check(h, chains, what):
+def mip_check(h, chains, what, aniso=()):
     """The mip kernel at this path's shapes, as path 5 holds it: each
     level of the path's own pyramids (mips, alpha mode) through the
     kernel and its plain version, and the path's next level against
-    the plain one."""
+    the plain one.  Each anisotropic pyramid of `aniso` the same way
+    through the anisotropic pyramid kernel (ops/aniso), bit for bit."""
+    from vct_tpu_torch.ops import aniso as OA
     from vct_tpu_torch.ops import mip
     err, n = 0.0, 0
     for mips, mode in chains:
@@ -1120,6 +1125,47 @@ def mip_check(h, chains, what):
     if not err <= 1e-6:
         fail(f"{what}: kernel mip disagrees with its plain version at "
              f"this path's shapes")
+    equal, n = True, 0
+    for mips in aniso:
+        for fine, coarse in zip(mips, mips[1:]):
+            plain = OA.downsample_aniso_plain(fine)
+            equal &= (torch.equal(OA.downsample_aniso_cuda(fine), plain)
+                      and torch.equal(coarse, plain))
+            n += 1
+    if aniso:
+        sizes = ", ".join(f"{m[0].shape[0]}^3 x {m[0].shape[-1]}"
+                          for m in aniso)
+        h.say(f"{what}: anisotropic pyramid kernel on the {n} levels of "
+              f"the pyramids ({sizes}) against its plain version: "
+              f"bit-equal {equal}")
+    if not equal:
+        fail(f"{what}: the anisotropic pyramid kernel differs from its "
+             f"plain version")
+
+
+def aniso_pyramid_time(h, grid):
+    """The anisotropic pyramid kernel's whole pyramid on `grid` (D^3 x
+    C float32), timed against the plain version and against its bound:
+    every level but the last read once, every 6-direction level written
+    once, 16 float operations a value written."""
+    from vct_tpu_torch.core import aniso as A
+    from vct_tpu_torch.ops import aniso as OA
+    OA.LAUNCHES = 0
+    mips = OA.build_aniso_mips(grid)
+    launches = OA.LAUNCHES
+    written = sum(m.numel() for m in mips[1:])
+    nbytes = 4 * (sum(m.numel() for m in mips[:-1]) + written)
+    least, what = bound(nbytes, 16 * written)
+    ms = statistics.median(elapsed_ms(lambda: OA.build_aniso_mips(grid),
+                                      10, 10))
+    plain_ms = statistics.median(elapsed_ms(
+        lambda: A.build_aniso_mips(grid), 3))
+    h.say(f"anisotropic pyramid kernel on {tuple(grid.shape)}: {ms:.4f} ms "
+          f"({launches} launches), bound {least:.4f} ms ({what}: "
+          f"{nbytes} bytes), {100 * least / ms:.1f}% of it; plain "
+          f"{plain_ms:.4f} ms")
+    return mips, dict(kernel_ms=ms, bound_ms=least, plain_ms=plain_ms,
+                      launches=launches)
 
 
 def map_aniso_path(h, dev):
@@ -1245,21 +1291,33 @@ def map_aniso_path(h, dev):
     if build_b["dense_march"] != 1:
         fail(f"7b: dense-march launches {build_b['dense_march']} in the "
              f"build, expected 1 (the light volume)")
-    h.expect(build_b, (), tuple(k for k in only_mip if k != "dense_march"),
+    # the radiance pyramid, through the anisotropic pyramid kernel
+    if build_b["aniso"] != levels:
+        fail(f"7b: anisotropic pyramid launches {build_b['aniso']} in the "
+             f"build, expected {levels}")
+    h.expect(build_b, (), tuple(k for k in only_mip
+                                if k not in ("dense_march", "aniso")),
              "7b build")
     h.expect(frame_b, (), only_mip, "7b frame")
-    mip_check(h, ((qb["voxels"].unlit_mips, "max"),), "7b")
     rad = qb["voxels"].radiance_mips
     if not A.is_aniso_stack(rad):
         fail("7b: the radiance pyramid is not anisotropic")
     ref = A.build_aniso_mips(rad[0].cpu(), acfg.grid.num_levels)
-    err = max(h.maxerr(a.cpu(), b) for a, b in zip(rad, ref))
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(rad, ref))
     h.say(f"7b anisotropic pyramid {[tuple(m.shape) for m in rad[:2]]}... "
           f"({len(rad)} levels) on the card against the CPU's from the same "
-          f"level 0: max error {err:.3e} (tolerance 1e-6)")
-    if not err <= 1e-6:
+          f"level 0: bit-equal {same}")
+    if not same:
         fail("7b: the card's anisotropic pyramid differs from the CPU's")
     del ref
+    # and at the operating point's 256^3 x 4, timed
+    rng = np.random.default_rng(SEED + 11)
+    grid256 = torch.as_tensor(rng.uniform(0, 0.8, (256, 256, 256, 4)).astype(
+        np.float32), device=dev)
+    mips256, result["aniso_pyramid"] = aniso_pyramid_time(h, grid256)
+    mip_check(h, ((qb["voxels"].unlit_mips, "max"),), "7b",
+              aniso=(rad, mips256))
+    del grid256, mips256
     result["7b"] = measure(h, acfg, qb, "7b aniso128")
     del qb, rad
 
@@ -1302,7 +1360,7 @@ def map_aniso_path(h, dev):
         fail("7c: the anisotropic field config does not take the fast path")
     qc, build_c, frame_c = drive(h, dev, fcfg, cornell_box(size=100.0),
                                  ocam, "7c aniso128 field", fast=True)
-    h.expect(build_c, ("mip",), (), "7c build")
+    h.expect(build_c, ("mip", "aniso"), (), "7c build")
     # the light volume and both fields over the anisotropic stack
     if build_c["dense_march"] != 3:
         fail(f"7c: dense-march launches {build_c['dense_march']} in the "

@@ -89,7 +89,7 @@ from vct_tpu_torch.config import VCTConfig, preset
 from vct_tpu_torch.core import camera as CAM
 from vct_tpu_torch.core import dense as D
 from vct_tpu_torch.core import grid as G
-from vct_tpu_torch.ops import (binrast, dense, material, mip, prepass,
+from vct_tpu_torch.ops import (aniso, binrast, dense, material, mip, prepass,
                                raycast, specmarch, tap)
 from vct_tpu_torch.parallel import brick, comm
 from vct_tpu_torch.parallel import mesh as ML
@@ -116,6 +116,7 @@ NOTE = ("rays and cone_samples are bench_scaling.py's work counts; "
 
 # every kernel wrapper's launch counter: name -> (module, attribute)
 COUNTERS = {"mip": (mip, "LAUNCHES"), "mip_bwd": (mip, "BWD_LAUNCHES"),
+            "aniso": (aniso, "LAUNCHES"),
             "raycast": (raycast, "LAUNCHES"),
             "raycast_stream": (raycast, "STREAM_LAUNCHES"),
             "prepass": (prepass, "LAUNCHES"),

@@ -19,11 +19,14 @@ Layout, as in the JAX package:
                 after it.
 Direction order: (+x, -x, +y, -y, +z, -z).
 
-Plain PyTorch on every device, as it is XLA in the JAX package: no Pallas
-kernel builds or samples the anisotropic pyramid.  The operations run in
-the JAX package's order (four composites summed in loop order, then
-x 0.25; the 6-way blend after the gather), so float32 results agree to a
-few ulps.
+This module is the plain PyTorch version, as the pyramid is XLA in the
+JAX package.  On the card the voxel build builds the pyramid with
+ops/aniso.py's kernel (csrc/aniso.cu, one launch a level), which equals
+build_aniso_mips here bit for bit; sampling stays plain PyTorch (the
+dense-march kernel blends the 6-direction levels itself).  The
+operations run in the JAX package's order (four composites summed in
+loop order, then x 0.25; the 6-way blend after the gather), so float32
+results agree to a few ulps.
 """
 
 from __future__ import annotations

@@ -39,6 +39,8 @@ SIGNATURES = {
     "vct_mip_downsample": (_P, _P, _I, _I, _I, _P),
     # gout, alpha (or null), gin, h, c, max_alpha, stream
     "vct_mip_downsample_bwd": (_P, _P, _P, _I, _I, _I, _P),
+    # src, dst, h, c, src_dirs (1 or 6), vec4, stream
+    "vct_aniso_downsample": (_P, _P, _I, _I, _I, _I, _P),
     # dirs, origin, isect, attrs, n, t, out, stream
     "vct_raycast": (_P, _P, _P, _P, _I, _I, _P, _P),
     # gbuf, ntiles, gcols, ld0, nl, fd0, nf, half_ws, voxel, voxel_off,

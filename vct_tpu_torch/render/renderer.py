@@ -25,11 +25,11 @@ import numpy as np
 import torch
 
 from vct_tpu_torch.config import VCTConfig
-from vct_tpu_torch.core import aniso as A
 from vct_tpu_torch.core import camera as CAM
 from vct_tpu_torch.core import cones as C
 from vct_tpu_torch.core import grid as G
 from vct_tpu_torch.scene.mesh import Scene
+from vct_tpu_torch.ops import aniso as OA
 from vct_tpu_torch.ops import mip
 from vct_tpu_torch.render import shading
 from vct_tpu_torch.render import shadowmap as SM
@@ -180,12 +180,14 @@ def _inject_bounce(cfg: VCTConfig, samples: SamplesDevice,
 
 def _radiance_mips(cfg: VCTConfig, lit: Tensor) -> Tuple[Tensor, ...]:
     """The radiance pyramid: the anisotropic 6-direction pre-integrations
-    when cfg.grid.anisotropic (core/aniso.py), else isotropic box mips
-    (glGenerateMipmap, Voxel_Cone_Tracing.h:248).  The unlit pyramid stays
-    isotropic with max alpha either way: shadow cones need occupancy, not
-    view-dependent radiance."""
+    when cfg.grid.anisotropic (core/aniso.py; ops/aniso.py's kernel on
+    the card, inside the unmarked span `aniso_mips`), else isotropic box
+    mips (glGenerateMipmap, Voxel_Cone_Tracing.h:248).  The unlit pyramid
+    stays isotropic with max alpha either way: shadow cones need
+    occupancy, not view-dependent radiance."""
     if cfg.grid.anisotropic:
-        return A.build_aniso_mips(lit, cfg.grid.num_levels)
+        with span("aniso_mips", mark=False):
+            return OA.build_aniso_mips(lit, cfg.grid.num_levels)
     return mip.build_mips(lit, cfg.grid.num_levels)
 
 
