@@ -174,9 +174,11 @@ Phases, each reported on its own lines:
       and, where one PyTorch call computes the same function, that
       call's time (the dense march at the operating point's three
       marches, on path 2's own pyramids: the 256^3 light volume and the
-      two 128^3 x 26-direction fields, in bf16 and float32, each against
-      its plain version, its steps taken against the plain version's,
-      and the bf16 outputs against the build's; every build of paths
+      two 128^3 x 26-direction fields, in bf16 and float32, over bf16
+      levels, and sponza256_aniso's 6-direction fields, each bit-equal
+      to its plain version, its steps taken against the plain
+      version's, its packed copy and pack launches checked, and the
+      bf16 outputs against the build's; every build of paths
       1-12 marches through it: 3 launches a sponza256 build, the
       brick-sharded light volume once a rank in 8b and 8c, and path 10's
       marches make no host sync; the whole-table and binned raycasts' bounds count the
@@ -1007,12 +1009,21 @@ def dense_path(h, cfg, voxels):
     preset's compute, its outputs held equal to the build's) and in
     float32.  Per march: the cells, directions and steps, the steps the
     kernel took before its early-outs (its own count, held equal to the
-    plain version's), max error and unequal elements, the kernel's time
-    (CUDA events around one launch), the plain version's, and the bound
-    from ops/dense.march_work.  The kernels line's row is the bfloat16
-    build's three marches together."""
+    plain version's), unequal elements (none allowed: bit for bit), the
+    packed copy the kernel read (ops/dense.pack_levels_cuda: its
+    dense_kernel_pack launches, one a march and none where every level is
+    already packed, its bytes, and the copy equal to pack_levels_plain's),
+    the kernel's time (CUDA events around one launch, the pack included),
+    the plain version's, and the bound from ops/dense.march_work.  Then
+    the same checks on the three marches over the pyramids in bfloat16
+    (bfloat16 compute: the fields read their levels as they are) and on
+    sponza256_aniso's two field marches over the 6-direction pyramid of
+    the build's level 0 (ops/aniso), in bfloat16, float32 and over
+    bfloat16 levels.  The kernels line's row is the bfloat16 build's three
+    marches together."""
     from vct_tpu_torch import bench
     from vct_tpu_torch.core import dense as D
+    from vct_tpu_torch.ops import aniso as OA
     from vct_tpu_torch.ops import dense as OD
     from vct_tpu_torch.render import shading
 
@@ -1022,67 +1033,97 @@ def dense_path(h, cfg, voxels):
     ws, df = cfg.grid.world_size, shading.field_dim(cfg)
     field_kw = dict(field_dim=df, max_alpha=cfg.cones.max_alpha,
                     occlusion_falloff=cfg.cones.occlusion_falloff)
-    marches = (
-        ("light volume", voxels.unlit_mips, light,
-         shading.shadow_schedule(cfg),
-         dict(field_dim=cfg.grid.dim, opacity_gain=cfg.shadow.opacity_gain,
-              transmittance_only=True), voxels.light_volume),
-        ("diffuse field", voxels.radiance_mips, basis,
-         shading.diffuse_schedule(cfg), field_kw, voxels.diffuse_field),
-        ("specular field", voxels.radiance_mips, basis,
-         shading.specular_field_schedule(cfg), field_kw,
-         voxels.specular_field))
+    light_kw = dict(field_dim=cfg.grid.dim,
+                    opacity_gain=cfg.shadow.opacity_gain,
+                    transmittance_only=True)
+
+    def marches(unlit, radiance, built=(None, None, None)):
+        return (("light volume", unlit, light, shading.shadow_schedule(cfg),
+                 light_kw, built[0]),
+                ("diffuse field", radiance, basis,
+                 shading.diffuse_schedule(cfg), field_kw, built[1]),
+                ("specular field", radiance, basis,
+                 shading.specular_field_schedule(cfg), field_kw, built[2]))
+
+    built = marches(voxels.unlit_mips, voxels.radiance_mips,
+                    (voxels.light_volume, voxels.diffuse_field,
+                     voxels.specular_field))
     samples = sum(int(np.prod(out.shape[:3])) * dirs.shape[0]
                   * sched.num_steps
-                  for _, _, dirs, sched, _, out in marches)
+                  for _, _, dirs, sched, _, out in built)
     if samples != bench.count_dense_samples(cfg):
         fail(f"the three marches hold {samples} samples, not "
              f"bench.count_dense_samples' {bench.count_dense_samples(cfg)}")
-    err, row = 0.0, None
+
+    def check(tag, what, mips, dirs, sched, kw, as_built, compute,
+              plain_reps):
+        """One march through the kernel against its plain version; returns
+        (mips, plan, bytes, ops)."""
+        plan = D.march_plan(mips, dirs, sched, ws, compute_dtype=compute,
+                            **kw)
+        wk = torch.empty(plan.shape + (plan.nb,), dtype=torch.int32,
+                         device=mips[0].device)
+        wp = torch.empty_like(wk)
+        launches = OD.PACK_LAUNCHES
+        out_k = OD.dense_march_cuda(mips, plan, wk)
+        packs, packed_bytes = OD.PACK_LAUNCHES - launches, OD.PACKED_BYTES
+        slots, _ = OD.level_slots(mips, plan)
+        want_packs = int(any(s.pack for s in slots))
+        same_pack = all(
+            t is None or torch.equal(t, p) for t, p in zip(
+                OD.pack_levels_cuda(mips, plan),
+                OD.pack_levels_plain(mips, plan)))
+        out_p = OD.dense_march_plain(mips, plan, wp)
+        e = h.maxerr(out_k, out_p)
+        unequal = int((out_k != out_p).sum())
+        same_walk = torch.equal(wk, wp)
+        # the build marches in the preset's bfloat16
+        same_built = None if as_built is None else torch.equal(out_k,
+                                                               as_built)
+        b, o = OD.march_work(mips, plan, wk)
+        bms, by = bound(b, o, FP32_RN_OPS_PER_S)
+        ms = elapsed_ms(lambda: OD.dense_march_cuda(mips, plan), DENSE_REPS)
+        pack_ms = (statistics.median(elapsed_ms(
+            lambda: OD.pack_levels_cuda(mips, plan), DENSE_REPS))
+            if want_packs else 0.0)
+        plain = "plain not timed"
+        if plain_reps:
+            pms = elapsed_ms(lambda: OD.dense_march_plain(mips, plan),
+                             plain_reps)
+            plain = f"plain {statistics.median(pms):.3f} ms"
+        steps = plan.nb * int(np.prod(plan.shape)) * len(plan.steps)
+        h.say(f"dense march{tag}, {what}, {str(compute)[6:]} over "
+              f"{str(mips[0].dtype)[6:]} levels: "
+              f"{plan.shape[0]}^3 cells x {plan.nb} directions x "
+              f"{len(plan.steps)} steps ({steps} samples, "
+              f"{plan.idx.shape[1]} taps a direction), "
+              f"{int(wk.sum())} steps taken before the early-outs (the "
+              f"kernel's count equal to the plain version's "
+              f"{same_walk}); max_abs_err {e:.3e}, {unequal} elements not "
+              f"bit-equal of {out_k.numel()}; the build's output equal "
+              f"{same_built} (None: not the build's march); pack "
+              f"launches {packs} (expected {want_packs}), "
+              f"PACK_LAUNCHES {OD.PACK_LAUNCHES}, PACKED_BYTES "
+              f"{packed_bytes}, copy equal to pack_levels_plain's "
+              f"{same_pack}; kernel {statistics.median(ms):.4f} ms (median "
+              f"over {ms}, the pack's {pack_ms:.4f} ms included), {plain}; "
+              f"bound {bms:.4f} ms "
+              f"({by}: {b:.4g} B, {o:.4g} ops at {FP32_RN_OPS_PER_S:.4g}/s)")
+        if not (unequal == 0 and same_walk and same_built is not False
+                and same_pack and packs == want_packs):
+            fail(f"the dense-march kernel disagrees with its plain "
+                 f"version on the {what}{tag} ({compute})")
+        return mips, plan, b, o
+
+    row = None
     for compute in (torch.bfloat16, torch.float32):
         runs, nbytes, ops = [], 0, 0
-        for what, mips, dirs, sched, kw, built in marches:
-            plan = D.march_plan(mips, dirs, sched, ws, compute_dtype=compute,
-                                **kw)
-            wk = torch.empty(plan.shape + (plan.nb,), dtype=torch.int32,
-                             device=mips[0].device)
-            wp = torch.empty_like(wk)
-            out_k = OD.dense_march_cuda(mips, plan, wk)
-            out_p = OD.dense_march_plain(mips, plan, wp)
-            e = h.maxerr(out_k, out_p)
-            err = max(err, e)
-            unequal = int((out_k != out_p).sum())
-            same_walk = torch.equal(wk, wp)
-            # the build marches in the preset's bfloat16
-            as_built = (torch.equal(out_k, built)
-                        if compute == torch.bfloat16 else None)
-            b, o = OD.march_work(mips, plan, wk)
+        for what, mips, dirs, sched, kw, out in built:
+            as_built = out if compute == torch.bfloat16 else None
+            m, plan, b, o = check("", what, mips, dirs, sched, kw, as_built,
+                                  compute, PLAIN_REPS)
+            runs.append((m, plan))
             nbytes, ops = nbytes + b, ops + o
-            bms, by = bound(b, o, FP32_RN_OPS_PER_S)
-            ms = elapsed_ms(lambda: OD.dense_march_cuda(mips, plan),
-                            DENSE_REPS)
-            plain_ms = elapsed_ms(lambda: OD.dense_march_plain(mips, plan),
-                                  PLAIN_REPS)
-            steps = plan.nb * int(np.prod(plan.shape)) * len(plan.steps)
-            h.say(f"dense march, {what}, {str(compute)[6:]}: "
-                  f"{plan.shape[0]}^3 cells x {plan.nb} directions x "
-                  f"{len(plan.steps)} steps ({steps} samples, "
-                  f"{plan.idx.shape[1]} taps a direction), "
-                  f"{int(wk.sum())} steps taken before the early-outs (the "
-                  f"kernel's count equal to the plain version's "
-                  f"{same_walk}); max_abs_err {e:.3e} (tolerance 1e-6), "
-                  f"{unequal} elements not bit-equal of {out_k.numel()}; "
-                  f"the build's output equal {as_built} (None: the build "
-                  f"marches in bfloat16); kernel "
-                  f"{statistics.median(ms):.4f} ms (median over {ms}), plain "
-                  f"{statistics.median(plain_ms):.3f} ms; bound {bms:.4f} ms "
-                  f"({by}: {b:.4g} B, {o:.4g} ops at {FP32_RN_OPS_PER_S:.4g}"
-                  f"/s)")
-            if not (e <= 1e-6 and same_walk and as_built is not False):
-                fail(f"the dense-march kernel disagrees with its plain "
-                     f"version on the {what} ({compute})")
-            runs.append((mips, plan))
-            del out_k, out_p, wk, wp
 
         def all_kernel(runs=runs):
             for mips, plan in runs:
@@ -1095,8 +1136,23 @@ def dense_path(h, cfg, voxels):
         if compute == torch.bfloat16:
             row = (all_kernel, all_plain, nbytes, ops)
     all_kernel, all_plain, nbytes, ops = row
+
+    def bf16(mips):
+        return [m.to(torch.bfloat16) for m in mips]
+
+    for what, mips, dirs, sched, kw, _ in marches(
+            bf16(voxels.unlit_mips), bf16(voxels.radiance_mips)):
+        check(" (bfloat16 levels)", what, mips, dirs, sched, kw, None,
+              torch.bfloat16, 0)
+    aniso = OA.build_aniso_mips(voxels.radiance_mips[0], cfg.grid.num_levels)
+    for levels, compute in ((aniso, torch.bfloat16), (aniso, torch.float32),
+                            (bf16(aniso), torch.bfloat16)):
+        for what, mips, dirs, sched, kw, _ in marches(None, levels)[1:]:
+            check(" (6-direction pyramid)", what, mips, dirs, sched, kw,
+                  None, compute, 0)
+    del aniso
     h.kernel_row("dense_march", "vct_tpu_torch/ops/csrc/dense.cu",
-                 "vct_tpu/core/dense.py:134", err, 1e-6,
+                 "vct_tpu/core/dense.py:134", 0.0, 0.0,
                  elapsed_ms(all_kernel, DENSE_REPS),
                  elapsed_ms(all_plain, PLAIN_REPS), nbytes, ops,
                  rate=FP32_RN_OPS_PER_S)

@@ -19,9 +19,15 @@ Bounds:
     stacks, step factors 0.5, 1 and 2;
   * DenseMarch with the plain version injected: gradients within 1e-6 of
     the largest gradient of autograd through the plain version, and no
-    gradient edge to a level no tap reads.
+    gradient edge to a level no tap reads;
+  * the packed copy the kernel reads (pack_levels_plain): the plain march
+    over it equal to the bit to the plain march over the levels; the
+    wrapper's host side (level_slots, pack_levels_cuda with the library
+    stood in for, level_table) packing exactly the levels the kernel
+    cannot read as they are, into aligned, disjoint slots of one buffer.
 """
 
+import ctypes
 import dataclasses
 
 import jax
@@ -348,3 +354,190 @@ def test_march_work_by_hand():
     assert nbytes == 64 * 4 + (tplan.idx.numel() * 2 + 3 * 4 + 3 * 3
                                + 6) * 4 + 64 * 4
     assert ops == 64 * 3 * (21 + 2)
+
+
+# ---------------------------------------------------------------------------
+# the packed copy the kernel reads
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sf", [0.5, 1.0])
+@pytest.mark.parametrize("transmittance", [False, True])
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stack", ["iso", "aniso"])
+def test_plain_march_over_packed_levels_is_bit_equal(stack, compute,
+                                                     transmittance, sf):
+    """Rounding each value to the compute dtype once, in the pack, gives
+    the march the bits it gets rounding it at every tap."""
+    _, pm = pyramid(stack == "aniso", seed=17)
+    sched = M.march_schedule(0.3, WS / DIM, 75.0, step_factor=sf)
+    dirs = np.concatenate([D.direction_basis(6)[[0, 3]], [[0.6, -0.64,
+                                                           0.48]]])
+    plan = _plan(pm, dirs, sched, DIM, transmittance, compute)
+    packed = OD.pack_levels_plain(pm, plan)
+    for i, (m, p) in enumerate(zip(pm, packed)):
+        if i not in plan.extent:
+            assert p is m
+            continue
+        assert p.dtype == compute and p.is_contiguous()
+        assert p.shape[:-1] == m.shape[:-1]
+        assert p.shape[-1] == (1 if transmittance else m.shape[-1])
+    walked = [torch.empty((DIM,) * 3 + (3,), dtype=torch.int32)
+              for _ in range(2)]
+    want = OD.dense_march_plain(pm, plan, walked[0])
+    got = OD.dense_march_plain(packed, plan, walked[1])
+    assert torch.equal(got, want) and torch.equal(walked[1], walked[0])
+    assert float(want.abs().max()) > 0
+
+
+def _slot_plan(mips, transmittance=False, compute=torch.bfloat16):
+    sched = M.march_schedule(0.3, WS / DIM, 75.0)
+    return _plan(mips, D.direction_basis(6)[:2], sched, 8, transmittance,
+                 compute)
+
+
+def _check_slots(slots, total, plan):
+    """Slots of the copies lie in order, PACK_ALIGN-aligned and disjoint
+    inside the buffer; the others hold no offset."""
+    esize = torch.empty((), dtype=plan.compute).element_size()
+    end = 0
+    for s in slots:
+        if not s.pack:
+            assert s.offset == -1
+            continue
+        assert s.offset >= end and (s.offset * esize) % OD.PACK_ALIGN == 0
+        end = s.offset + s.view.numel()
+    assert end <= total and (total * esize) % OD.PACK_ALIGN == 0
+
+
+@pytest.mark.parametrize("stack", ["iso", "aniso"])
+def test_level_slots_pack_what_the_kernel_cannot_read_as_is(stack):
+    _, pm = pyramid(stack == "aniso", seed=19)
+    nd = [6 if A.is_aniso_level(m) else 1 for m in pm]
+    bf = [m.to(torch.bfloat16) for m in pm]
+    cases = (
+        # float32 levels, bfloat16 compute (the operating point): a copy
+        (pm, False, torch.bfloat16, True),
+        # already the compute dtype, contiguous: read as they are
+        (bf, False, torch.bfloat16, False),
+        (pm, False, torch.float32, False),
+        # transmittance reads alpha alone: a strided view, so a copy
+        (pm, True, torch.float32, True),
+        (bf, True, torch.bfloat16, True))
+    for mips, trans, compute, copied in cases:
+        plan = _slot_plan(mips, trans, compute)
+        slots, total = OD.level_slots(mips, plan)
+        assert [s.nd for s in slots] == nd
+        assert [s.read for s in slots] == [i in plan.extent
+                                           for i in range(len(mips))]
+        assert [s.pack for s in slots] == [copied and s.read for s in slots]
+        assert (total > 0) == copied
+        _check_slots(slots, total, plan)
+        for s, m in zip(slots, mips):
+            assert s.view.shape[-1] == (1 if trans else m.shape[-1])
+
+
+def test_level_slots_copy_a_misaligned_level_and_skip_an_unread_one():
+    """A contiguous level of the compute dtype that starts off a 16-byte
+    boundary is copied (the kernel's vector loads need the alignment); a
+    level no tap reads is neither read nor copied."""
+    _, pm = pyramid(False, seed=21)
+    bf = [m.to(torch.bfloat16) for m in pm]
+    flat = torch.empty(bf[0].numel() + 1, dtype=torch.bfloat16)
+    bf[0] = flat[1:].view(bf[0].shape).copy_(bf[0])
+    assert bf[0].is_contiguous() and bf[0].data_ptr() % OD.PACK_ALIGN
+    plan = _slot_plan(bf)
+    assert 0 in plan.extent
+    slots, total = OD.level_slots(bf, plan)
+    assert slots[0].pack and not any(s.pack for s in slots[1:])
+    assert total == -(-bf[0].numel() // 8) * 8
+    g = torch.as_tensor(np.random.default_rng(23).random(
+        (DIM, DIM, DIM, 4), np.float32))
+    mips = G.build_mips(g, alpha_mode="max")
+    sched = M.march_schedule(0.03, WS / DIM, 40.0, step_factor=0.5)
+    plan = _plan(mips, np.array([[0.6, -0.64, 0.48]]), sched, DIM, True)
+    unread = set(range(len(mips))) - set(plan.extent)
+    assert unread
+    slots, _ = OD.level_slots(mips, plan)
+    for i in unread:
+        assert not slots[i].read and not slots[i].pack
+
+
+class _FakePack:
+    """The library's vct_dense_pack stood in for on the CPU: checks each
+    level's source pointer, strides, shape and nd against the views the
+    march reads and writes pack_levels_plain's copy to its destination
+    pointer."""
+
+    def __init__(self, views, compute):
+        self.by_ptr = {v.data_ptr(): v for v in views}
+        self.compute = compute
+        self.calls = []
+
+    def vct_dense_pack(self, src, stride, shape, nd, dst, n, nc, level_bf16,
+                       compute_bf16, stream):
+        def read(addr, kind, k):
+            return list(ctypes.cast(addr, ctypes.POINTER(kind))[:k])
+
+        src, dst = read(src, ctypes.c_longlong, n), read(dst, ctypes.c_longlong, n)
+        stride = read(stride, ctypes.c_longlong, 5 * n)
+        shape, nd = read(shape, ctypes.c_int, 3 * n), read(nd, ctypes.c_int, n)
+        assert compute_bf16 == int(self.compute == torch.bfloat16)
+        for k in range(n):
+            v = self.by_ptr[src[k]]
+            aniso = A.is_aniso_level(v)
+            assert level_bf16 == int(v.dtype == torch.bfloat16)
+            assert nc == v.shape[-1] and shape[3 * k:3 * k + 3] == list(
+                v.shape[:3])
+            st = v.stride()
+            assert stride[5 * k:5 * k + 5] == [
+                st[0], st[1], st[2], st[3] if aniso else 0, st[-1]]
+            assert nd[k] == (6 if aniso else 1)
+            c = v.to(self.compute).contiguous()
+            ctypes.memmove(dst[k], c.data_ptr(), c.numel() * c.element_size())
+        self.calls.append(n)
+        return 0
+
+
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("transmittance", [False, True])
+@pytest.mark.parametrize("stack", ["iso", "aniso"])
+def test_pack_levels_cuda_host_side(stack, transmittance, compute,
+                                    monkeypatch):
+    """pack_levels_cuda's buffer, slots and launch arguments, with the
+    library stood in for: one launch for the levels that need a copy (none
+    where every level is packed already), each copy equal to
+    pack_levels_plain's, the counters, and the march's level table."""
+    from vct_tpu_torch.ops import _build
+    _, pm = pyramid(stack == "aniso", seed=25)
+    plan = _slot_plan(pm, transmittance, compute)
+    fake = _FakePack(OD._level_views(pm, plan), compute)
+    monkeypatch.setattr(_build, "library", lambda: fake)
+    monkeypatch.setattr(_build, "stream", lambda: 0)
+    monkeypatch.setattr(OD, "PACK_LAUNCHES", 0)
+    slots, _ = OD.level_slots(pm, plan)
+    copied = [s.pack for s in slots]
+    packed = OD.pack_levels_cuda(pm, plan)
+    plain = OD.pack_levels_plain(pm, plan)
+    assert OD.PACK_LAUNCHES == len(fake.calls) == int(any(copied))
+    assert fake.calls == ([sum(copied)] if any(copied) else [])
+    esize = torch.empty((), dtype=compute).element_size()
+    assert OD.PACKED_BYTES == esize * sum(s.view.numel() for s in slots
+                                          if s.pack)
+    for i, (t, p, s) in enumerate(zip(packed, plain, slots)):
+        if not s.read:
+            assert t is None
+            continue
+        assert torch.equal(t, p) and t.dtype == compute
+        assert t.is_contiguous() and t.data_ptr() % OD.PACK_ALIGN == 0
+        if not s.pack:
+            assert t.data_ptr() == pm[i].data_ptr()
+    ptr, stride, nd = OD.level_table(packed)
+    for i, t in enumerate(packed):
+        if t is None:
+            assert (ptr[i], stride[2 * i:2 * i + 2], nd[i]) == (0, [0, 0], 1)
+            continue
+        assert ptr[i] == t.data_ptr()
+        assert stride[2 * i:2 * i + 2] == [t.stride(0), t.stride(1)]
+        assert nd[i] == (6 if A.is_aniso_level(t) else 1)
+        # z's stride is the voxel's nd * C values, as the kernel assumes
+        assert t.stride(2) == nd[i] * plan.channels

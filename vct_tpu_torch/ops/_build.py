@@ -79,12 +79,15 @@ SIGNATURES = {
     # start4, refl4, ntiles, step_lv, weights, nsteps, pyramid, d0, nl,
     # half_ws, max_alpha, out, stream
     "vct_specmarch": (_P, _P, _I, _P, _P, _I, _P, _I, _I, _F, _F, _P, _P),
-    # level_ptr, level_stride, level_nd (host arrays), nl, level_bf16,
-    # transmittance, compute_bf16, tidx, tw, ntaps, step_i, step_f, nsteps,
-    # w6, nb, nx, ny, nz, pow_mode, sf, use_gain, gain, max_alpha, out,
-    # walked (or null), stream
-    "vct_dense_march": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
+    # level_ptr, level_stride, level_nd (host arrays), nl, transmittance,
+    # compute_bf16, tidx, tw, ntaps, step_i, step_f, nsteps, w6, nb, nx,
+    # ny, nz, pow_mode, sf, use_gain, gain, max_alpha, out, walked (or
+    # null), stream
+    "vct_dense_march": (_P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _I,
                         _P, _I, _I, _I, _I, _I, _F, _I, _F, _F, _P, _P, _P),
+    # src_ptr, src_stride, shape, nd, dst_ptr (host arrays), nl, nc,
+    # level_bf16, compute_bf16, stream
+    "vct_dense_pack": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # kernel reports: (nb, cfield,) info -> info[0:4] = registers, spill
     # bytes a thread, shared bytes a block, resident warps per SM
     "vct_tap_occupancy": (_I, _I, _P),

@@ -13,14 +13,26 @@
 // the loop-top early-out).  A tap is a separable shifted resample: x from
 // the tap row's (i0, i1, w0, w1), then y, then z, each axis multiplying
 // and adding in float32, the first two axes' results rounded to the
-// compute dtype (bfloat16 or float32), the level read in its own dtype and
-// rounded to the compute dtype as `.to(wd)` rounds it.  An anisotropic
-// level (d, d, d, 6, C) resamples its six directions and blends them by
-// the direction's static weights in core/aniso.py blend's order.  Every
-// multiply and add is rounded on its own (the *_rn helpers), and a
-// division by the per-step attenuation is a multiply by its float32
-// reciprocal, as PyTorch's CUDA division by a Python scalar computes it,
-// so the kernel can equal the plain version bit for bit.
+// compute dtype (bfloat16 or float32).  An anisotropic level (d, d, d, 6,
+// C) resamples its six directions and blends them by the direction's
+// static weights in core/aniso.py blend's order.  Every multiply and add
+// is rounded on its own (the *_rn helpers), and a division by the
+// per-step attenuation is a multiply by its float32 reciprocal, as
+// PyTorch's CUDA division by a Python scalar computes it, so the kernel
+// can equal the plain version bit for bit.
+//
+// The packed copy.  The march reads its levels from a copy that
+// dense_kernel_pack writes in one launch before it: every level a tap
+// reads as contiguous, channel-last values of the compute dtype, (d, d,
+// d, C) for an isotropic level, (d, d, d, 6C) for a 6-direction one
+// (core/aniso.py packed's layout), alpha alone for a transmittance march.
+// Rounding each value to the compute dtype once there gives the bits the
+// plain version's `.to(wd)` gives, and each corner of a tap is then one
+// voxel of nd * C contiguous values, read in loads as wide as the voxel
+// allows up to 16 bytes (Chunks): an isotropic rgba corner is one 8-byte
+// (bfloat16) or 16-byte (float32) load, a 6-direction one three or six
+// 16-byte loads.  The wrapper (ops/dense.py pack_levels_cuda) skips the
+// copy of a level already in that layout.
 //
 // Output: float32 (nx, ny, nz, nb * 4), per direction (rgb, occlusion);
 // or (nx, ny, nz, nb) transmittance.  The tap table holds, for each
@@ -39,22 +51,26 @@
 // its loop once 1 - t >= max_alpha, which is exact: nothing changes after
 // it.  Offsets are 64-bit (multihost512's 512^3 x 4 levels exceed 2^31
 // elements).
+#include <cstring>
 #include <type_traits>
 
 #include "common.cuh"
 
 constexpr int kMaxLevels = 16;
 constexpr int kThreads = 128;
+constexpr int kPackThreads = 256;
 
-// per level: base pointer (in elements of the level dtype, channel 0 of
-// the march's first channel), element strides of x, y, z, of the six
-// directions (anisotropic levels) and of the channels; nd = 1 or 6
+// per packed level: base pointer (elements of the compute dtype) and the
+// element strides of x and y (z's is the voxel's nd * C values: the copy
+// is contiguous); nd = 1 or 6
 struct Levels {
     const void* ptr[kMaxLevels];
-    long long sx[kMaxLevels], sy[kMaxLevels], sz[kMaxLevels];
-    long long s6[kMaxLevels], sc[kMaxLevels];
+    long long sx[kMaxLevels], sy[kMaxLevels];
     int nd[kMaxLevels];
 };
+
+template <typename T>
+constexpr bool kBF = std::is_same_v<T, __nv_bfloat16>;
 
 template <bool BF>
 __device__ __forceinline__ float to_compute(float v) {
@@ -68,53 +84,110 @@ __device__ __forceinline__ float load_level(const T* p) {
     else return __bfloat162float(*p);
 }
 
-// the separable resample of one tap at this thread's cell, NC channels,
-// blended over an anisotropic level's six directions
-template <typename T, int NC, bool BF>
-__device__ __forceinline__ void resample(const Levels& L, int lv,
+// A voxel of V values of CT moves in kCount loads (or stores) of kBytes
+// each: the widest power of two up to 16 bytes that divides the voxel, so
+// each chunk of every voxel of a 16-byte-aligned copy is aligned to its
+// width.
+template <typename CT, int V>
+struct Chunks {
+    static constexpr int kVoxel = V * static_cast<int>(sizeof(CT));
+    static constexpr int kBytes = kVoxel % 16 == 0 ? 16
+                                : kVoxel % 8 == 0  ? 8
+                                : kVoxel % 4 == 0  ? 4 : 2;
+    static constexpr int kCount = kVoxel / kBytes;
+    static constexpr int kValues = kBytes / static_cast<int>(sizeof(CT));
+};
+
+template <int B> struct Word;
+template <> struct Word<16> { using type = uint4; };
+template <> struct Word<8> { using type = uint2; };
+template <> struct Word<4> { using type = unsigned int; };
+template <> struct Word<2> { using type = unsigned short; };
+
+// N values of CT at p, aligned to their N * sizeof(CT) bytes, as floats:
+// one load
+template <typename CT, int N>
+__device__ __forceinline__ void load_values(const CT* p, float* v) {
+    using W = typename Word<N * static_cast<int>(sizeof(CT))>::type;
+    const W w = __ldg(reinterpret_cast<const W*>(p));
+    CT c[N];
+    memcpy(c, &w, sizeof(W));
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+        if constexpr (kBF<CT>) v[i] = __bfloat162float(c[i]);
+        else v[i] = c[i];
+    }
+}
+
+// the separable resample of one tap at this thread's cell over a packed
+// level of ND directions and NC channels, chunk by chunk of each corner's
+// voxel, blended over a 6-direction level's directions
+template <typename CT, int NC, int ND>
+__device__ __forceinline__ void resample(const CT* __restrict__ base,
+                                         long long sx, long long sy,
                                          const int* __restrict__ ti,
                                          const float* __restrict__ tw,
                                          int x, int y, int z, int nx, int ny,
                                          int nz, const float* wd, float* s) {
+    constexpr bool BF = kBF<CT>;
+    constexpr int V = ND * NC;
+    using K = Chunks<CT, V>;
     const int oy = 2 * nx, oz = 2 * nx + 2 * ny;
-    const long long sx = L.sx[lv], sy = L.sy[lv], sz = L.sz[lv];
     const long long ox[2] = {ti[x] * sx, ti[nx + x] * sx};
     const float wx[2] = {tw[x], tw[nx + x]};
     const long long oyv[2] = {ti[oy + y] * sy, ti[oy + ny + y] * sy};
     const float wy[2] = {tw[oy + y], tw[oy + ny + y]};
-    const long long ozv[2] = {ti[oz + z] * sz, ti[oz + nz + z] * sz};
+    const long long ozv[2] = {static_cast<long long>(ti[oz + z]) * V,
+                              static_cast<long long>(ti[oz + nz + z]) * V};
     const float wz[2] = {tw[oz + z], tw[oz + nz + z]};
-    const T* base = static_cast<const T*>(L.ptr[lv]);
-    const int nd = L.nd[lv];
-    for (int d = 0; d < nd; ++d) {
-        const T* p = base + d * L.s6[lv];
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-            const T* pc = p + c * L.sc[lv];
-            float o0[2][2];
+    for (int q = 0; q < K::kCount; ++q) {
+        float o0[2][2][K::kValues];
 #pragma unroll
-            for (int jy = 0; jy < 2; ++jy) {
+        for (int jy = 0; jy < 2; ++jy) {
 #pragma unroll
-                for (int jz = 0; jz < 2; ++jz) {
-                    const long long off = oyv[jy] + ozv[jz];
-                    const float a = to_compute<BF>(load_level(pc + ox[0] + off));
-                    const float b = to_compute<BF>(load_level(pc + ox[1] + off));
-                    o0[jy][jz] = to_compute<BF>(
-                        add_rn(mul_rn(a, wx[0]), mul_rn(b, wx[1])));
-                }
+            for (int jz = 0; jz < 2; ++jz) {
+                const CT* p = base + oyv[jy] + ozv[jz] + q * K::kValues;
+                float a[K::kValues], b[K::kValues];
+                load_values<CT, K::kValues>(p + ox[0], a);
+                load_values<CT, K::kValues>(p + ox[1], b);
+#pragma unroll
+                for (int i = 0; i < K::kValues; ++i)
+                    o0[jy][jz][i] = to_compute<BF>(
+                        add_rn(mul_rn(a[i], wx[0]), mul_rn(b[i], wx[1])));
             }
+        }
+#pragma unroll
+        for (int i = 0; i < K::kValues; ++i) {
             float o1[2];
 #pragma unroll
             for (int jz = 0; jz < 2; ++jz) {
-                o1[jz] = to_compute<BF>(
-                    add_rn(mul_rn(o0[0][jz], wy[0]), mul_rn(o0[1][jz], wy[1])));
+                o1[jz] = to_compute<BF>(add_rn(mul_rn(o0[0][jz][i], wy[0]),
+                                               mul_rn(o0[1][jz][i], wy[1])));
             }
             const float r = add_rn(mul_rn(o1[0], wz[0]), mul_rn(o1[1], wz[1]));
-            if (nd == 1) s[c] = r;
+            const int d = (q * K::kValues + i) / NC;
+            const int c = (q * K::kValues + i) % NC;
+            if constexpr (ND == 1) s[c] = r;
             else if (d == 0) s[c] = mul_rn(wd[0], r);
             else s[c] = add_rn(s[c], mul_rn(wd[d], r));
         }
     }
+}
+
+template <typename CT, int NC>
+__device__ __forceinline__ void tap(const Levels& L, int lv,
+                                    const int* __restrict__ ti,
+                                    const float* __restrict__ tw, int x,
+                                    int y, int z, int nx, int ny, int nz,
+                                    const float* wd, float* s) {
+    const CT* base = static_cast<const CT*>(L.ptr[lv]);
+    if (L.nd[lv] == 1)
+        resample<CT, NC, 1>(base, L.sx[lv], L.sy[lv], ti, tw, x, y, z, nx,
+                            ny, nz, wd, s);
+    else
+        resample<CT, NC, 6>(base, L.sx[lv], L.sy[lv], ti, tw, x, y, z, nx,
+                            ny, nz, wd, s);
 }
 
 // keep = (1 - a)^sf as at::pow(Tensor, Scalar) evaluates it on the card:
@@ -132,7 +205,7 @@ __device__ __forceinline__ float keep_of(float x, int mode, float sf) {
 // step_i[k] = (first tap, its level, second tap or -1, its level);
 // step_f[k] = (lerp weight w, 1 - w, float32 reciprocal of the
 // attenuation)
-template <typename T, int NC, bool BF, bool TRANS>
+template <typename CT, int NC, bool TRANS>
 __global__ void __launch_bounds__(kThreads) dense_kernel(
     Levels L, const int* __restrict__ tidx, const float* __restrict__ tw,
     int ntaps, const int4* __restrict__ step_i,
@@ -163,12 +236,12 @@ __global__ void __launch_bounds__(kThreads) dense_kernel(
         if (!TRANS && !(sub_rn(1.0f, t) < max_alpha)) break;
         const int4 si = step_i[k];
         float s[NC];
-        resample<T, NC, BF>(L, si.y, ti + si.x * row, tb + si.x * row, x, y,
-                            z, nx, ny, nz, wd, s);
+        tap<CT, NC>(L, si.y, ti + si.x * row, tb + si.x * row, x, y, z, nx,
+                    ny, nz, wd, s);
         if (si.z >= 0) {
             float s1[NC];
-            resample<T, NC, BF>(L, si.w, ti + si.z * row, tb + si.z * row, x,
-                                y, z, nx, ny, nz, wd, s1);
+            tap<CT, NC>(L, si.w, ti + si.z * row, tb + si.z * row, x, y, z,
+                        nx, ny, nz, wd, s1);
             const float w = step_f[3 * k], omw = step_f[3 * k + 1];
 #pragma unroll
             for (int c = 0; c < NC; ++c)
@@ -199,15 +272,128 @@ __global__ void __launch_bounds__(kThreads) dense_kernel(
     if constexpr (TRANS) {
         out[cell * nb + b] = t;
     } else {
-        float* o = out + (cell * nb + b) * 4;
-        o[0] = col[0];
-        o[1] = col[1];
-        o[2] = col[2];
-        o[3] = occ;
+        *reinterpret_cast<float4*>(out + (cell * nb + b) * 4) =
+            make_float4(col[0], col[1], col[2], occ);
     }
 }
 
-template <typename T, int NC, bool BF, bool TRANS>
+// per level to pack: the source (elements of the level dtype, at the
+// march's first channel of direction 0), its element strides of x, y, z,
+// of the six directions and of the channels, its cells along x, y, z, nd,
+// the destination (contiguous, nd * NC values a voxel, 16-byte aligned),
+// and the first block of the launch that packs it
+struct PackLevels {
+    const void* src[kMaxLevels];
+    void* dst[kMaxLevels];
+    long long sx[kMaxLevels], sy[kMaxLevels], sz[kMaxLevels];
+    long long s6[kMaxLevels], sc[kMaxLevels];
+    int n[kMaxLevels][3];
+    int nd[kMaxLevels];
+    int block0[kMaxLevels + 1];
+    int nl;
+};
+
+// one voxel's ND * NC values, each read in the level dtype and rounded to
+// the compute dtype as `.to(wd)` rounds it, written in Chunks' stores
+template <typename ST, typename CT, int NC, int ND>
+__device__ __forceinline__ void pack_voxel(const ST* p, long long s6,
+                                           long long sc, CT* out) {
+    using K = Chunks<CT, ND * NC>;
+    using W = typename Word<K::kBytes>::type;
+#pragma unroll
+    for (int q = 0; q < K::kCount; ++q) {
+        CT c[K::kValues];
+#pragma unroll
+        for (int i = 0; i < K::kValues; ++i) {
+            const int e = q * K::kValues + i;
+            const float f = load_level(p + (e / NC) * s6 + (e % NC) * sc);
+            if constexpr (kBF<CT>) c[i] = __float2bfloat16_rn(f);
+            else c[i] = f;
+        }
+        W w;
+        memcpy(&w, c, sizeof(W));
+        reinterpret_cast<W*>(out)[q] = w;
+    }
+}
+
+// the packed copy of every level of a march, one thread a voxel; a block
+// finds its level among the launch's first blocks
+template <typename ST, typename CT, int NC>
+__global__ void __launch_bounds__(kPackThreads) dense_kernel_pack(
+    PackLevels P) {
+    int l = 0;
+    while (l + 1 < P.nl && static_cast<int>(blockIdx.x) >= P.block0[l + 1])
+        ++l;
+    const unsigned v = static_cast<unsigned>(blockIdx.x - P.block0[l])
+                       * kPackThreads + threadIdx.x;
+    const unsigned n1 = P.n[l][1], n2 = P.n[l][2];
+    if (v >= static_cast<unsigned>(P.n[l][0]) * n1 * n2) return;
+    const unsigned z = v % n2, y = (v / n2) % n1, x = v / (n1 * n2);
+    const ST* p = static_cast<const ST*>(P.src[l]) + x * P.sx[l]
+                  + y * P.sy[l] + z * P.sz[l];
+    CT* dst = static_cast<CT*>(P.dst[l]);
+    if (P.nd[l] == 1)
+        pack_voxel<ST, CT, NC, 1>(p, P.s6[l], P.sc[l],
+                                  dst + static_cast<long long>(v) * NC);
+    else
+        pack_voxel<ST, CT, NC, 6>(p, P.s6[l], P.sc[l],
+                                  dst + static_cast<long long>(v) * 6 * NC);
+}
+
+template <typename ST, typename CT>
+static void launch_pack(const PackLevels& P, int nc, cudaStream_t stream) {
+    const dim3 grid(static_cast<unsigned>(P.block0[P.nl]));
+    if (nc == 1)
+        dense_kernel_pack<ST, CT, 1><<<grid, kPackThreads, 0, stream>>>(P);
+    else
+        dense_kernel_pack<ST, CT, 4><<<grid, kPackThreads, 0, stream>>>(P);
+}
+
+// src_ptr (nl), src_stride (nl x 5: sx, sy, sz, s6, sc, in elements of the
+// level dtype), shape (nl x 3), nd (nl) and dst_ptr (nl) are host arrays;
+// nc = 1 (transmittance) or 4.  Each level has fewer than 2^31 voxels.
+VCT_EXPORT int vct_dense_pack(const long long* src_ptr,
+                              const long long* src_stride, const int* shape,
+                              const int* nd, const long long* dst_ptr,
+                              int nl, int nc, int level_bf16,
+                              int compute_bf16, cudaStream_t stream) {
+    if (nl < 1 || nl > kMaxLevels || (nc != 1 && nc != 4))
+        return static_cast<int>(cudaErrorInvalidValue);
+    PackLevels P;
+    P.nl = nl;
+    long long blocks = 0;
+    for (int i = 0; i < nl; ++i) {
+        P.src[i] = reinterpret_cast<const void*>(src_ptr[i]);
+        P.dst[i] = reinterpret_cast<void*>(dst_ptr[i]);
+        P.sx[i] = src_stride[5 * i];
+        P.sy[i] = src_stride[5 * i + 1];
+        P.sz[i] = src_stride[5 * i + 2];
+        P.s6[i] = src_stride[5 * i + 3];
+        P.sc[i] = src_stride[5 * i + 4];
+        long long voxels = 1;
+        for (int a = 0; a < 3; ++a) {
+            P.n[i][a] = shape[3 * i + a];
+            voxels *= shape[3 * i + a];
+        }
+        P.nd[i] = nd[i];
+        if (voxels < 1 || voxels >= (1LL << 31) || (nd[i] != 1 && nd[i] != 6))
+            return static_cast<int>(cudaErrorInvalidValue);
+        P.block0[i] = static_cast<int>(blocks);
+        blocks += (voxels + kPackThreads - 1) / kPackThreads;
+    }
+    if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+    P.block0[nl] = static_cast<int>(blocks);
+    if (level_bf16) {
+        if (compute_bf16) launch_pack<__nv_bfloat16, __nv_bfloat16>(P, nc, stream);
+        else launch_pack<__nv_bfloat16, float>(P, nc, stream);
+    } else {
+        if (compute_bf16) launch_pack<float, __nv_bfloat16>(P, nc, stream);
+        else launch_pack<float, float>(P, nc, stream);
+    }
+    return launch_status();
+}
+
+template <typename CT, int NC, bool TRANS>
 static void launch(const Levels& L, const int* tidx, const float* tw,
                    int ntaps, const int* step_i, const float* step_f,
                    int nsteps, const float* w6, int nb, int nx, int ny,
@@ -217,41 +403,23 @@ static void launch(const Levels& L, const int* tidx, const float* tw,
     const long long cells = static_cast<long long>(nx) * ny * nz;
     const dim3 grid(static_cast<unsigned>((cells + kThreads - 1) / kThreads),
                     static_cast<unsigned>(nb));
-    dense_kernel<T, NC, BF, TRANS><<<grid, kThreads, 0, stream>>>(
+    dense_kernel<CT, NC, TRANS><<<grid, kThreads, 0, stream>>>(
         L, tidx, tw, ntaps, reinterpret_cast<const int4*>(step_i), step_f,
         nsteps, w6, nx, ny, nz, pow_mode, sf, use_gain, gain, max_alpha, out,
         walked);
 }
 
-template <typename T>
-static void dispatch(const Levels& L, int transmittance, int compute_bf16,
-                     const int* tidx, const float* tw, int ntaps,
-                     const int* step_i, const float* step_f, int nsteps,
-                     const float* w6, int nb, int nx, int ny, int nz,
-                     int pow_mode, float sf, int use_gain, float gain,
-                     float max_alpha, float* out, int* walked,
-                     cudaStream_t stream) {
-#define VCT_DENSE_ARGS L, tidx, tw, ntaps, step_i, step_f, nsteps, w6, nb, \
-    nx, ny, nz, pow_mode, sf, use_gain, gain, max_alpha, out, walked, stream
-    if (transmittance) {
-        if (compute_bf16) launch<T, 1, true, true>(VCT_DENSE_ARGS);
-        else launch<T, 1, false, true>(VCT_DENSE_ARGS);
-    } else {
-        if (compute_bf16) launch<T, 4, true, false>(VCT_DENSE_ARGS);
-        else launch<T, 4, false, false>(VCT_DENSE_ARGS);
-    }
-#undef VCT_DENSE_ARGS
-}
-
-// level_ptr (nl), level_stride (nl x 5: sx, sy, sz, s6, sc) and level_nd
-// (nl) are host arrays; every other pointer is on the card.  The caller
-// checks that every tap index lies inside its level.  walked, where not
-// null, receives each (cell, direction)'s steps taken before its
-// early-out (every step in transmittance mode): the work this run's data
-// needed.
+// level_ptr (nl), level_stride (nl x 2: sx, sy) and level_nd (nl) are
+// host arrays describing the packed copies (ops/dense.py
+// pack_levels_cuda): contiguous, channel-last, of the compute dtype,
+// 16-byte aligned; a level no tap reads may be null.  Every other pointer
+// is on the card.  The caller checks that every tap index lies inside its
+// level.  walked, where not null, receives each (cell, direction)'s steps
+// taken before its early-out (every step in transmittance mode): the work
+// this run's data needed.
 VCT_EXPORT int vct_dense_march(const long long* level_ptr,
                                const long long* level_stride,
-                               const int* level_nd, int nl, int level_bf16,
+                               const int* level_nd, int nl,
                                int transmittance, int compute_bf16,
                                const int* tidx, const float* tw, int ntaps,
                                const int* step_i, const float* step_f,
@@ -265,30 +433,29 @@ VCT_EXPORT int vct_dense_march(const long long* level_ptr,
     Levels L;
     for (int i = 0; i < nl; ++i) {
         L.ptr[i] = reinterpret_cast<const void*>(level_ptr[i]);
-        L.sx[i] = level_stride[5 * i];
-        L.sy[i] = level_stride[5 * i + 1];
-        L.sz[i] = level_stride[5 * i + 2];
-        L.s6[i] = level_stride[5 * i + 3];
-        L.sc[i] = level_stride[5 * i + 4];
+        L.sx[i] = level_stride[2 * i];
+        L.sy[i] = level_stride[2 * i + 1];
         L.nd[i] = level_nd[i];
     }
-    if (level_bf16)
-        dispatch<__nv_bfloat16>(L, transmittance, compute_bf16, tidx, tw,
-                                ntaps, step_i, step_f, nsteps, w6, nb, nx, ny,
-                                nz, pow_mode, sf, use_gain, gain, max_alpha,
-                                out, walked, stream);
-    else
-        dispatch<float>(L, transmittance, compute_bf16, tidx, tw, ntaps,
-                        step_i, step_f, nsteps, w6, nb, nx, ny, nz, pow_mode,
-                        sf, use_gain, gain, max_alpha, out, walked, stream);
+#define VCT_DENSE_ARGS L, tidx, tw, ntaps, step_i, step_f, nsteps, w6, nb, \
+    nx, ny, nz, pow_mode, sf, use_gain, gain, max_alpha, out, walked, stream
+    if (transmittance) {
+        if (compute_bf16) launch<__nv_bfloat16, 1, true>(VCT_DENSE_ARGS);
+        else launch<float, 1, true>(VCT_DENSE_ARGS);
+    } else {
+        if (compute_bf16) launch<__nv_bfloat16, 4, false>(VCT_DENSE_ARGS);
+        else launch<float, 4, false>(VCT_DENSE_ARGS);
+    }
+#undef VCT_DENSE_ARGS
     return launch_status();
 }
 
-// registers, spills, shared bytes and resident warps of the float32-level
-// bfloat16-compute instance (the operating point's), field or
-// transmittance
+// registers, spills, shared bytes and resident warps of the bfloat16-
+// compute instance (the operating point's), field or transmittance
 VCT_EXPORT int vct_dense_occupancy(int transmittance, int* info) {
     return transmittance
-        ? occupancy_info(dense_kernel<float, 1, true, true>, kThreads, 0, info)
-        : occupancy_info(dense_kernel<float, 4, true, false>, kThreads, 0, info);
+        ? occupancy_info(dense_kernel<__nv_bfloat16, 1, true>, kThreads, 0,
+                         info)
+        : occupancy_info(dense_kernel<__nv_bfloat16, 4, false>, kThreads, 0,
+                         info);
 }

@@ -14,6 +14,12 @@ then the composite (`march_steps`).  On CUDA tensors the kernel runs
 inside `DenseMarch`, an autograd Function whose backward replays the
 plain version (`_build.replay_grads`), as the JAX package differentiates
 this march by autodiff of the same function.
+
+The kernel reads a packed copy of the levels its taps read: contiguous,
+channel-last values of the compute dtype (`pack_levels_plain` states it),
+written by one `dense_kernel_pack` launch a march (`pack_levels_cuda`)
+into a temporary, and skipped for a level already in that layout
+(`level_slots`).
 """
 
 from __future__ import annotations
@@ -32,7 +38,10 @@ from vct_tpu_torch.ops import _build
 Tensor = torch.Tensor
 
 LAUNCHES = 0       # kernel launches since the last reset (chip_smoke reads it)
+PACK_LAUNCHES = 0  # dense_kernel_pack launches since the last reset
+PACKED_BYTES = 0   # bytes the last march's pack wrote (0: nothing to pack)
 MAX_LEVELS = 16    # csrc/dense.cu kMaxLevels
+PACK_ALIGN = 16    # bytes: each packed level starts here (the widest load)
 # keep = (1 - a) ** sf as at::pow(Tensor, Scalar) evaluates it
 POW_MODES = {1.0: 0, 0.5: 1, 2.0: 2, 3.0: 3}
 
@@ -230,9 +239,109 @@ def dense_march_plain(levels: Sequence[Tensor], plan: Plan,
 # ---------------------------------------------------------------------------
 
 def _level_views(levels: Sequence[Tensor], plan: Plan) -> list:
-    """The tensors the kernel reads: each level, its alpha channel alone
-    when transmittance (a view: no copy)."""
+    """The values each level gives the march: the level, its alpha channel
+    alone when transmittance (a view: no copy)."""
     return [m[..., -1:] if plan.transmittance else m for m in levels]
+
+
+def pack_levels_plain(levels: Sequence[Tensor], plan: Plan) -> list:
+    """The packed copy the kernel reads, in plain PyTorch: each level a
+    tap reads as contiguous values of the compute dtype, (d, d, d, C) or
+    (d, d, d, 6, C) (whose memory is core/aniso.py packed's (d, d, d,
+    6C)), C = 1 (alpha) when transmittance; a level no tap reads as it
+    is.  dense_march_plain gives the same bits over it as over `levels`."""
+    return [v.to(plan.compute).contiguous() if i in plan.extent else m
+            for i, (m, v) in enumerate(zip(levels,
+                                           _level_views(levels, plan)))]
+
+
+@dataclasses.dataclass(frozen=True)
+class Slot:
+    """One level as the kernel's pack sees it: `view` the values the march
+    reads (_level_views), `nd` its directions (1 or 6), `read` whether a
+    tap reads it, `pack` whether it needs the copy (read, and not already
+    of the compute dtype, contiguous and PACK_ALIGN-aligned), `offset` its
+    copy's first element in the pack buffer (-1 without one)."""
+
+    view: Tensor
+    nd: int
+    read: bool
+    pack: bool
+    offset: int
+
+
+def level_slots(levels: Sequence[Tensor], plan: Plan) -> Tuple[list, int]:
+    """The host side of the packed copy: a Slot a level, and the pack
+    buffer's length in elements of the compute dtype (each copy starting
+    at a PACK_ALIGN boundary)."""
+    align = PACK_ALIGN // torch.empty((), dtype=plan.compute).element_size()
+    slots, total = [], 0
+    for i, v in enumerate(_level_views(levels, plan)):
+        read = i in plan.extent
+        pack = read and not (v.dtype == plan.compute and v.is_contiguous()
+                             and v.data_ptr() % PACK_ALIGN == 0)
+        slots.append(Slot(v, 6 if A.is_aniso_level(v) else 1, read, pack,
+                          total if pack else -1))
+        if pack:
+            total += -(-v.numel() // align) * align
+    return slots, total
+
+
+def pack_levels_cuda(levels: Sequence[Tensor], plan: Plan) -> list:
+    """The kernel's packed copy: one dense_kernel_pack launch for every
+    level that needs one (level_slots), into one temporary buffer.  Per
+    level, the tensor the march reads: its copy (shaped as
+    pack_levels_plain's), the level's values themselves where they are
+    already packed, None where no tap reads it."""
+    global PACK_LAUNCHES, PACKED_BYTES
+    slots, total = level_slots(levels, plan)
+    todo = [s for s in slots if s.pack]
+    PACKED_BYTES = 0
+    if not todo:
+        return [s.view if s.read else None for s in slots]
+    buf = torch.empty(total, dtype=plan.compute, device=levels[0].device)
+    out = [buf[s.offset:s.offset + s.view.numel()].view(s.view.shape)
+           if s.pack else (s.view if s.read else None) for s in slots]
+    n = len(todo)
+    src = (ctypes.c_longlong * n)()
+    dst = (ctypes.c_longlong * n)()
+    strides = (ctypes.c_longlong * (5 * n))()
+    shape = (ctypes.c_int * (3 * n))()
+    nd = (ctypes.c_int * n)()
+    for k, (s, t) in enumerate((s, t) for s, t in zip(slots, out) if s.pack):
+        v = s.view
+        _build.require(v.shape[0] * v.shape[1] * v.shape[2] < 2 ** 31,
+                       f"dense march pack takes levels of fewer than 2^31 "
+                       f"voxels, got {tuple(v.shape[:3])}")
+        st = v.stride()
+        src[k], dst[k] = v.data_ptr(), t.data_ptr()
+        strides[5 * k:5 * k + 5] = [st[0], st[1], st[2],
+                                    st[3] if s.nd == 6 else 0, st[-1]]
+        shape[3 * k:3 * k + 3] = list(v.shape[:3])
+        nd[k] = s.nd
+    status = _build.library().vct_dense_pack(
+        ctypes.addressof(src), ctypes.addressof(strides),
+        ctypes.addressof(shape), ctypes.addressof(nd), ctypes.addressof(dst),
+        n, plan.channels, int(levels[0].dtype == torch.bfloat16),
+        int(plan.compute == torch.bfloat16), _build.stream())
+    _build.check(status, "vct_dense_pack")
+    PACK_LAUNCHES += 1
+    PACKED_BYTES = sum(s.view.numel() for s in todo) * buf.element_size()
+    return out
+
+
+def level_table(packed: Sequence[Tensor | None]) -> Tuple[list, list,
+                                                          list]:
+    """The march kernel's level table from pack_levels_cuda's tensors: per
+    level its pointer, the element strides of x and y (flat, two a level;
+    z's is the voxel's nd * C values) and nd; 0, (0, 0) and 1 for a level
+    no tap reads."""
+    ptr, stride, nd = [], [], []
+    for t in packed:
+        ptr.append(0 if t is None else t.data_ptr())
+        stride += [0, 0] if t is None else [t.stride(0), t.stride(1)]
+        nd.append(6 if t is not None and A.is_aniso_level(t) else 1)
+    return ptr, stride, nd
 
 
 def dense_march_cuda(levels: Sequence[Tensor], plan: Plan,
@@ -262,13 +371,9 @@ def dense_march_cuda(levels: Sequence[Tensor], plan: Plan,
         and tuple(walked.shape) == plan.shape + (plan.nb,)),
         "dense march kernel: walked is a contiguous int32 (*shape, nb) "
         "CUDA tensor")
-    views = _level_views(levels, plan)
-    ptrs = (ctypes.c_longlong * nl)()
-    strides = (ctypes.c_longlong * (5 * nl))()
-    nd = (ctypes.c_int * nl)()
-    for i, v in enumerate(views):
-        aniso = A.is_aniso_level(v)
-        _build.require(v.dim() == 4 or (aniso and v.shape[3] == 6),
+    for i, v in enumerate(_level_views(levels, plan)):
+        _build.require(v.dim() == 4 or (A.is_aniso_level(v)
+                                        and v.shape[3] == 6),
                        f"dense march level {i}: (d, d, d, C) or (d, d, d, "
                        f"6, C), got {tuple(v.shape)}")
         _build.require(v.shape[-1] == plan.channels,
@@ -279,18 +384,18 @@ def dense_march_cuda(levels: Sequence[Tensor], plan: Plan,
                                for a, e in enumerate(plan.extent[i])),
                            f"dense march taps reach {plan.extent[i]} beyond "
                            f"level {i}'s {tuple(v.shape[:3])}")
-        st = v.stride()
-        ptrs[i] = v.data_ptr()
-        strides[5 * i:5 * i + 5] = [st[0], st[1], st[2],
-                                    st[3] if aniso else 0, st[-1]]
-        nd[i] = 6 if aniso else 1
+    packed = pack_levels_cuda(levels, plan)
+    ptr, stride, nds = level_table(packed)
+    ptrs = (ctypes.c_longlong * nl)(*ptr)
+    strides = (ctypes.c_longlong * (2 * nl))(*stride)
+    nd = (ctypes.c_int * nl)(*nds)
     sf = plan.step_factor
     out = torch.empty(plan.shape + (plan.nb * plan.channels,),
                       dtype=torch.float32, device=levels[0].device)
     status = _build.library().vct_dense_march(
         ctypes.addressof(ptrs), ctypes.addressof(strides),
-        ctypes.addressof(nd), nl, int(dtype == torch.bfloat16),
-        int(plan.transmittance), int(plan.compute == torch.bfloat16),
+        ctypes.addressof(nd), nl, int(plan.transmittance),
+        int(plan.compute == torch.bfloat16),
         plan.idx.data_ptr(), plan.w.data_ptr(), plan.idx.shape[1],
         plan.step_i.data_ptr(), plan.step_f.data_ptr(), len(plan.steps),
         plan.w6.data_ptr(), plan.nb, nx, ny, nz, POW_MODES.get(sf, 4), sf,
