@@ -217,6 +217,8 @@ import types
 import numpy as np
 import torch
 
+from vct_tpu_torch.ops import _build
+
 DEVICE = "cuda"
 WIDTH, HEIGHT = 1920, 1080
 BUILD_REPS, FRAME_REPS, KERNEL_REPS, PLAIN_REPS = 3, 5, 10, 3
@@ -417,8 +419,8 @@ def inverse_path(h, base_cfg, dev):
     """Path 6: preset inverse (base_cfg) as an optimization loop through
     prepare_scene and diff/inverse.make_step_fn, counts set to 0 just
     before each run and read just after.  h carries chip_smoke's helpers
-    (say, fail, expect, maxerr, reset_counts, read_counts, elapsed_ms,
-    kernel_row, row_launches, sync) and adds the mip backward's row to the
+    (say, fail, expect, maxerr, elapsed_ms, kernel_row, row_launches,
+    sync) and adds the mip backward's row to the
     kernels line, with its launches in 6a."""
     from vct_tpu_torch import stages
     from vct_tpu_torch.core import camera as CAM
@@ -464,7 +466,7 @@ def inverse_path(h, base_cfg, dev):
         h.sync()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
-        h.reset_counts()
+        _build.reset_launches()
         for _ in range(nsteps):
             events = {}
 
@@ -482,7 +484,7 @@ def inverse_path(h, base_cfg, dev):
             losses.append(loss)
             split.append(events)
         h.sync()
-        launches = h.read_counts()
+        launches = _build.launches()
         peak = torch.cuda.max_memory_allocated()
         ms = [(e["start"].elapsed_time(e["loss"]),
                e["loss"].elapsed_time(e["backward"]),
@@ -630,10 +632,10 @@ def inverse_path(h, base_cfg, dev):
     for cpass in ("xla", "fast"):
         inv = I.InverseConfig(optimize=("radiance",), camera_pass=cpass)
         params = I.init_params(inv, fcfg, s["mats"], s["voxels"])
-        h.reset_counts()
+        _build.reset_launches()
         grads[cpass] = grad_of(fcfg, s, inv, params, t2)
         h.sync()
-        counts = h.read_counts()
+        counts = _build.launches()
         if cpass == "fast":
             h.say("launches in one fast-pass loss and gradient:",
                   json.dumps(counts))
@@ -775,16 +777,20 @@ def inverse_path(h, base_cfg, dev):
 
     bwd_ms["tap"] = route(
         "tap", make_tap,
-        lambda inp: tap.Tap.apply(kw, nl, tap.tap_cuda, inp[0], sc, inp[1],
-                                  inp[2], *inp[3]),
+        lambda inp: _build.Replay.apply(
+            tap.flat(tap.tap_cuda, nl, **kw),
+            tap.flat(tap.tap_plain, nl, **kw), (), inp[0], sc, inp[1],
+            inp[2], *inp[3]),
         lambda inp: tap.tap_plain(inp[0], sc, inp[1], inp[2], inp[3][:nl],
                                   inp[3][nl:], **kw),
         (g.shape[0], tap.NOUT))
     g, sl, ms_, ml, pg, res, tl = inputs_c["material"]
     bwd_ms["material"] = route(
         "material", lambda: ([leaf(g), leaf(pg)],) * 2,
-        lambda inp: material.Material.apply(inp[0], sl, ms_, ml, inp[1], res,
-                                            tl, material.material_cuda),
+        lambda inp: _build.Replay.apply(
+            lambda *t: material.material_cuda(*t, res, tl),
+            lambda *t: material.material_plain(*t, res, tl), (), inp[0], sl,
+            ms_, ml, inp[1]),
         lambda inp: material.material_plain(inp[0], sl, ms_, ml, inp[1], res,
                                             tl),
         (g.shape[0], material.NOUT))
@@ -797,14 +803,15 @@ def inverse_path(h, base_cfg, dev):
 
     bwd_ms["specmarch"] = route(
         "specmarch", make_spec,
-        lambda inp: specmarch.SpecMarch.apply(
-            skw, specmarch.spec_march_cuda, inp[0], inp[1], slv, swt,
-            *inp[2]),
+        lambda inp: _build.Replay.apply(
+            specmarch.flat(specmarch.spec_march_cuda, **skw),
+            specmarch.flat(specmarch.spec_march_plain, **skw),
+            specmarch.FROZEN, inp[0], inp[1], slv, swt, *inp[2]),
         lambda inp: specmarch.spec_march_plain(inp[0], inp[1], slv, swt,
                                                inp[2], **skw),
         (s4.shape[0], 4))
     # the dense march: 6b's diffuse field from its radiance pyramid, the
-    # kernel's forward and the plain version's replay (DenseMarch)
+    # kernel's forward and the plain version's replay (_build.Replay)
     dmips = inputs_b["march"]
     dplan = D.march_plan(
         dmips, D.direction_basis(fcfg.cones.field_basis),
@@ -819,7 +826,9 @@ def inverse_path(h, base_cfg, dev):
 
     bwd_ms["dense_march"] = route(
         "dense_march", make_march,
-        lambda inp: OD.DenseMarch.apply(dplan, OD.dense_march_cuda, *inp),
+        lambda inp: _build.Replay.apply(
+            lambda *lv: OD.dense_march_cuda(lv, dplan),
+            lambda *lv: OD.dense_march_plain(lv, dplan), (), *inp),
         lambda inp: OD.dense_march_plain(inp, dplan),
         dplan.shape + (dplan.nb * dplan.channels,))
 
@@ -896,21 +905,21 @@ def drive(h, dev, cfg, scene, camera, what, fast=False):
     h.sync()
     t0 = time.perf_counter()
     ds, mats, samples = R.prepare_scene(cfg, scene, device=dev)
-    h.reset_counts()
+    _build.reset_launches()
     voxels = R.build_voxel_state(cfg, samples, mats)
     tables = F.build_frame_tables(cfg, voxels, mats) if fast else None
     h.sync()
-    build_launches = h.read_counts()
+    build_launches = _build.launches()
     built = "build and frame tables" if fast else "build"
     origins, dirs = CAM.primary_rays(camera, cfg.render.width,
                                      cfg.render.height, device=dev)
     cam = torch.as_tensor(camera.position, dtype=torch.float32,
                           device=dev)
-    h.reset_counts()
+    _build.reset_launches()
     img = R.render_camera_pass(cfg, ds, voxels, mats, origins, dirs, cam,
                                frame_tables=tables)
     h.sync()
-    frame_launches = h.read_counts()
+    frame_launches = _build.launches()
     first_s = time.perf_counter() - t0
     h.say(f"{what}: launches in the {built} {json.dumps(build_launches)}, "
           f"in the frame {json.dumps(frame_launches)}; first run "
@@ -1064,11 +1073,13 @@ def dense_path(h, cfg, voxels):
         wk = torch.empty(plan.shape + (plan.nb,), dtype=torch.int32,
                          device=mips[0].device)
         wp = torch.empty_like(wk)
-        launches = OD.PACK_LAUNCHES
+        before = _build.launches()["dense_pack"]
         out_k = OD.dense_march_cuda(mips, plan, wk)
-        packs, packed_bytes = OD.PACK_LAUNCHES - launches, OD.PACKED_BYTES
+        packs = _build.launches()["dense_pack"] - before
         slots, _ = OD.level_slots(mips, plan)
         want_packs = int(any(s.pack for s in slots))
+        packed_bytes = sum(s.view.numel() for s in slots if s.pack) * \
+            torch.finfo(plan.compute).bits // 8
         same_pack = all(
             t is None or torch.equal(t, p) for t, p in zip(
                 OD.pack_levels_cuda(mips, plan),
@@ -1102,8 +1113,7 @@ def dense_path(h, cfg, voxels):
               f"{same_walk}); max_abs_err {e:.3e}, {unequal} elements not "
               f"bit-equal of {out_k.numel()}; the build's output equal "
               f"{same_built} (None: not the build's march); pack "
-              f"launches {packs} (expected {want_packs}), "
-              f"PACK_LAUNCHES {OD.PACK_LAUNCHES}, PACKED_BYTES "
+              f"launches {packs} (expected {want_packs}), packed bytes "
               f"{packed_bytes}, copy equal to pack_levels_plain's "
               f"{same_pack}; kernel {statistics.median(ms):.4f} ms (median "
               f"over {ms}, the pack's {pack_ms:.4f} ms included), {plain}; "
@@ -1206,9 +1216,9 @@ def aniso_pyramid_time(h, grid):
     once, 16 float operations a value written."""
     from vct_tpu_torch.core import aniso as A
     from vct_tpu_torch.ops import aniso as OA
-    OA.LAUNCHES = 0
+    before = _build.launches()["aniso"]
     mips = OA.build_aniso_mips(grid)
-    launches = OA.LAUNCHES
+    launches = _build.launches()["aniso"] - before
     written = sum(m.numel() for m in mips[1:])
     nbytes = 4 * (sum(m.numel() for m in mips[:-1]) + written)
     least, what = bound(nbytes, 16 * written)
@@ -1232,8 +1242,8 @@ def map_aniso_path(h, dev):
     render_rays; 7c aniso128 with field diffuse and field specular cones
     through the fast path.  Counts set to 0 just before the build and
     again before the frame, read just after each.  h carries chip_smoke's
-    helpers (say, expect, maxerr, reset_counts, read_counts, check_image,
-    sync, counters, raycast_equal, small_check)."""
+    helpers (say, expect, maxerr, check_image, sync, raycast_equal,
+    small_check)."""
     from vct_tpu_torch.config import preset
     from vct_tpu_torch.core import aniso as A
     from vct_tpu_torch.core import camera as CAM
@@ -1252,7 +1262,7 @@ def map_aniso_path(h, dev):
     from vct_tpu_torch.scene.cornell import cornell_box
 
     cpu = torch.device("cpu")
-    only_mip = tuple(k for k in h.counters if k != "mip")
+    only_mip = tuple(k for k in _build.launches() if k != "mip")
     result = {}
 
     def flips(cfg, a, b, normalization, what):
@@ -1351,9 +1361,8 @@ def map_aniso_path(h, dev):
     if build_b["aniso"] != levels:
         fail(f"7b: anisotropic pyramid launches {build_b['aniso']} in the "
              f"build, expected {levels}")
-    h.expect(build_b, (), tuple(k for k in only_mip
-                                if k not in ("dense_march", "aniso")),
-             "7b build")
+    h.expect(build_b, (), tuple(k for k in only_mip if k not in (
+        "dense_march", "dense_pack", "aniso")), "7b build")
     h.expect(frame_b, (), only_mip, "7b frame")
     rad = qb["voxels"].radiance_mips
     if not A.is_aniso_stack(rad):
@@ -1537,7 +1546,6 @@ def within(a: torch.Tensor, b: torch.Tensor, tol) -> dict:
 def rank_device(dev_type: str) -> torch.device:
     if dev_type != "cuda":
         return torch.device(dev_type)
-    from vct_tpu_torch.ops import _build
     _build.library()           # loads the library the parent built
     return torch.device("cuda", torch.cuda.current_device())
 
@@ -1552,7 +1560,6 @@ def rank_8b(dev_type: str, dim: int, width: int, height: int) -> dict:
     atrium at dim^3 (samples over 'model', the light volume
     brick-sharded), and on rank 0 the unsharded build beside it."""
     import torch.distributed as dist
-    from vct_tpu_torch.ops import dense, mip
     from vct_tpu_torch.parallel import brick, comm
     from vct_tpu_torch.parallel import mesh as ML
     from vct_tpu_torch.render import renderer as R
@@ -1572,14 +1579,16 @@ def rank_8b(dev_type: str, dim: int, width: int, height: int) -> dict:
         2)
     rank_sync(dev)
     dist.barrier()
-    comm.STAGED_BYTES, mip.LAUNCHES, dense.LAUNCHES = 0, 0, 0
+    comm.STAGED_BYTES = 0
+    _build.reset_launches()
     t0 = time.perf_counter()
     state = R.build_voxel_state(cfg, samples, mats, mesh=mesh)
     rank_sync(dev)
+    n = _build.launches()
     out = dict(rank=rank, backend=str(dist.get_backend()),
                build_ms=(time.perf_counter() - t0) * 1e3,
-               staged_bytes=comm.STAGED_BYTES, mip=mip.LAUNCHES,
-               dense=dense.LAUNCHES,
+               staged_bytes=comm.STAGED_BYTES, mip=n["mip"],
+               dense=n["dense_march"],
                samples=samples.positions.shape[0],
                halos=halos, sharded=sharded)
     if rank == 0:
@@ -1602,7 +1611,6 @@ def rank_8c(dev_type: str, dim: int, width: int, height: int) -> dict:
     import torch.distributed as dist
     from vct_tpu_torch.core import camera as CAM
     from vct_tpu_torch.core import grid as G
-    from vct_tpu_torch.ops import dense, mip
     from vct_tpu_torch.parallel import comm
     from vct_tpu_torch.parallel import mesh as ML
     from vct_tpu_torch.parallel import tile_dp
@@ -1620,12 +1628,14 @@ def rank_8c(dev_type: str, dim: int, width: int, height: int) -> dict:
     cam = G.constant(bench.position, dev)
     rank_sync(dev)
     dist.barrier()
-    comm.STAGED_BYTES, mip.LAUNCHES, dense.LAUNCHES = 0, 0, 0
+    comm.STAGED_BYTES = 0
+    _build.reset_launches()
     t0 = time.perf_counter()
     state = tile_dp.sharded_build_fn(cfg, mesh)(samples, mats)
     rank_sync(dev)
     build_ms = (time.perf_counter() - t0) * 1e3
-    staged, mips, marches = comm.STAGED_BYTES, mip.LAUNCHES, dense.LAUNCHES
+    n = _build.launches()
+    staged, mips, marches = comm.STAGED_BYTES, n["mip"], n["dense_march"]
     levels = len(state.radiance_mips) - 1
     camera = tile_dp.shardmap_camera_fn(cfg, ds, mesh, chunk_size=CHUNK)
     t0 = time.perf_counter()
@@ -1649,11 +1659,12 @@ def rank_8c(dev_type: str, dim: int, width: int, height: int) -> dict:
             torch.isfinite(img).all()), mean=float(img.mean()))
     del img
     rank_sync(dev)
-    mip.LAUNCHES, mip.BWD_LAUNCHES = 0, 0
+    _build.reset_launches()
     out["dryrun"] = tile_dp.dryrun_multichip(8, steps=DRYRUN_STEPS,
                                              device=dev)
     rank_sync(dev)
-    out["dryrun_mip"] = (mip.LAUNCHES, mip.BWD_LAUNCHES)
+    n = _build.launches()
+    out["dryrun_mip"] = (n["mip"], n["mip_bwd"])
     out["seconds"] = time.perf_counter() - t_path
     return out
 
@@ -1680,7 +1691,7 @@ def multihost_path(h, dev, dim_a=512, dim_c=DIM_8C, size=(WIDTH, HEIGHT)):
 
     t8 = time.perf_counter()
     width, height = size
-    only_mip = tuple(k for k in h.counters if k != "mip")
+    only_mip = tuple(k for k in _build.launches() if k != "mip")
     result = {}
 
     # ---- 8a: the preset at full width on one rank -----------------------
@@ -1701,7 +1712,8 @@ def multihost_path(h, dev, dim_a=512, dim_c=DIM_8C, size=(WIDTH, HEIGHT)):
     if build_a["dense_march"] != 1:
         fail(f"8a: dense-march launches {build_a['dense_march']} in the "
              f"build, expected 1 (the light volume)")
-    h.expect(build_a, (), tuple(k for k in only_mip if k != "dense_march"),
+    h.expect(build_a, (), tuple(k for k in only_mip
+                                if k not in ("dense_march", "dense_pack")),
              "8a build")
     h.expect(frame_a, (), only_mip, "8a frame")
     mip_check(h, ((qa["voxels"].unlit_mips, "max"),
@@ -1801,15 +1813,8 @@ def multihost_path(h, dev, dim_a=512, dim_c=DIM_8C, size=(WIDTH, HEIGHT)):
 CLI_WRAPPER = """
 import json, runpy
 runpy.run_module("vct_tpu_torch", run_name="__main__", alter_sys=True)
-from vct_tpu_torch.ops import (binrast, dense, material, mip, prepass,
-                               raycast, specmarch, tap)
-print("launches " + json.dumps({
-    "mip": mip.LAUNCHES, "raycast": raycast.LAUNCHES,
-    "prepass": prepass.LAUNCHES, "tap": tap.LAUNCHES,
-    "material": material.LAUNCHES, "raycast_stream": raycast.STREAM_LAUNCHES,
-    "binrast": binrast.LAUNCHES, "binning": binrast.BIN_LAUNCHES,
-    "specmarch": specmarch.LAUNCHES,
-    "mip_bwd": mip.BWD_LAUNCHES, "dense_march": dense.LAUNCHES}))
+from vct_tpu_torch.ops import _build
+print("launches " + json.dumps(_build.launches()))
 """
 
 
@@ -1909,11 +1914,11 @@ def asset_path(h, dev, cfg, subdiv=ASSET_SUBDIV,
     phases = {}
 
     def on_phase(name):
-        phases[name] = h.read_counts()
-        h.reset_counts()
+        phases[name] = _build.launches()
+        _build.reset_launches()
 
     with tempfile.TemporaryDirectory() as tmp:
-        h.reset_counts()
+        _build.reset_launches()
         res, st = AP.run(tmp, subdiv, cfg, device=dev, reps=ASSET_REPS,
                          on_phase=on_phase)
         obj_path = str(pathlib.Path(tmp) / "atrium_hi.obj")
@@ -2233,10 +2238,10 @@ def operating_point_path(h, dev, dim=256, size=(WIDTH, HEIGHT), subdiv=4,
     from vct_tpu_torch.render import fast as F
 
     t11 = time.perf_counter()
-    h.reset_counts()
+    _build.reset_launches()
     res_a = bench.run(dim=dim, width=size[0], height=size[1],
                       subdiv=subdiv, reps=reps, device=dev)
-    launches_a = h.read_counts()
+    launches_a = _build.launches()
     h.say(f"11a on {h.card}: vct_tpu_torch.bench " + json.dumps(res_a))
     h.say("11a launches: " + json.dumps(launches_a))
     missing = [k for k in BENCH_KEYS if k not in res_a]
@@ -2266,9 +2271,9 @@ def operating_point_path(h, dev, dim=256, size=(WIDTH, HEIGHT), subdiv=4,
           f"diffuse marches")
     t11b = time.perf_counter()
 
-    h.reset_counts()
+    _build.reset_launches()
     rec, st = FI.run(fid_cfg, size=fid_size, device=dev, **FI.GATE_SETTINGS)
-    launches_b = h.read_counts()
+    launches_b = _build.launches()
     h.say(f"11b on {h.card}: vct_tpu_torch.fidelity " + json.dumps(rec))
     h.say("11b launches: " + json.dumps(launches_b))
     broken = FI.gate_failures(rec)
@@ -2344,8 +2349,8 @@ def scaling_path(h, dev, settings=None, counts=None):
     steps = shading.diffuse_schedule(cfg).num_steps
     nb = D.direction_basis(cfg.cones.field_basis).shape[0]
     levels = cfg.grid.num_levels - 1
-    h.reset_counts()
-    launches = {k: 0 for k in h.counters}
+    _build.reset_launches()
+    launches = _build.launches()
     records = {}
     for mode in BS.MODES:
         t0 = time.perf_counter()
@@ -2369,7 +2374,7 @@ def scaling_path(h, dev, settings=None, counts=None):
                      f"{rec['mip_launches']}, expected {2 * levels} (2 x "
                      f"{levels} levels)")
             others = {k: v for k, v in rec["launches"].items()
-                      if k not in ("mip", "dense_march") and v}
+                      if k not in ("mip", "dense_march", "dense_pack") and v}
             if others:
                 fail(f"12 {mode} n={n}: the ranks launched {others}")
             # the dense march: 3 a rank's build, one a timed march call
@@ -2399,7 +2404,7 @@ def scaling_path(h, dev, settings=None, counts=None):
     forward, args = E.entry(device=dev)
     img = forward(*args)
     h.sync()
-    entry_launches = h.read_counts()
+    entry_launches = _build.launches()
     forward_c, args_c = E.entry(device="cpu")
     ref = forward_c(*args_c)
     err = (img.cpu() - ref).abs().flatten()
@@ -2413,7 +2418,7 @@ def scaling_path(h, dev, settings=None, counts=None):
     if entry_launches["mip"] != 2 * entry_levels or entry_launches[
             "dense_march"] != 1 or any(
             v for k, v in entry_launches.items()
-            if k not in ("mip", "dense_march")):
+            if k not in ("mip", "dense_march", "dense_pack")):
         fail(f"12 entry(): launches {entry_launches}, expected mip "
              f"{2 * entry_levels}, dense_march 1 (the light volume) and no "
              f"other kernel")
@@ -2438,7 +2443,7 @@ def main() -> int:
     from vct_tpu_torch.core import camera as CAM
     from vct_tpu_torch.core import cones as C
     from vct_tpu_torch.core import grid as G
-    from vct_tpu_torch.ops import (_build, binrast, material, mip, prepass,
+    from vct_tpu_torch.ops import (binrast, material, mip, prepass,
                                    raycast, specmarch, tap)
     from vct_tpu_torch.profile_stages import count_syncs, profile, stage_ms
     from vct_tpu_torch.render import fast as F
@@ -2449,17 +2454,7 @@ def main() -> int:
     from vct_tpu_torch.scene.atrium import atrium
     from vct_tpu_torch.scene.cornell import cornell_box
     from vct_tpu_torch.scene.mesh import subdivide_scene
-    from vct_tpu_torch.bench_scaling import COUNTERS
     from vct_tpu_torch.utils.profiling import card_line
-
-    counters = COUNTERS        # every kernel wrapper's launch counter
-
-    def reset_counts():
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
-
-    def read_counts():
-        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
 
     # ---- (a) the card and the build ------------------------------------
     card = card_line()
@@ -2509,7 +2504,7 @@ def main() -> int:
         """The main path once, counts set to 0 just before, read after.
         fast=False: the per-cone oracle's path, which builds no frame
         tables (render_camera_pass takes render_rays)."""
-        reset_counts()
+        _build.reset_launches()
         t0 = time.perf_counter()
         ds, mats, samples = R.prepare_scene(run_cfg, scene, samples=samples,
                                             device=dev)
@@ -2523,7 +2518,7 @@ def main() -> int:
                                    cam, frame_tables=tables)
         sync()
         first_s = time.perf_counter() - t0
-        return (read_counts(), first_s,
+        return (_build.launches(), first_s,
                 dict(ds=ds, mats=mats, samples=samples, voxels=voxels,
                      tables=tables, origins=origins, dirs=dirs, cam=cam,
                      img=img))
@@ -3635,23 +3630,21 @@ def main() -> int:
     # ---- (c6) inverse rendering: preset inverse, optimized --------------
     t6 = time.perf_counter()
     inverse_path(types.SimpleNamespace(
-        say=say, expect=expect, maxerr=maxerr, reset_counts=reset_counts,
-        read_counts=read_counts, elapsed_ms=elapsed_ms, kernel_row=kernel_row,
+        say=say, expect=expect, maxerr=maxerr, elapsed_ms=elapsed_ms,
+        kernel_row=kernel_row,
         row_launches=row_launches, sync=sync), preset("inverse"), dev)
     say(f"path 6 took {time.perf_counter() - t6:.1f} s")
 
     # ---- (c7) the shadow map and the anisotropic mips -------------------
     r7 = map_aniso_path(types.SimpleNamespace(
-        say=say, expect=expect, maxerr=maxerr, reset_counts=reset_counts,
-        read_counts=read_counts, check_image=check_image, sync=sync,
-        counters=counters, raycast_equal=raycast_equal,
+        say=say, expect=expect, maxerr=maxerr, check_image=check_image,
+        sync=sync, raycast_equal=raycast_equal,
         small_check=small_check), dev)
 
     # ---- (c8) parallel/: preset multihost512 --------------------------
     hp8 = types.SimpleNamespace(
-        say=say, expect=expect, maxerr=maxerr, reset_counts=reset_counts,
-        read_counts=read_counts, check_image=check_image, sync=sync,
-        counters=counters, card=card)
+        say=say, expect=expect, maxerr=maxerr, check_image=check_image,
+        sync=sync, card=card)
     r8 = multihost_path(hp8, dev)
 
     # ---- (c9) the CLI -------------------------------------------------

@@ -18,6 +18,7 @@ from torch.profiler import ProfilerActivity, profile
 from vct_tpu_torch import stages
 from vct_tpu_torch.config import preset
 from vct_tpu_torch.core import aniso as A
+from vct_tpu_torch.ops import _build
 from vct_tpu_torch.ops import aniso as OA
 from vct_tpu_torch.render import renderer as R
 
@@ -61,8 +62,10 @@ def test_function_backward_replays_the_plain_version():
     g = _grid(8, 4, 3)
     a = g.clone().requires_grad_()
     b = g.clone().requires_grad_()
-    one_a = OA.AnisoDownsample.apply(a, OA.downsample_aniso_plain)
-    two_a = OA.AnisoDownsample.apply(one_a, OA.downsample_aniso_plain)
+    one_a = _build.Replay.apply(OA.downsample_aniso_plain,
+                                OA.downsample_aniso_plain, (), a)
+    two_a = _build.Replay.apply(OA.downsample_aniso_plain,
+                                OA.downsample_aniso_plain, (), one_a)
     one_b = OA.downsample_aniso_plain(b)
     two_b = OA.downsample_aniso_plain(one_b)
     assert torch.equal(two_a, two_b)
@@ -121,9 +124,9 @@ def test_isotropic_route_opens_no_aniso_span():
                           (16, 3, None)])
 def test_kernel_equals_plain_bit_for_bit(card, dim, channels, num_levels):
     g = _grid(dim, channels, 7 + dim, device=card)
-    before = OA.LAUNCHES
+    before = _build.launches()["aniso"]
     got = OA.build_aniso_mips(g, num_levels)
-    assert OA.LAUNCHES - before == len(got) - 1
+    assert _build.launches()["aniso"] - before == len(got) - 1
     want = A.build_aniso_mips(g, num_levels)
     assert len(got) == len(want)
     assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -54,6 +54,7 @@ from vct_tpu.scene.mesh import subdivide_scene as jsubdivide
 from vct_tpu_torch import interop
 from vct_tpu_torch.config import preset
 from vct_tpu_torch.core import camera as CAM
+from vct_tpu_torch.ops import _build
 from vct_tpu_torch.ops import binrast as BR
 from vct_tpu_torch.ops import raycast as RP
 from vct_tpu_torch.render import fast as F
@@ -371,7 +372,7 @@ def test_dispatch_takes_plain_on_cpu(scenes):
     output for output, and launch nothing."""
     _, pds, mats = scenes[1]
     o, dflat, dimg = _rays(CAMERAS[2])
-    launches = BR.BIN_LAUNCHES
+    launches = _build.launches()
     isect, attrs = BR.pack_rows(pds, t(o), *map(t, mats))
     isect_p, attrs_p = BR.pack_rows_plain(pds, t(o), *map(t, mats))
     assert torch.equal(isect, isect_p) and torch.equal(attrs, attrs_p)
@@ -379,7 +380,7 @@ def test_dispatch_takes_plain_on_cpu(scenes):
     want = BR.bin_triangles_plain(pds, t(o), t(dflat), t(dimg), isect)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
-    assert BR.BIN_LAUNCHES == launches
+    assert _build.launches() == launches
 
 
 def test_dispatch_refuses_mixed_devices(scenes):
@@ -445,10 +446,10 @@ def test_frame_matches_jax():
                                   device=CPU)
     mats = interop.material_table(jm, device=CPU)
     po, pd = CAM.primary_rays(CAM.Camera(**cam), W, H, device=CPU)
-    launches = BR.LAUNCHES
+    launches = _build.launches()
     out = F.render_frame(cfg, ds, tables, mats, po, pd,
                          torch.tensor(cam["position"])).numpy()
-    assert BR.LAUNCHES == launches          # CPU tensors: the plain walk
+    assert _build.launches() == launches    # CPU tensors: the plain walk
     assert out.shape == ref.shape and np.isfinite(out).all()
     err = np.abs(out - ref)
     assert err.mean() < 1e-3, err.mean()

@@ -17,7 +17,7 @@ Bounds:
     values of order 1, tests/test_torch_host.py's dense bound, in float32 and
     bfloat16, transmittance and field mode, isotropic and anisotropic
     stacks, step factors 0.5, 1 and 2;
-  * DenseMarch with the plain version injected: gradients within 1e-6 of
+  * _build.Replay with the plain version injected: gradients within 1e-6 of
     the largest gradient of autograd through the plain version, and no
     gradient edge to a level no tap reads;
   * the packed copy the kernel reads (pack_levels_plain): the plain march
@@ -45,6 +45,7 @@ from vct_tpu_torch.core import aniso as A
 from vct_tpu_torch.core import dense as D
 from vct_tpu_torch.core import grid as G
 from vct_tpu_torch.core import march as M
+from vct_tpu_torch.ops import _build
 from vct_tpu_torch.ops import dense as OD
 from vct_tpu_torch.render import shading as S
 
@@ -165,11 +166,11 @@ def test_plain_matches_jax(compute, transmittance, stack, sf):
         m, basis, sched, WS,
         compute_dtype=jnp.bfloat16 if compute else None, **kw))(jm))
     b = np.moveaxis(b, 0, -2).reshape(df, df, df, -1)
-    before = OD.LAUNCHES
+    before = _build.launches()
     a = D.directional_march_multi(
         pm, basis, sched, WS,
         compute_dtype=torch.bfloat16 if compute else None, **kw)
-    assert OD.LAUNCHES == before          # CPU tensors never launch
+    assert _build.launches() == before    # CPU tensors never launch
     assert a.dtype == torch.float32 and a.shape == b.shape
     np.testing.assert_allclose(a.numpy(), b, atol=1e-6, rtol=0)
     assert float(a.abs().max()) > 0
@@ -218,8 +219,8 @@ def test_dispatch_refuses_mixed_devices_and_cpu_kernel():
 @pytest.mark.parametrize("stack", ["iso", "aniso"])
 @pytest.mark.parametrize("transmittance", [False, True])
 def test_function_gradient_matches_plain(stack, transmittance):
-    """DenseMarch with the plain forward injected (as the mip tests drive
-    Downsample2x): its backward replays the plain version."""
+    """_build.Replay with the plain forward injected (as the mip tests
+    drive Downsample2x): its backward replays the plain version."""
     _, pm = pyramid(stack == "aniso", seed=5)
     sched = M.march_schedule(0.3, WS / DIM, 75.0, step_factor=2.0)
     plan = _plan(pm, D.direction_basis(6)[:3], sched, 8, transmittance,
@@ -234,8 +235,9 @@ def test_function_gradient_matches_plain(stack, transmittance):
                                         allow_unused=True)
 
     rng = np.random.default_rng(7)
-    got_out, got = grads(lambda lv: OD.DenseMarch.apply(
-        plan, OD.dense_march_plain, *lv))
+    got_out, got = grads(lambda lv: _build.Replay.apply(
+        lambda *m: OD.dense_march_plain(m, plan),
+        lambda *m: OD.dense_march_plain(m, plan), (), *lv))
     rng = np.random.default_rng(7)
     ref_out, ref = grads(lambda lv: OD.dense_march_plain(lv, plan))
     assert torch.equal(got_out, ref_out)
@@ -250,10 +252,9 @@ def test_function_gradient_matches_plain(stack, transmittance):
 
 def test_kernel_route_leaves_untouched_levels_out_of_the_graph(
         monkeypatch):
-    """Through DenseMarch (the kernel's route, the plain forward injected)
-    the levels no tap reads get no gradient edge, as through the plain
-    version: their producers' backward (the mip's) must not run."""
-    from vct_tpu_torch.ops import _build
+    """Through _build.Replay (the kernel's route, the plain forward
+    injected) the levels no tap reads get no gradient edge, as through the
+    plain version: their producers' backward (the mip's) must not run."""
     rng = np.random.default_rng(13)
     g = rng.random((DIM, DIM, DIM, 4), np.float32)
     # alphas below 1: sqrt's derivative at 1 - a = 0 is infinite
@@ -472,6 +473,7 @@ class _FakePack:
         self.by_ptr = {v.data_ptr(): v for v in views}
         self.compute = compute
         self.calls = []
+        self.written = 0        # bytes written to the destinations
 
     def vct_dense_pack(self, src, stride, shape, nd, dst, n, nc, level_bf16,
                        compute_bf16, stream):
@@ -494,6 +496,7 @@ class _FakePack:
             assert nd[k] == (6 if aniso else 1)
             c = v.to(self.compute).contiguous()
             ctypes.memmove(dst[k], c.data_ptr(), c.numel() * c.element_size())
+            self.written += c.numel() * c.element_size()
         self.calls.append(n)
         return 0
 
@@ -507,22 +510,25 @@ def test_pack_levels_cuda_host_side(stack, transmittance, compute,
     library stood in for: one launch for the levels that need a copy (none
     where every level is packed already), each copy equal to
     pack_levels_plain's, the counters, and the march's level table."""
-    from vct_tpu_torch.ops import _build
     _, pm = pyramid(stack == "aniso", seed=25)
     plan = _slot_plan(pm, transmittance, compute)
     fake = _FakePack(OD._level_views(pm, plan), compute)
     monkeypatch.setattr(_build, "library", lambda: fake)
     monkeypatch.setattr(_build, "stream", lambda: 0)
-    monkeypatch.setattr(OD, "PACK_LAUNCHES", 0)
     slots, _ = OD.level_slots(pm, plan)
     copied = [s.pack for s in slots]
+    before = _build.launches()
     packed = OD.pack_levels_cuda(pm, plan)
     plain = OD.pack_levels_plain(pm, plan)
-    assert OD.PACK_LAUNCHES == len(fake.calls) == int(any(copied))
+    after = _build.launches()
+    assert after["dense_pack"] - before["dense_pack"] == len(fake.calls) \
+        == int(any(copied))
+    assert {k: v for k, v in after.items() if k != "dense_pack"} == {
+        k: v for k, v in before.items() if k != "dense_pack"}
     assert fake.calls == ([sum(copied)] if any(copied) else [])
     esize = torch.empty((), dtype=compute).element_size()
-    assert OD.PACKED_BYTES == esize * sum(s.view.numel() for s in slots
-                                          if s.pack)
+    assert fake.written == esize * sum(s.view.numel() for s in slots
+                                       if s.pack)
     for i, (t, p, s) in enumerate(zip(packed, plain, slots)):
         if not s.read:
             assert t is None

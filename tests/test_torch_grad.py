@@ -39,6 +39,7 @@ from vct_tpu_torch import interop
 from vct_tpu_torch.config import preset
 from vct_tpu_torch.core import camera as CAM
 from vct_tpu_torch.diff import inverse as I
+from vct_tpu_torch.ops import _build
 from vct_tpu_torch.ops import binrast as BR
 from vct_tpu_torch.ops import material as MT
 from vct_tpu_torch.ops import mip
@@ -315,8 +316,11 @@ def test_material_function_wiring(jpages):
             fn(gt, pt), (gt, pt), ct)]
 
     want = grads(lambda gt, pt: MT.material_plain(gt, *ints, pt, TMT.RES))
-    got = grads(lambda gt, pt: MT.Material.apply(
-        gt, *ints, pt, TMT.RES, TMT.TILE, MT.material_plain))
+    def plain(*t):
+        return MT.material_plain(*t, TMT.RES, TMT.TILE)
+
+    got = grads(lambda gt, pt: _build.Replay.apply(plain, plain, (), gt,
+                                                   *ints, pt))
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
         assert np.abs(a).max() > 0
@@ -407,8 +411,9 @@ def test_tap_function_wiring(tap_case):
         return torch.autograd.grad(out, leaves, ct, allow_unused=True)
 
     want = grads(lambda *a: TP.tap_plain(*a, **kw))
-    got = grads(lambda g_, s_, b_, c_, lm, fm: TP.Tap.apply(
-        kw, len(lm), TP.tap_plain, g_, s_, b_, c_, *lm, *fm))
+    got = grads(lambda g_, s_, b_, c_, lm, fm: _build.Replay.apply(
+        TP.flat(TP.tap_plain, len(lm), **kw),
+        TP.flat(TP.tap_plain, len(lm), **kw), (), g_, s_, b_, c_, *lm, *fm))
     for a, b in zip(got, want):
         assert (a is None) == (b is None)
         if b is not None:

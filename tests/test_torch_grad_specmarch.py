@@ -13,7 +13,7 @@ import test_torch_specmarch as TSM
 from test_torch_grad import (BF16_REL, REL, _packed_leaf, _same, _vjp_torch,
                              cotangent, f32, leaf)
 from vct_tpu.ops import specmarch_pallas as JSP
-from vct_tpu_torch.ops import mip
+from vct_tpu_torch.ops import _build, mip
 from vct_tpu_torch.ops import specmarch as SM
 
 torch.set_num_threads(1)    # all torch math on the main thread: PERF.md §7 item 4
@@ -103,8 +103,9 @@ def test_specmarch_function_wiring(spec_case):
                                                        ct)]
 
     want = grads(lambda s, r, p: SM.spec_march_plain(s, r, lv, wt, p, **kw))
-    got = grads(lambda s, r, p: SM.SpecMarch.apply(
-        kw, SM.spec_march_plain, s, r, lv, wt, *p))
+    plain = SM.flat(SM.spec_march_plain, **kw)
+    got = grads(lambda s, r, p: _build.Replay.apply(plain, plain, SM.FROZEN,
+                                                    s, r, lv, wt, *p))
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
         assert np.abs(a).max() > 0

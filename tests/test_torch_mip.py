@@ -11,7 +11,7 @@ import torch
 
 from vct_tpu.core import grid as jgrid
 from vct_tpu.ops import mip_pallas as jmip
-from vct_tpu_torch.ops import mip
+from vct_tpu_torch.ops import _build, mip
 
 torch.set_num_threads(1)    # all torch math on the main thread: PERF.md §7 item 4
 
@@ -27,10 +27,10 @@ def _grid(d, c, seed=0):
 @pytest.mark.parametrize("d,c", [(32, 4), (16, 1), (8, 13), (16, 208)])
 def test_build_mips_matches_grid(d, c, mode):
     g = _grid(d, c)
-    before = mip.LAUNCHES
+    before = _build.launches()
     a = mip.build_mips(torch.as_tensor(g), alpha_mode=mode)
     b = jgrid.build_mips(jnp.asarray(g), alpha_mode=mode)
-    assert mip.LAUNCHES == before        # CPU tensors never launch
+    assert _build.launches() == before   # CPU tensors never launch
     assert len(a) == len(b) == d.bit_length()
     for x, y in zip(a, b):
         np.testing.assert_allclose(x.numpy(), np.asarray(y), atol=1e-6,

@@ -89,8 +89,7 @@ from vct_tpu_torch.config import VCTConfig, preset
 from vct_tpu_torch.core import camera as CAM
 from vct_tpu_torch.core import dense as D
 from vct_tpu_torch.core import grid as G
-from vct_tpu_torch.ops import (aniso, binrast, dense, material, mip, prepass,
-                               raycast, specmarch, tap)
+from vct_tpu_torch.ops import _build
 from vct_tpu_torch.parallel import brick, comm
 from vct_tpu_torch.parallel import mesh as ML
 from vct_tpu_torch.parallel import tile_dp
@@ -113,18 +112,6 @@ NOTE = ("rays and cone_samples are bench_scaling.py's work counts; "
         "form, and collective_calls counts its torch.distributed calls. "
         "With ranks_share_one_card, the ranks are one card's, over gloo.")
 
-
-# every kernel wrapper's launch counter: name -> (module, attribute)
-COUNTERS = {"mip": (mip, "LAUNCHES"), "mip_bwd": (mip, "BWD_LAUNCHES"),
-            "aniso": (aniso, "LAUNCHES"),
-            "raycast": (raycast, "LAUNCHES"),
-            "raycast_stream": (raycast, "STREAM_LAUNCHES"),
-            "prepass": (prepass, "LAUNCHES"),
-            "material": (material, "LAUNCHES"), "tap": (tap, "LAUNCHES"),
-            "binrast": (binrast, "LAUNCHES"),
-            "binning": (binrast, "BIN_LAUNCHES"),
-            "specmarch": (specmarch, "LAUNCHES"),
-            "dense_march": (dense, "LAUNCHES")}
 
 
 def log(*a):
@@ -239,8 +226,7 @@ def sweep_rank(n: int, mode: str, settings: Settings, dev_type: str,
     cfg0, ds, mats, cam = st["cfg"], st["ds"], st["mats"], st["cam"]
     cfg = with_mesh(cfg0, n, 1)
     comm.STAGED_BYTES = 0
-    for mod, attr in COUNTERS.values():
-        setattr(mod, attr, 0)
+    _build.reset_launches()
     voxels = tile_dp.sharded_build_fn(cfg, cam_mesh)(st["samples"], mats)
     _sync(dev)
     out = dict(rank=rank, levels=len(voxels.radiance_mips) - 1)
@@ -311,8 +297,7 @@ def sweep_rank(n: int, mode: str, settings: Settings, dev_type: str,
     # every kernel's launches since the build began (on the card the
     # build's mip and dense-march launches and the timed marches' dense
     # ones: the camera pass launches none)
-    out["launches"] = {k: getattr(mod, attr)
-                       for k, (mod, attr) in COUNTERS.items()}
+    out["launches"] = _build.launches()
     return out
 
 
@@ -405,7 +390,7 @@ def run(counts: Sequence[int] = COUNTS, mode: str = "strong",
                    staged_bytes=[r["staged_bytes"] for r in ranks],
                    mip_launches=[r["launches"]["mip"] for r in ranks],
                    launches={k: sum(r["launches"][k] for r in ranks)
-                             for k in COUNTERS},
+                             for k in ranks[0]["launches"]},
                    levels=r0["levels"], card=line,
                    ranks_share_one_card=shared,
                    seconds=time.perf_counter() - t0)

@@ -8,9 +8,9 @@ bit; CPU tensors run the plain PyTorch version (core/aniso.py
 downsample_aniso_from_iso, downsample_aniso).  `build_aniso_mips` is the
 whole pyramid by that rule.
 
-On CUDA tensors the kernel runs inside `AnisoDownsample`, an autograd
-Function whose backward replays the plain version under autograd
-(`_build.replay_grads`), so a level that needs a gradient keeps it.
+On CUDA tensors the kernel runs inside `_build.Replay`, the autograd
+Function whose backward replays the plain version under autograd, so a
+level that needs a gradient keeps it.
 """
 
 from __future__ import annotations
@@ -25,8 +25,6 @@ from vct_tpu_torch.ops import _build
 
 Tensor = torch.Tensor
 
-LAUNCHES = 0       # kernel launches since the last reset (chip_smoke reads it)
-
 
 def downsample_aniso_plain(level: Tensor) -> Tensor:
     """Level l -> level l+1 in plain PyTorch: from the isotropic level 0
@@ -37,7 +35,6 @@ def downsample_aniso_plain(level: Tensor) -> Tensor:
 
 
 def downsample_aniso_cuda(level: Tensor) -> Tensor:
-    global LAUNCHES
     aniso = A.is_aniso_level(level)
     _build.require(level.is_cuda and level.dtype == torch.float32
                    and level.is_contiguous()
@@ -47,41 +44,21 @@ def downsample_aniso_cuda(level: Tensor) -> Tensor:
     d, c = level.shape[0], level.shape[-1]
     _build.require(level.shape[:3] == (d, d, d) and d > 1
                    and d & (d - 1) == 0,
-                   f"anisotropic pyramid kernel takes a power-of-two cube "
-                   f"wider than 1, got {tuple(level.shape)}")
+                   "anisotropic pyramid kernel takes a power-of-two cube "
+                   "wider than 1, got {}", tuple(level.shape))
     h = d // 2
     out = torch.empty((h, h, h, 6, c), dtype=level.dtype,
                       device=level.device)
     vec4 = c % 4 == 0 and level.data_ptr() % 16 == 0
-    status = _build.library().vct_aniso_downsample(
-        level.data_ptr(), out.data_ptr(), h, c, 6 if aniso else 1,
-        int(vec4), _build.stream())
-    _build.check(status, "vct_aniso_downsample")
-    LAUNCHES += 1
+    _build.launch("vct_aniso_downsample", level.data_ptr(), out.data_ptr(),
+                  h, c, 6 if aniso else 1, int(vec4))
     return out
-
-
-class AnisoDownsample(torch.autograd.Function):
-    """downsample_aniso by `fwd` (the kernel on the card; the tests inject
-    the plain version on the CPU), differentiated by replaying the plain
-    version."""
-
-    @staticmethod
-    def forward(ctx, level, fwd):
-        ctx.save_for_backward(level)
-        return fwd(level)
-
-    @staticmethod
-    def backward(ctx, gout):
-        (level,) = ctx.saved_tensors
-        (grad,) = _build.replay_grads(downsample_aniso_plain, (level,),
-                                      (True,), gout)
-        return grad, None
 
 
 def downsample_aniso(level: Tensor) -> Tensor:
     if _build.uses_kernel(level):
-        return AnisoDownsample.apply(level, downsample_aniso_cuda)
+        return _build.Replay.apply(downsample_aniso_cuda,
+                                   downsample_aniso_plain, (), level)
     return downsample_aniso_plain(level)
 
 

@@ -69,8 +69,6 @@ SENTINEL = 0x7FFFFFFF  # packed word of an unused slot: sorts last
 MAX_IDS = 1 << 24    # triangle ids ride in a float32 column: exact below
 PLAIN_TESTS = 1 << 25  # hit tests per batch of the plain walk (memory)
 
-LAUNCHES = 0
-BIN_LAUNCHES = 0     # kernels of csrc/binning.cu launched (pack 1, bin 8)
 BIN_TRI_BLOCK = 256  # triangles a block of its triangle passes (kTriBlock)
 FRAME_HEAD = 12      # f3 ex3 ey3 su sv pad ahead of its envelopes (kHead)
 
@@ -93,6 +91,27 @@ def _check_ids(t: int) -> None:
         raise ValueError(f"{t} triangles: the binned raycast carries "
                          f"triangle ids as float32, exact for at most "
                          f"{MAX_IDS}")
+
+
+def _strips(dflat: Tensor, dimg: Tensor, t: int
+            ) -> Tuple[int, int, int, int, int]:
+    """(hp, wp, srows, scols, ns) of a frame's strips; raises ValueError
+    unless the padded image (hp, wp, 3) cuts into whole 16x64 strips, at
+    most KC strip columns, the t triangles' ids ride in float32, and dflat
+    holds one ray a strip pixel."""
+    hp, wp = dimg.shape[:2]
+    if hp % 16 or wp % 64:
+        raise ValueError(f"padded image {hp}x{wp}: need hp % 16 == 0 and "
+                         "wp % 64 == 0")
+    srows, scols = hp // 16, wp // 64
+    if scols > KC:
+        raise ValueError(f"{scols} strip columns: raise KC for frames wider "
+                         f"than {64 * KC} px")
+    ns = srows * scols
+    _check_ids(t)
+    if dflat.shape[0] != ns * STRIPE:
+        raise ValueError(f"{dflat.shape[0]} rays for {ns} strips")
+    return hp, wp, srows, scols, ns
 
 
 def pack_rows_plain(ds: DeviceScene, origin: Tensor,
@@ -167,18 +186,7 @@ def bin_triangles_plain(ds: DeviceScene, origin: Tensor, dflat: Tensor,
     Budgets overflow conservatively: medium overflow joins the column
     tier, and column overflow beyond the column budget is dropped from
     binning (dropped(n_col_total, T) counts them)."""
-    hp, wp = dimg.shape[:2]
-    if hp % 16 or wp % 64:
-        raise ValueError(f"padded image {hp}x{wp}: need hp % 16 == 0 and "
-                         "wp % 64 == 0")
-    srows, scols = hp // 16, wp // 64
-    if scols > KC:
-        raise ValueError(f"{scols} strip columns: raise KC for frames wider "
-                         f"than {64 * KC} px")
-    ns = srows * scols
-    _check_ids(ds.v0.shape[0])
-    if dflat.shape[0] != ns * STRIPE:
-        raise ValueError(f"{dflat.shape[0]} rays for {ns} strips")
+    hp, wp, srows, scols, ns = _strips(dflat, dimg, ds.v0.shape[0])
     dev = dflat.device
     i32 = dict(dtype=torch.int32, device=dev)
 
@@ -361,16 +369,6 @@ def _scene_rows(ds: DeviceScene) -> Tuple[Tensor, ...]:
             ds.face_normal, ds.material)
 
 
-def _require(x: Tensor, dtype: torch.dtype, shape: tuple, what: str) -> None:
-    """Raise unless x is a contiguous CUDA tensor of this dtype and shape
-    (the message is built only then: these checks run every frame)."""
-    if not (x.is_cuda and x.dtype == dtype and x.is_contiguous()
-            and tuple(x.shape) == tuple(shape)):
-        raise ValueError(f"{what}: expected contiguous {dtype} CUDA "
-                         f"{tuple(shape)}, got {tuple(x.shape)} {x.dtype} on "
-                         f"{x.device}")
-
-
 def _ptr(x: Optional[Tensor]) -> Optional[int]:
     return None if x is None else x.data_ptr()
 
@@ -408,33 +406,36 @@ def pack_rows_cuda(ds: DeviceScene, origin: Tensor,
     """Launch csrc/binning.cu's pack kernel: pack_rows_plain's (isect,
     attrs), bit for bit, one thread a triangle.  Material ids must index
     the per-material tables (the kernel does not check them)."""
-    global BIN_LAUNCHES
     t = ds.v0.shape[0]
     _check_ids(t)
     mats = [x for x in (albedo, specular, shininess) if x is not None]
     _build.refuse_grad("the binning's pack (pack_rows)", *_scene_rows(ds),
                        origin, *mats)
-    what = "binning pack kernel"
     f32 = torch.float32
-    for x, shape in ((ds.v0, (t, 3)), (ds.e1, (t, 3)), (ds.e2, (t, 3)),
-                     (ds.vn, (t, 3, 3)), (ds.vt, (t, 3, 3)),
-                     (ds.vb, (t, 3, 3)), (ds.vuv, (t, 3, 2)),
-                     (ds.face_normal, (t, 3)), (origin, (3,))):
-        _require(x, f32, shape, what)
-    _require(ds.material, torch.int32, (t,), what)
-    for x, width in ((albedo, 4), (specular, 3), (shininess, None)):
+    for x, shape, what in (
+            (ds.v0, (t, 3), "binning pack kernel: v0"),
+            (ds.e1, (t, 3), "binning pack kernel: e1"),
+            (ds.e2, (t, 3), "binning pack kernel: e2"),
+            (ds.vn, (t, 3, 3), "binning pack kernel: vn"),
+            (ds.vt, (t, 3, 3), "binning pack kernel: vt"),
+            (ds.vb, (t, 3, 3), "binning pack kernel: vb"),
+            (ds.vuv, (t, 3, 2), "binning pack kernel: vuv"),
+            (ds.face_normal, (t, 3), "binning pack kernel: face_normal"),
+            (origin, (3,), "binning pack kernel: origin")):
+        _build.operand(x, f32, shape, what)
+    _build.operand(ds.material, torch.int32, (t,),
+                   "binning pack kernel: material")
+    for x, width, what in ((albedo, (4,), "binning pack kernel: albedo"),
+                           (specular, (3,), "binning pack kernel: specular"),
+                           (shininess, (), "binning pack kernel: shininess")):
         if x is not None:
-            _require(x, f32, (x.shape[0],) + ((width,) if width else ()),
-                     what)
-    _build.require(t > 0, f"{what}: no triangles")
+            _build.operand(x, f32, (x.shape[0],) + width, what)
+    _build.require(t > 0, "binning pack kernel: no triangles")
     isect = torch.empty((t, RP.NISECT), dtype=f32, device=origin.device)
     attrs = torch.empty((t, RP.NATTR), dtype=f32, device=origin.device)
-    status = _build.library().vct_bin_pack(
-        *(x.data_ptr() for x in _scene_rows(ds)), origin.data_ptr(),
-        _ptr(albedo), _ptr(specular), _ptr(shininess), t, isect.data_ptr(),
-        attrs.data_ptr(), _build.stream())
-    _build.check(status, "vct_bin_pack")
-    BIN_LAUNCHES += 1
+    _build.launch("vct_bin_pack", *(x.data_ptr() for x in _scene_rows(ds)),
+                  origin.data_ptr(), _ptr(albedo), _ptr(specular),
+                  _ptr(shininess), t, isect.data_ptr(), attrs.data_ptr())
     return isect, attrs
 
 
@@ -457,38 +458,27 @@ def bin_triangles_cuda(ds: DeviceScene, origin: Tensor, dflat: Tensor,
     frame's two ray sums stay PyTorch's (their order decides their last
     bits), and so does the sort of the slots: the packed words below 2**19
     triangles, the bins stably at or above."""
-    global BIN_LAUNCHES
-    hp, wp = dimg.shape[:2]
-    if hp % 16 or wp % 64:
-        raise ValueError(f"padded image {hp}x{wp}: need hp % 16 == 0 and "
-                         "wp % 64 == 0")
-    srows, scols = hp // 16, wp // 64
-    if scols > KC:
-        raise ValueError(f"{scols} strip columns: raise KC for frames wider "
-                         f"than {64 * KC} px")
-    ns = srows * scols
     t = ds.v0.shape[0]
-    _check_ids(t)
-    if dflat.shape[0] != ns * STRIPE:
-        raise ValueError(f"{dflat.shape[0]} rays for {ns} strips")
+    hp, wp, srows, scols, ns = _strips(dflat, dimg, t)
     _build.refuse_grad("the binning (bin_triangles)", isect)
-    what = "binning kernels"
     f32 = torch.float32
-    for x, shape in ((ds.v0, (t, 3)), (ds.e1, (t, 3)), (ds.e2, (t, 3)),
-                     (origin, (3,)), (dflat, (ns * STRIPE, 3)),
-                     (isect, (t, RP.NISECT))):
-        _require(x, f32, shape, what)
+    for x, shape, what in ((ds.v0, (t, 3), "binning kernels: v0"),
+                           (ds.e1, (t, 3), "binning kernels: e1"),
+                           (ds.e2, (t, 3), "binning kernels: e2"),
+                           (origin, (3,), "binning kernels: origin"),
+                           (dflat, (ns * STRIPE, 3), "binning kernels: dflat"),
+                           (isect, (t, RP.NISECT), "binning kernels: isect")):
+        _build.operand(x, f32, shape, what)
     _build.require(dimg.is_cuda and dimg.dtype == f32 and dimg.dim() == 3
-                   and t > 0, f"{what}: a float32 CUDA (hp, wp, 3) ray "
-                   "image and one triangle at least")
+                   and t > 0, "binning kernels: a float32 CUDA (hp, wp, 3) "
+                   "ray image and one triangle at least")
     nb_med, nb_col = _budgets(t)
     nbins = ns + scols
     slots_total = t * KA + nb_med * KB + nb_col * KC
     np_rows = slots_total + SEGAL * nbins + GANGW
-    _build.require(np_rows < 2 ** 31, f"{what}: a table of {np_rows} rows "
-                   "(fewer than 2**31)")
+    _build.require(np_rows < 2 ** 31, "binning kernels: a table of {} rows "
+                   "(fewer than 2**31)", np_rows)
     dev = dflat.device
-    lib, stream = _build.library(), _build.stream()
     fsum = dflat.sum(dim=0)
     xsum = (dimg[:, -1] - dimg[:, 0]).sum(dim=0)
     nblk = -(-t // BIN_TRI_BLOCK)
@@ -500,26 +490,24 @@ def bin_triangles_cuda(ds: DeviceScene, origin: Tensor, dflat: Tensor,
     keys = torch.empty(slots_total, dtype=torch.int32, device=dev)
     tris = torch.empty_like(keys) if stable else None
     n_col = torch.empty((), dtype=torch.int64, device=dev)
-    _build.check(lib.vct_bin_strips(
-        dflat.data_ptr(), fsum.data_ptr(), xsum.data_ptr(), ns, srows,
-        scols, hp, wp, p["smm"], p["ssum"], p["frame"], stream),
-        "vct_bin_strips")
-    _build.check(lib.vct_bin_tris(
-        ds.v0.data_ptr(), ds.e1.data_ptr(), ds.e2.data_ptr(),
-        origin.data_ptr(), p["frame"], t, ns, srows, scols, nb_med, nb_col,
-        p["info"], p["blk"], p["blkoff"], p["totals"], n_col.data_ptr(),
-        keys.data_ptr(), _ptr(tris), stream), "vct_bin_tris")
+    _build.launch("vct_bin_strips", dflat.data_ptr(), fsum.data_ptr(),
+                  xsum.data_ptr(), ns, srows, scols, hp, wp, p["smm"],
+                  p["ssum"], p["frame"])
+    _build.launch("vct_bin_tris", ds.v0.data_ptr(), ds.e1.data_ptr(),
+                  ds.e2.data_ptr(), origin.data_ptr(), p["frame"], t, ns,
+                  srows, scols, nb_med, nb_col, p["info"], p["blk"],
+                  p["blkoff"], p["totals"], n_col.data_ptr(), keys.data_ptr(),
+                  _ptr(tris))
     if stable:
         keys, perm = torch.sort(keys, stable=True)
     else:
         keys, perm = torch.sort(keys).values, None
     scal = torch.empty((4, ns), dtype=torch.int32, device=dev)
     table = torch.empty((np_rows, RP.NISECT), dtype=f32, device=dev)
-    _build.check(lib.vct_bin_table(
-        keys.data_ptr(), _ptr(perm), _ptr(tris), slots_total, nbins, ns,
-        scols, isect.data_ptr(), p["bounds"], p["pad_off"], p["shift"],
-        scal.data_ptr(), table.data_ptr(), np_rows, stream), "vct_bin_table")
-    BIN_LAUNCHES += 8
+    _build.launch("vct_bin_table", keys.data_ptr(), _ptr(perm), _ptr(tris),
+                  slots_total, nbins, ns, scols, isect.data_ptr(),
+                  p["bounds"], p["pad_off"], p["shift"], scal.data_ptr(),
+                  table.data_ptr(), np_rows)
     return scal, table, n_col
 
 
@@ -648,33 +636,30 @@ def raycast_binned_cuda(dflat: Tensor, origin: Tensor, scal: Tensor,
     rows its cull kept (walk_cull_plain's row sums).  It exists only so
     that chip_smoke.py can show that the culled bound counts the tests the
     kernel makes; the frame path never passes it, and no caller should."""
-    global LAUNCHES
     n = dflat.shape[0]
     ns = n // STRIPE
-    checks = [(dflat, torch.float32, (ns * STRIPE, 3)),
-              (origin, torch.float32, (3,)),
-              (scal, torch.int32, (4, ns)),
-              (table, torch.float32, (table.shape[0], RP.NISECT)),
-              (attrs, torch.float32, (attrs.shape[0], RP.NATTR))]
+    f32 = torch.float32
+    _build.operand(dflat, f32, (ns * STRIPE, 3),
+                   "binned raycast kernel: dflat")
+    _build.operand(origin, f32, (3,), "binned raycast kernel: origin")
+    _build.operand(scal, torch.int32, (4, ns), "binned raycast kernel: scal")
+    _build.operand(table, f32, (table.shape[0], RP.NISECT),
+                   "binned raycast kernel: table")
+    _build.operand(attrs, f32, (attrs.shape[0], RP.NATTR),
+                   "binned raycast kernel: attrs")
     if kept is not None:
-        checks.append((kept, torch.int32, (n // RP.TILE,)))
-    for x, dt, shape in checks:
-        _build.require(x.is_cuda and x.dtype == dt and x.is_contiguous()
-                       and tuple(x.shape) == shape,
-                       f"binned raycast kernel: expected contiguous {dt} "
-                       f"CUDA {shape}, got {tuple(x.shape)} {x.dtype}")
+        _build.operand(kept, torch.int32, (n // RP.TILE,),
+                       "binned raycast kernel: kept")
     _build.require(ns > 0 and table.shape[0] < 2 ** 31
                    and table.data_ptr() % 16 == 0,
                    "binned raycast kernel: one strip of rays at least and "
                    "a 16-byte aligned table (rows are read as float4s) of "
                    "fewer than 2**31 rows")
     out = torch.empty((n, RP.NOUT), dtype=torch.float32, device=dflat.device)
-    status = _build.library().vct_binrast(
-        dflat.data_ptr(), origin.data_ptr(), scal.data_ptr(), ns,
-        table.data_ptr(), table.shape[0], attrs.data_ptr(), out.data_ptr(),
-        None if kept is None else kept.data_ptr(), _build.stream())
-    _build.check(status, "vct_binrast")
-    LAUNCHES += 1
+    _build.launch("vct_binrast", dflat.data_ptr(), origin.data_ptr(),
+                  scal.data_ptr(), ns, table.data_ptr(), table.shape[0],
+                  attrs.data_ptr(), out.data_ptr(),
+                  None if kept is None else kept.data_ptr())
     return out
 
 

@@ -11,9 +11,9 @@ the compute dtype), copied to the card once, and the step table.
 The plain version is the eager march the port ran before the kernel: per
 direction, each tap two `index_select`s and a lerp per axis (`_take3`),
 then the composite (`march_steps`).  On CUDA tensors the kernel runs
-inside `DenseMarch`, an autograd Function whose backward replays the
-plain version (`_build.replay_grads`), as the JAX package differentiates
-this march by autodiff of the same function.
+inside `_build.Replay`, the autograd Function whose backward replays the
+plain version with respect to every level, as the JAX package
+differentiates this march by autodiff of the same function.
 
 The kernel reads a packed copy of the levels its taps read: contiguous,
 channel-last values of the compute dtype (`pack_levels_plain` states it),
@@ -37,9 +37,6 @@ from vct_tpu_torch.ops import _build
 
 Tensor = torch.Tensor
 
-LAUNCHES = 0       # kernel launches since the last reset (chip_smoke reads it)
-PACK_LAUNCHES = 0  # dense_kernel_pack launches since the last reset
-PACKED_BYTES = 0   # bytes the last march's pack wrote (0: nothing to pack)
 MAX_LEVELS = 16    # csrc/dense.cu kMaxLevels
 PACK_ALIGN = 16    # bytes: each packed level starts here (the widest load)
 # keep = (1 - a) ** sf as at::pow(Tensor, Scalar) evaluates it
@@ -124,17 +121,18 @@ def make_plan(axes, tap_levels: Sequence[int], steps, directions,
 
 def _take3(level: Tensor, idx, w, out_dtype: torch.dtype) -> Tensor:
     """Separable shifted resample of level (lx, ly, lz, C) -> float32
-    (nx, ny, nz, C); idx/w per axis (i0, i1) and (w0, w1).  Each axis
-    reads `level.dtype` values and accumulates in float32; the
-    intermediate between axes is rounded to `out_dtype`."""
+    (nx, ny, nz, C); idx/w per axis (i0, i1) and float32 (w0, w1).  Each
+    axis reads `level.dtype` values and accumulates in float32 (the
+    weights promote the gathers); the intermediate between axes is
+    rounded to `out_dtype`."""
     out = level
     for ax in range(3):
         if ax > 0:
             out = out.to(out_dtype)
         shape = [1, 1, 1, 1]
         shape[ax] = -1
-        a = out.index_select(ax, idx[ax][0]).float()
-        b = out.index_select(ax, idx[ax][1]).float()
+        a = out.index_select(ax, idx[ax][0])
+        b = out.index_select(ax, idx[ax][1])
         out = a * w[ax][0].view(shape) + b * w[ax][1].view(shape)
     return out
 
@@ -293,10 +291,8 @@ def pack_levels_cuda(levels: Sequence[Tensor], plan: Plan) -> list:
     level, the tensor the march reads: its copy (shaped as
     pack_levels_plain's), the level's values themselves where they are
     already packed, None where no tap reads it."""
-    global PACK_LAUNCHES, PACKED_BYTES
     slots, total = level_slots(levels, plan)
     todo = [s for s in slots if s.pack]
-    PACKED_BYTES = 0
     if not todo:
         return [s.view if s.read else None for s in slots]
     buf = torch.empty(total, dtype=plan.compute, device=levels[0].device)
@@ -311,22 +307,19 @@ def pack_levels_cuda(levels: Sequence[Tensor], plan: Plan) -> list:
     for k, (s, t) in enumerate((s, t) for s, t in zip(slots, out) if s.pack):
         v = s.view
         _build.require(v.shape[0] * v.shape[1] * v.shape[2] < 2 ** 31,
-                       f"dense march pack takes levels of fewer than 2^31 "
-                       f"voxels, got {tuple(v.shape[:3])}")
+                       "dense march pack takes levels of fewer than 2^31 "
+                       "voxels, got {}", tuple(v.shape[:3]))
         st = v.stride()
         src[k], dst[k] = v.data_ptr(), t.data_ptr()
         strides[5 * k:5 * k + 5] = [st[0], st[1], st[2],
                                     st[3] if s.nd == 6 else 0, st[-1]]
         shape[3 * k:3 * k + 3] = list(v.shape[:3])
         nd[k] = s.nd
-    status = _build.library().vct_dense_pack(
-        ctypes.addressof(src), ctypes.addressof(strides),
-        ctypes.addressof(shape), ctypes.addressof(nd), ctypes.addressof(dst),
-        n, plan.channels, int(levels[0].dtype == torch.bfloat16),
-        int(plan.compute == torch.bfloat16), _build.stream())
-    _build.check(status, "vct_dense_pack")
-    PACK_LAUNCHES += 1
-    PACKED_BYTES = sum(s.view.numel() for s in todo) * buf.element_size()
+    _build.launch("vct_dense_pack", ctypes.addressof(src),
+                  ctypes.addressof(strides), ctypes.addressof(shape),
+                  ctypes.addressof(nd), ctypes.addressof(dst), n,
+                  plan.channels, int(levels[0].dtype == torch.bfloat16),
+                  int(plan.compute == torch.bfloat16))
     return out
 
 
@@ -346,44 +339,40 @@ def level_table(packed: Sequence[Tensor | None]) -> Tuple[list, list,
 
 def dense_march_cuda(levels: Sequence[Tensor], plan: Plan,
                      walked: Tensor | None = None) -> Tensor:
-    global LAUNCHES
     nl = len(levels)
     dtype = levels[0].dtype
     _build.require(1 <= nl <= MAX_LEVELS,
-                   f"dense march kernel takes 1 to {MAX_LEVELS} levels, got "
-                   f"{nl}")
+                   "dense march kernel takes 1 to {} levels, got {}",
+                   MAX_LEVELS, nl)
     _build.require(all(m.is_cuda and m.dtype == dtype for m in levels)
                    and dtype in (torch.float32, torch.bfloat16),
                    "dense march kernel takes CUDA levels of one dtype, "
                    "float32 or bfloat16")
     _build.require(plan.compute in (torch.float32, torch.bfloat16),
-                   f"dense march kernel computes in float32 or bfloat16, "
-                   f"not {plan.compute}")
+                   "dense march kernel computes in float32 or bfloat16, not "
+                   "{}", plan.compute)
     _build.require(plan.idx.is_cuda and plan.idx.device == levels[0].device,
                    "dense march plan must lie on the levels' card")
     nx, ny, nz = plan.shape
     _build.require(plan.idx.shape[2] == 2 * (nx + ny + nz)
                    and 1 <= plan.nb <= 65535,
                    "dense march plan's tap rows do not match its shape")
-    _build.require(walked is None or (
-        walked.is_cuda and walked.dtype == torch.int32
-        and walked.is_contiguous()
-        and tuple(walked.shape) == plan.shape + (plan.nb,)),
-        "dense march kernel: walked is a contiguous int32 (*shape, nb) "
-        "CUDA tensor")
+    if walked is not None:
+        _build.operand(walked, torch.int32, plan.shape + (plan.nb,),
+                       "dense march kernel: walked, (*shape, nb)")
     for i, v in enumerate(_level_views(levels, plan)):
         _build.require(v.dim() == 4 or (A.is_aniso_level(v)
                                         and v.shape[3] == 6),
-                       f"dense march level {i}: (d, d, d, C) or (d, d, d, "
-                       f"6, C), got {tuple(v.shape)}")
+                       "dense march level {}: (d, d, d, C) or (d, d, d, 6, "
+                       "C), got {}", i, v.shape)
         _build.require(v.shape[-1] == plan.channels,
-                       f"dense march level {i} has {v.shape[-1]} channels; "
-                       f"the field march reads rgba")
+                       "dense march level {} has {} channels; the field "
+                       "march reads rgba", i, v.shape[-1])
         if i in plan.extent:
             _build.require(all(v.shape[a] >= e
                                for a, e in enumerate(plan.extent[i])),
-                           f"dense march taps reach {plan.extent[i]} beyond "
-                           f"level {i}'s {tuple(v.shape[:3])}")
+                           "dense march taps reach {} beyond level {}'s {}",
+                           plan.extent[i], i, v.shape[:3])
     packed = pack_levels_cuda(levels, plan)
     ptr, stride, nds = level_table(packed)
     ptrs = (ctypes.c_longlong * nl)(*ptr)
@@ -392,39 +381,17 @@ def dense_march_cuda(levels: Sequence[Tensor], plan: Plan,
     sf = plan.step_factor
     out = torch.empty(plan.shape + (plan.nb * plan.channels,),
                       dtype=torch.float32, device=levels[0].device)
-    status = _build.library().vct_dense_march(
-        ctypes.addressof(ptrs), ctypes.addressof(strides),
-        ctypes.addressof(nd), nl, int(plan.transmittance),
-        int(plan.compute == torch.bfloat16),
-        plan.idx.data_ptr(), plan.w.data_ptr(), plan.idx.shape[1],
-        plan.step_i.data_ptr(), plan.step_f.data_ptr(), len(plan.steps),
-        plan.w6.data_ptr(), plan.nb, nx, ny, nz, POW_MODES.get(sf, 4), sf,
-        int(plan.opacity_gain != 1.0), plan.opacity_gain, plan.max_alpha,
-        out.data_ptr(), None if walked is None else walked.data_ptr(),
-        _build.stream())
-    _build.check(status, "vct_dense_march")
-    LAUNCHES += 1
+    _build.launch("vct_dense_march", ctypes.addressof(ptrs),
+                  ctypes.addressof(strides), ctypes.addressof(nd), nl,
+                  int(plan.transmittance),
+                  int(plan.compute == torch.bfloat16), plan.idx.data_ptr(),
+                  plan.w.data_ptr(), plan.idx.shape[1],
+                  plan.step_i.data_ptr(), plan.step_f.data_ptr(),
+                  len(plan.steps), plan.w6.data_ptr(), plan.nb, nx, ny, nz,
+                  POW_MODES.get(sf, 4), sf, int(plan.opacity_gain != 1.0),
+                  plan.opacity_gain, plan.max_alpha, out.data_ptr(),
+                  None if walked is None else walked.data_ptr())
     return out
-
-
-class DenseMarch(torch.autograd.Function):
-    """The march by `fwd` (the kernel on the card; the tests inject
-    dense_march_plain on the CPU), differentiated by replaying
-    dense_march_plain under autograd with respect to every level."""
-
-    @staticmethod
-    def forward(ctx, plan, fwd, *levels):
-        ctx.plan = plan
-        ctx.save_for_backward(*levels)
-        return fwd(levels, plan)
-
-    @staticmethod
-    def backward(ctx, gout):
-        plan = ctx.plan
-        grads = _build.replay_grads(
-            lambda *lv: dense_march_plain(lv, plan), ctx.saved_tensors,
-            ctx.needs_input_grad[2:], gout)
-        return (None, None) + grads
 
 
 def dense_march(levels: Sequence[Tensor], plan: Plan,
@@ -438,8 +405,9 @@ def dense_march(levels: Sequence[Tensor], plan: Plan,
         # backward (a mip's) on zeros
         levels = [m if i in plan.extent else m.detach()
                   for i, m in enumerate(levels)]
-        return DenseMarch.apply(
-            plan, lambda lv, p: dense_march_cuda(lv, p, walked), *levels)
+        return _build.Replay.apply(
+            lambda *lv: dense_march_cuda(lv, plan, walked),
+            lambda *lv: dense_march_plain(lv, plan), (), *levels)
     return dense_march_plain(levels, plan, walked)
 
 

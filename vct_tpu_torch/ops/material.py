@@ -17,8 +17,10 @@ float32 weights on the bfloat16-stored texels.  The TPU kernel rounds its
 two-hot weights to bfloat16 as well; it stays within 2e-2 of this.
 
 CUDA tensors launch `csrc/material.cu` inside the autograd Function
-`Material`, whose backward replays the plain version; CPU tensors take
-the plain version.
+`_build.Replay`, whose backward replays the plain version under autograd
+with respect to the G-buffer and the pages (material_pallas.py:484-498;
+the prepass's integer tables get none); CPU tensors take the plain
+version.
 """
 
 from __future__ import annotations
@@ -35,8 +37,6 @@ C8 = 8            # fused channels: albedo rgba, specular rgb, height
 MBV = 32          # the TPU's brick extent; pages keep 32 wrap rows/columns
 ALIGN = 16
 NOUT = 16         # output row: albedo4, spec3, h0, hx, hy, pad
-
-LAUNCHES = 0
 
 
 def _ceil_to(n: int, m: int) -> int:
@@ -179,55 +179,29 @@ def corner_texels(gbuf: Tensor, slots: Tensor, mscal: Tensor,
 def material_cuda(gbuf: Tensor, slots: Tensor, mscal: Tensor,
                   mlists: Tensor, pages: Tensor, resolution: int,
                   tile: int = 256) -> Tensor:
-    global LAUNCHES
     n, gcols = gbuf.shape
     ntiles = n // tile
     _build.require(tile == T.TILE and n % tile == 0,
-                   f"material kernel: {T.TILE}-pixel tiles, n={n}")
-    for x, dt, shape in ((gbuf, torch.float32, (n, gcols)),
-                         (slots, torch.int32, (n, 1)),
-                         (mscal, torch.int32, (ntiles, PP.NSCAL)),
-                         (mlists, torch.int32, (ntiles, PP.NWORDS)),
-                         (pages, torch.bfloat16, tuple(pages.shape))):
-        _build.require(x.is_cuda and x.dtype == dt and x.is_contiguous()
-                       and tuple(x.shape) == shape,
-                       f"material kernel: expected contiguous {dt} CUDA "
-                       f"{shape}, got {tuple(x.shape)} {x.dtype}")
+                   "material kernel: {}-pixel tiles, n={}", T.TILE, n)
+    i32 = torch.int32
+    _build.operand(gbuf, torch.float32, (n, gcols), "material kernel: gbuf")
+    _build.operand(slots, i32, (n, 1), "material kernel: slots")
+    _build.operand(mscal, i32, (ntiles, PP.NSCAL), "material kernel: mscal")
+    _build.operand(mlists, i32, (ntiles, PP.NWORDS),
+                   "material kernel: mlists")
+    _build.operand(pages, torch.bfloat16, pages.shape,
+                   "material kernel: pages")
     _build.require(gcols >= 20 and pages.dim() == 3
                    and pages_resolution(pages) == resolution
                    and pages.data_ptr() % 16 == 0,
                    "material kernel: G-buffer (n, >=20) and 16-byte aligned "
                    "packed pages of this resolution")
     out = torch.empty((n, NOUT), dtype=torch.float32, device=gbuf.device)
-    status = _build.library().vct_material(
-        gbuf.data_ptr(), n, gcols, slots.data_ptr(), mscal.data_ptr(),
-        mlists.data_ptr(), pages.data_ptr(), pages.shape[0],
-        pages.shape[1], resolution, out.data_ptr(), _build.stream())
-    _build.check(status, "vct_material")
-    LAUNCHES += 1
+    _build.launch("vct_material", gbuf.data_ptr(), n, gcols,
+                  slots.data_ptr(), mscal.data_ptr(), mlists.data_ptr(),
+                  pages.data_ptr(), pages.shape[0], pages.shape[1],
+                  resolution, out.data_ptr())
     return out
-
-
-class Material(torch.autograd.Function):
-    """material_tiles by `fwd` (the kernel on the card; the tests inject
-    material_plain on the CPU), differentiated by replaying material_plain
-    under autograd with respect to the G-buffer and the pages
-    (material_pallas.py:484-498); the prepass's integer tables get none."""
-
-    @staticmethod
-    def forward(ctx, gbuf, slots, mscal, mlists, pages, resolution, tile,
-                fwd):
-        ctx.save_for_backward(gbuf, slots, mscal, mlists, pages)
-        ctx.statics = (resolution, tile)
-        return fwd(gbuf, slots, mscal, mlists, pages, resolution, tile)
-
-    @staticmethod
-    def backward(ctx, gout):
-        args = ctx.saved_tensors
-        dg, _, _, _, dpages = _build.replay_grads(
-            lambda *a: material_plain(*a, *ctx.statics), args,
-            ctx.needs_input_grad[:5], gout)
-        return dg, None, None, None, dpages, None, None, None
 
 
 def material_tiles(gbuf: Tensor,             # (ntiles*tile, >=20) tile-major
@@ -239,7 +213,9 @@ def material_tiles(gbuf: Tensor,             # (ntiles*tile, >=20) tile-major
     """(n, NOUT) float32 rows [albedo rgba, specular rgb, h0, hx, hy, pad];
     rows of tiles without a hit pixel are zero."""
     if _build.uses_kernel(gbuf, slots, mscal, mlists, pages):
-        return Material.apply(gbuf, slots, mscal, mlists, pages, resolution,
-                              tile, material_cuda)
+        return _build.Replay.apply(
+            lambda *t: material_cuda(*t, resolution, tile),
+            lambda *t: material_plain(*t, resolution, tile), (), gbuf, slots,
+            mscal, mlists, pages)
     return material_plain(gbuf, slots, mscal, mlists, pages, resolution,
                           tile)

@@ -23,9 +23,6 @@ from vct_tpu_torch.ops import _build
 
 Tensor = torch.Tensor
 
-LAUNCHES = 0       # kernel launches since the last reset (chip_smoke reads it)
-BWD_LAUNCHES = 0   # backward kernel launches
-
 downsample2x_plain = G.downsample2x
 
 
@@ -35,7 +32,6 @@ def _check_mode(alpha_mode: str) -> None:
 
 
 def downsample2x_cuda(grid: Tensor, alpha_mode: str = "mean") -> Tensor:
-    global LAUNCHES
     _check_mode(alpha_mode)
     _build.require(grid.is_cuda and grid.dtype == torch.float32
                    and grid.dim() == 4 and grid.is_contiguous(),
@@ -44,15 +40,12 @@ def downsample2x_cuda(grid: Tensor, alpha_mode: str = "mean") -> Tensor:
     d, c = grid.shape[0], grid.shape[-1]
     _build.require(grid.shape[:3] == (d, d, d) and d > 1
                    and d & (d - 1) == 0,
-                   f"mip kernel takes a power-of-two cube wider than 1, got "
-                   f"{tuple(grid.shape)}")
+                   "mip kernel takes a power-of-two cube wider than 1, got "
+                   "{}", tuple(grid.shape))
     h = d // 2
     out = torch.empty((h, h, h, c), dtype=grid.dtype, device=grid.device)
-    status = _build.library().vct_mip_downsample(
-        grid.data_ptr(), out.data_ptr(), h, c, int(alpha_mode == "max"),
-        _build.stream())
-    _build.check(status, "vct_mip_downsample")
-    LAUNCHES += 1
+    _build.launch("vct_mip_downsample", grid.data_ptr(), out.data_ptr(), h,
+                  c, int(alpha_mode == "max"))
     return out
 
 
@@ -102,7 +95,6 @@ def downsample2x_bwd_plain(gout: Tensor, alpha: Tensor | None = None,
 
 def downsample2x_bwd_cuda(gout: Tensor, alpha: Tensor | None = None,
                           alpha_mode: str = "mean") -> Tensor:
-    global BWD_LAUNCHES
     _check_mode(alpha_mode)
     _build.require(gout.is_cuda and gout.dtype == torch.float32
                    and gout.dim() == 4 and gout.is_contiguous(),
@@ -112,18 +104,14 @@ def downsample2x_bwd_cuda(gout: Tensor, alpha: Tensor | None = None,
     d = 2 * h
     max_alpha = alpha_mode == "max"
     if max_alpha:
-        _build.require(alpha is not None and alpha.is_cuda
-                       and alpha.dtype == torch.float32
-                       and alpha.is_contiguous()
-                       and tuple(alpha.shape) == (d, d, d),
-                       f"mip backward kernel: max mode takes the children's "
-                       f"contiguous float32 ({d}, {d}, {d}) alphas")
+        _build.require(alpha is not None, "mip backward kernel: max mode "
+                       "takes the children's alphas")
+        _build.operand(alpha, torch.float32, (d, d, d),
+                       "mip backward kernel: the children's alphas")
     gin = torch.empty((d, d, d, c), dtype=gout.dtype, device=gout.device)
-    status = _build.library().vct_mip_downsample_bwd(
-        gout.data_ptr(), alpha.data_ptr() if max_alpha else None,
-        gin.data_ptr(), h, c, int(max_alpha), _build.stream())
-    _build.check(status, "vct_mip_downsample_bwd")
-    BWD_LAUNCHES += 1
+    _build.launch("vct_mip_downsample_bwd", gout.data_ptr(),
+                  alpha.data_ptr() if max_alpha else None, gin.data_ptr(), h,
+                  c, int(max_alpha))
     return gin
 
 

@@ -36,8 +36,6 @@ BCLIP = float(2 ** 22)    # texel bases clip here, exact in float32
 MAX_MATERIALS = 64        # the kernel's per-tile material table
 MAX_LEVELS = 32           # the kernel tests one level a lane of a warp
 
-LAUNCHES = 0
-
 
 class AtlasShape(NamedTuple):
     """What the material half needs to know of the atlas pages."""
@@ -153,19 +151,19 @@ def prepass_plain(gbuf: Tensor, *, light_dims, field_dims, voxel: float,
 def prepass_cuda(gbuf: Tensor, *, light_dims, field_dims, voxel: float,
                  world_size: float, shadow_offset: float,
                  atlas: Optional[AtlasShape] = None):
-    global LAUNCHES
     n, gcols = gbuf.shape
     _build.require(gbuf.is_cuda and gbuf.dtype == torch.float32
                    and gbuf.is_contiguous() and gcols >= 20 and gcols % 4 == 0
                    and gbuf.data_ptr() % 16 == 0,
                    "prepass kernel takes a contiguous, 16-byte aligned "
                    "float32 (n, >=20) CUDA G-buffer of 4k columns")
-    _build.require(n % T.TILE == 0,
-                   f"prepass kernel: {T.TILE}-pixel tiles, got n={n}")
+    _build.require(n % T.TILE == 0, "prepass kernel: {}-pixel tiles, got n={}",
+                   T.TILE, n)
     _build.require(_halving(light_dims) and _halving(field_dims),
                    "prepass kernel: level dims must halve level to level")
     _build.require(max(len(light_dims), len(field_dims)) <= MAX_LEVELS,
-                   f"prepass kernel: at most {MAX_LEVELS} levels (one a lane)")
+                   "prepass kernel: at most {} levels (one a lane)",
+                   MAX_LEVELS)
     ntiles = n // T.TILE
     dev = gbuf.device
     scal8 = torch.empty((ntiles, 8), dtype=torch.int32, device=dev)
@@ -174,8 +172,9 @@ def prepass_cuda(gbuf: Tensor, *, light_dims, field_dims, voxel: float,
     if atlas is not None:
         nm, res, nlev = atlas
         _build.require(0 < nm <= MAX_MATERIALS and nlev <= MAX_LEVELS,
-                       f"prepass kernel: 1..{MAX_MATERIALS} materials and "
-                       f"at most {MAX_LEVELS} atlas levels, got {nm}, {nlev}")
+                       "prepass kernel: 1..{} materials and at most {} atlas "
+                       "levels, got {}, {}", MAX_MATERIALS, MAX_LEVELS, nm,
+                       nlev)
         mscal = torch.empty((ntiles, NSCAL), dtype=torch.int32, device=dev)
         mlists = torch.empty((ntiles, NWORDS), dtype=torch.int32, device=dev)
         mslots = torch.empty((n, 1), dtype=torch.int32, device=dev)
@@ -186,13 +185,11 @@ def prepass_cuda(gbuf: Tensor, *, light_dims, field_dims, voxel: float,
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    status = _build.library().vct_prepass(
-        gbuf.data_ptr(), ntiles, gcols, light_dims[0], len(light_dims),
-        field_dims[0], len(field_dims), f32(world_size * 0.5), f32(voxel),
-        f32(voxel * shadow_offset), scal8.data_ptr(), nm, res, nlev,
-        ptr(mscal), ptr(mlists), ptr(mslots), _build.stream())
-    _build.check(status, "vct_prepass")
-    LAUNCHES += 1
+    _build.launch("vct_prepass", gbuf.data_ptr(), ntiles, gcols,
+                  light_dims[0], len(light_dims), field_dims[0],
+                  len(field_dims), f32(world_size * 0.5), f32(voxel),
+                  f32(voxel * shadow_offset), scal8.data_ptr(), nm, res, nlev,
+                  ptr(mscal), ptr(mlists), ptr(mslots))
     if atlas is None:
         return scal8
     return scal8, mscal, mlists, mslots

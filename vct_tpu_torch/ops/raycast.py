@@ -68,9 +68,6 @@ BWD_CHUNK = 8192        # rays a chunk of the whole-table backward's replay
 NORM_BOUND_MIN = 1e-18
 NORM_BOUND_MAX = 1e18
 
-LAUNCHES = 0
-STREAM_LAUNCHES = 0
-
 
 def _cross(a: Tensor, b: Tensor) -> Tensor:
     """jnp.cross's formula, term by term."""
@@ -306,24 +303,18 @@ def raycast_plain(dirs: Tensor, origin: Tensor, isect: Tensor,
 
 def raycast_cuda(dirs: Tensor, origin: Tensor, isect: Tensor,
                  attrs: Tensor) -> Tensor:
-    global LAUNCHES
-    for x, shape in ((dirs, (dirs.shape[0], 3)), (origin, (3,)),
-                     (isect, (isect.shape[0], NISECT)),
-                     (attrs, (isect.shape[0], NATTR))):
-        _build.require(x.is_cuda and x.dtype == torch.float32
-                       and x.is_contiguous() and tuple(x.shape) == shape,
-                       f"raycast kernel: expected contiguous float32 CUDA "
-                       f"{shape}, got {tuple(x.shape)} {x.dtype}")
+    n, t = dirs.shape[0], isect.shape[0]
+    f32 = torch.float32
+    _build.operand(dirs, f32, (n, 3), "raycast kernel: dirs")
+    _build.operand(origin, f32, (3,), "raycast kernel: origin")
+    _build.operand(isect, f32, (t, NISECT), "raycast kernel: isect")
+    _build.operand(attrs, f32, (t, NATTR), "raycast kernel: attrs")
     _build.require(isect.data_ptr() % 16 == 0,
                    "raycast kernel: isect rows are read as float4s and must "
                    "be 16-byte aligned")
-    n, t = dirs.shape[0], isect.shape[0]
     out = torch.empty((n, NOUT), dtype=torch.float32, device=dirs.device)
-    status = _build.library().vct_raycast(
-        dirs.data_ptr(), origin.data_ptr(), isect.data_ptr(),
-        attrs.data_ptr(), n, t, out.data_ptr(), _build.stream())
-    _build.check(status, "vct_raycast")
-    LAUNCHES += 1
+    _build.launch("vct_raycast", dirs.data_ptr(), origin.data_ptr(),
+                  isect.data_ptr(), attrs.data_ptr(), n, t, out.data_ptr())
     return out
 
 
@@ -673,23 +664,20 @@ def raycast_stream_cuda(dirs: Tensor, origin: Tensor, isect: Tensor,
     kept rows over the chunks it tested (stream_walk_plain's), so that
     chip_smoke.py can show that the culled bound counts the tests the
     kernel makes; the frame path passes none."""
-    global STREAM_LAUNCHES
     n, tp, nrt = dirs.shape[0], isect.shape[0], counts.shape[0]
-    checks = [(dirs, torch.float32, (n, 3)),
-              (origin, torch.float32, (3,)),
-              (isect, torch.float32, (tp, NISECT)),
-              (attrs, torch.float32, (tp, NATTR)),
-              (lists, torch.int32, (nrt, lists.shape[1])),
-              (counts, torch.int32, (nrt,)),
-              (tmin, torch.float32, (n,)),
-              (miss, torch.float32, (n,))]
+    f32, i32 = torch.float32, torch.int32
+    _build.operand(dirs, f32, (n, 3), "streamed raycast kernel: dirs")
+    _build.operand(origin, f32, (3,), "streamed raycast kernel: origin")
+    _build.operand(isect, f32, (tp, NISECT), "streamed raycast kernel: isect")
+    _build.operand(attrs, f32, (tp, NATTR), "streamed raycast kernel: attrs")
+    _build.operand(lists, i32, (nrt, lists.shape[1]),
+                   "streamed raycast kernel: lists")
+    _build.operand(counts, i32, (nrt,), "streamed raycast kernel: counts")
+    _build.operand(tmin, f32, (n,), "streamed raycast kernel: tmin")
+    _build.operand(miss, f32, (n,), "streamed raycast kernel: miss")
     if kept is not None:
-        checks.append((kept, torch.int32, (n // GROUP,)))
-    for x, dt, shape in checks:
-        _build.require(x.is_cuda and x.dtype == dt and x.is_contiguous()
-                       and tuple(x.shape) == shape,
-                       f"streamed raycast kernel: expected contiguous {dt} "
-                       f"CUDA {shape}, got {tuple(x.shape)} {x.dtype}")
+        _build.operand(kept, i32, (n // GROUP,),
+                       "streamed raycast kernel: kept")
     _build.require(n == nrt * TILE and tp % CHUNK == 0
                    and lists.shape[1] >= tp // CHUNK,
                    "streamed raycast kernel: one list row per 256 rays and "
@@ -698,14 +686,11 @@ def raycast_stream_cuda(dirs: Tensor, origin: Tensor, isect: Tensor,
                    "streamed raycast kernel: isect rows are read as float4s "
                    "and must be 16-byte aligned")
     out = torch.empty((n, NOUT), dtype=torch.float32, device=dirs.device)
-    status = _build.library().vct_raycast_stream(
-        dirs.data_ptr(), origin.data_ptr(), isect.data_ptr(),
-        attrs.data_ptr(), lists.data_ptr(), lists.shape[1],
-        counts.data_ptr(), tmin.data_ptr(), miss.data_ptr(), nrt,
-        out.data_ptr(),
-        None if kept is None else kept.data_ptr(), _build.stream())
-    _build.check(status, "vct_raycast_stream")
-    STREAM_LAUNCHES += 1
+    _build.launch("vct_raycast_stream", dirs.data_ptr(), origin.data_ptr(),
+                  isect.data_ptr(), attrs.data_ptr(), lists.data_ptr(),
+                  lists.shape[1], counts.data_ptr(), tmin.data_ptr(),
+                  miss.data_ptr(), nrt, out.data_ptr(),
+                  None if kept is None else kept.data_ptr())
     return out
 
 

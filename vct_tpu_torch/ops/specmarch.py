@@ -19,9 +19,11 @@ per (tile, step group) one mip level is chosen for the whole tile:
   * step_table — per (tile, step) the level and the constants (distance,
     mip weight times "level is the schedule's", AO attenuation);
   * spec_march_tiles — csrc/specmarch.cu on CUDA tensors, inside the
-    autograd Function `SpecMarch` (its backward replays the plain
-    version), the plain version (spec_march_plain, the function of
-    spec_march_ref) on CPU tensors.
+    autograd Function `_build.Replay` (its backward replays the plain
+    version with respect to start4, refl4 and the pyramid's levels,
+    specmarch_pallas.py:722-736; the step table gets none, as the JAX
+    package's row table does), the plain version (spec_march_plain, the
+    function of spec_march_ref) on CPU tensors.
 
 Not carried over: the per-tile brick origins, the row table, the two-hot
 weights and expansion matrices.  They feed the TPU's DMAs and selection
@@ -52,8 +54,6 @@ MIP_CLS = {"L": "M", "M": "M", "S": "S"}
 MAX_STEPS = 128   # csrc/specmarch.cu's per-block step table
 MAX_LEVELS = 16
 MAX_CELLS = 1 << 31   # csrc/specmarch.cu counts pyramid cells in 32 bits
-
-LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -344,63 +344,49 @@ def spec_march_plain(start4: Tensor, refl4: Tensor, step_levels: Tensor,
 def spec_march_cuda(start4: Tensor, refl4: Tensor, step_levels: Tensor,
                     weights: Tensor, pyramid: Sequence[Tensor], *,
                     world_size: float, max_alpha: float) -> Tensor:
-    global LAUNCHES
     n = start4.shape[0]
     ntiles, nsteps = step_levels.shape
-    _build.require(n == ntiles * TILE,
-                   f"specmarch kernel: {TILE}-pixel groups, got n={n} for "
-                   f"{ntiles} groups")
-    for x, dt, shape in ((start4, torch.float32, (n, 4)),
-                         (refl4, torch.float32, (n, 4)),
-                         (step_levels, torch.int32, (ntiles, nsteps)),
-                         (weights, torch.float32, (ntiles, nsteps, 3))):
-        _build.require(x.is_cuda and x.dtype == dt and x.is_contiguous()
-                       and tuple(x.shape) == shape
-                       and x.data_ptr() % 16 == 0,
-                       f"specmarch kernel: expected contiguous aligned {dt} "
-                       f"CUDA {shape}, got {tuple(x.shape)} {x.dtype}")
+    _build.require(n == ntiles * TILE, "specmarch kernel: {}-pixel groups, "
+                   "got n={} for {} groups", TILE, n, ntiles)
+    f32 = torch.float32
+    _build.operand(start4, f32, (n, 4), "specmarch kernel: start4")
+    _build.operand(refl4, f32, (n, 4), "specmarch kernel: refl4")
+    _build.operand(step_levels, torch.int32, (ntiles, nsteps),
+                   "specmarch kernel: step_levels")
+    _build.operand(weights, f32, (ntiles, nsteps, 3),
+                   "specmarch kernel: weights")
+    _build.require(all(x.data_ptr() % 16 == 0
+                       for x in (start4, refl4, step_levels, weights)),
+                   "specmarch kernel: start4, refl4, step_levels and weights "
+                   "must be 16-byte aligned")
     d0, c = TP._chain(pyramid, "specular pyramid")
     _build.require(c == NC and len(pyramid) <= MAX_LEVELS
                    and nsteps <= MAX_STEPS
                    and pyramid[0].data_ptr() % 8 == 0,
-                   f"specmarch kernel: 8-byte aligned {NC}-channel pyramid "
-                   f"of <= {MAX_LEVELS} levels and <= {MAX_STEPS} steps, "
-                   f"got {c} channels, {len(pyramid)} levels, {nsteps} "
-                   f"steps")
+                   "specmarch kernel: 8-byte aligned {}-channel pyramid of <= "
+                   "{} levels and <= {} steps, got {} channels, {} levels, "
+                   "{} steps", NC, MAX_LEVELS, MAX_STEPS, c, len(pyramid),
+                   nsteps)
     check_cells([m.shape[0] for m in pyramid])
     out = torch.empty((n, NC), dtype=torch.float32, device=start4.device)
-    status = _build.library().vct_specmarch(
-        start4.data_ptr(), refl4.data_ptr(), ntiles, step_levels.data_ptr(),
-        weights.data_ptr(), nsteps, pyramid[0].data_ptr(), d0, len(pyramid),
-        float(np.float32(world_size * 0.5)), float(np.float32(max_alpha)),
-        out.data_ptr(), _build.stream())
-    _build.check(status, "vct_specmarch")
-    LAUNCHES += 1
+    _build.launch("vct_specmarch", start4.data_ptr(), refl4.data_ptr(),
+                  ntiles, step_levels.data_ptr(), weights.data_ptr(), nsteps,
+                  pyramid[0].data_ptr(), d0, len(pyramid),
+                  float(np.float32(world_size * 0.5)),
+                  float(np.float32(max_alpha)), out.data_ptr())
     return out
 
 
-class SpecMarch(torch.autograd.Function):
-    """spec_march_tiles by `fwd` (the kernel on the card; the tests inject
-    spec_march_plain on the CPU), differentiated by replaying
-    spec_march_plain under autograd with respect to start4, refl4 and the
-    pyramid's levels (specmarch_pallas.py:722-736); the step table gets
-    none, as the JAX package's row table does."""
+# the step table's weights get no gradient: their position among
+# _build.Replay's tensors (start4, refl4, step_levels, weights, *pyramid)
+FROZEN = (3,)
 
-    @staticmethod
-    def forward(ctx, kw, fwd, start4, refl4, step_levels, weights, *pyramid):
-        ctx.save_for_backward(start4, refl4, step_levels, weights, *pyramid)
-        ctx.kw = kw
-        return fwd(start4, refl4, step_levels, weights, pyramid, **kw)
 
-    @staticmethod
-    def backward(ctx, gout):
-        def plain(s4, r4, lv, wt, *pyr):
-            return spec_march_plain(s4, r4, lv, wt, pyr, **ctx.kw)
-
-        wanted = list(ctx.needs_input_grad[2:])
-        wanted[3] = False
-        grads = _build.replay_grads(plain, ctx.saved_tensors, wanted, gout)
-        return (None, None) + grads
+def flat(fn, **kw):
+    """fn (spec_march_plain or spec_march_cuda) over its tensors in one
+    row, as _build.Replay passes them: start4, refl4, step_levels,
+    weights, then the pyramid's levels."""
+    return lambda s4, r4, lv, wt, *pyr: fn(s4, r4, lv, wt, pyr, **kw)
 
 
 def spec_march_tiles(start4: Tensor,        # (n, 4): start xyz, hit mask
@@ -412,7 +398,9 @@ def spec_march_tiles(start4: Tensor,        # (n, 4): start xyz, hit mask
     (step_levels, weights) from step_table, pyramid from pack_spec_mips;
     keywords world_size, max_alpha."""
     if _build.uses_kernel(start4, refl4, step_levels, weights, *pyramid):
-        return SpecMarch.apply(kw, spec_march_cuda, start4, refl4,
-                               step_levels, weights, *pyramid)
+        return _build.Replay.apply(flat(spec_march_cuda, **kw),
+                                   flat(spec_march_plain, **kw), FROZEN,
+                                   start4, refl4, step_levels, weights,
+                                   *pyramid)
     return spec_march_plain(start4, refl4, step_levels, weights, pyramid,
                             **kw)

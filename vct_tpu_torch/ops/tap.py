@@ -9,9 +9,13 @@ back to back in one buffer (light levels (D, D, D), field levels
 levels for TPU DMA alignment; interop.py un-pads them into this layout.
 
 `tap_tiles` launches `csrc/tap.cu` for CUDA tensors, inside the autograd
-Function `Tap` (its backward replays the plain version, as the JAX
-package's custom VJP replays tap_tiles_ref), and runs the plain version
-(the semantics of tap_pallas.tap_tiles_ref) for CPU tensors.
+Function `_build.Replay` (its backward replays the plain version under
+autograd with respect to the G-buffer, the bump normals, the camera
+position and every light and field level, as the JAX package's custom
+VJP replays tap_tiles_ref, tap_pallas.py:643-660), and runs the plain
+version (the semantics of tap_pallas.tap_tiles_ref) for CPU tensors.
+The levels are views into one pack_mips buffer, so their gradients reach
+the float32 mips through its bfloat16 cast.
 """
 
 from __future__ import annotations
@@ -34,8 +38,6 @@ FBZ = 32          # field brick z-extent (16-aligned origin)
 ALIGN = 16
 NOUT = 16         # [shadow, diffuse rgba, specular rgba, 7 zeros]
 KERNEL_POWERS = (8, 32)   # csrc/tap.cu's sharpening: diffuse ^8, specular ^32
-
-LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -65,8 +67,8 @@ def _chain(levels: Sequence[Tensor], what: str) -> Tuple[int, int]:
                        and tuple(m.shape[:3]) == (d, d, d)
                        and m.shape[3:] == levels[0].shape[3:]
                        and m.data_ptr() == base + 2 * off,
-                       f"{what}: pass levels from pack_mips (bf16 halving "
-                       f"cubes, back to back)")
+                       "{}: pass levels from pack_mips (bf16 halving cubes, "
+                       "back to back)", what)
         off += m.numel()
     c = levels[0].shape[3] if levels[0].dim() == 4 else 1
     return d0, c
@@ -223,27 +225,23 @@ def tap_cuda(gbuf: Tensor, scalars: Tensor, bumpn: Tensor, campos: Tensor,
              light_mips, field_mips, *, cfield: int, nb: int,
              world_size: float, voxel: float, shadow_offset: float,
              power_diffuse: int, power_specular: int, cones_static) -> Tensor:
-    global LAUNCHES
     n, gcols = gbuf.shape
     ntiles = n // TILE
-    _build.require(n % TILE == 0,
-                   f"tap kernel: {TILE}-pixel tiles, got n={n}")
-    for x, dt, shape in ((gbuf, torch.float32, (n, gcols)),
-                         (scalars, torch.int32, (ntiles, 8)),
-                         (bumpn, torch.float32, (n, 4)),
-                         (campos, torch.float32, (3,))):
-        _build.require(x.is_cuda and x.dtype == dt and x.is_contiguous()
-                       and tuple(x.shape) == shape,
-                       f"tap kernel: expected contiguous {dt} CUDA {shape}, "
-                       f"got {tuple(x.shape)} {x.dtype}")
+    _build.require(n % TILE == 0, "tap kernel: {}-pixel tiles, got n={}",
+                   TILE, n)
+    _build.operand(gbuf, torch.float32, (n, gcols), "tap kernel: gbuf")
+    _build.operand(scalars, torch.int32, (ntiles, 8), "tap kernel: scalars")
+    _build.operand(bumpn, torch.float32, (n, 4), "tap kernel: bumpn")
+    _build.operand(campos, torch.float32, (3,), "tap kernel: campos")
     _build.require(gcols >= 15, "tap kernel: G-buffer needs >= 15 columns")
     ld0, _ = _chain(light_mips, "light tables")
     fd0, c = _chain(field_mips, "field tables")
     _build.require(c == cfield and cfield % 4 == 0 and cfield in (4 * nb, 8 * nb),
-                   f"tap kernel: field tables carry {c} channels, cfield={cfield}")
+                   "tap kernel: field tables carry {} channels, cfield={}", c,
+                   cfield)
     _build.require((power_diffuse, power_specular) == KERNEL_POWERS,
-                   f"tap kernel: basis powers {KERNEL_POWERS} (its template "
-                   f"constants), got {(power_diffuse, power_specular)}")
+                   "tap kernel: basis powers {} (its template constants), "
+                   "got {}", KERNEL_POWERS, (power_diffuse, power_specular))
     for x in (bumpn, field_mips[0]):
         _build.require(x.data_ptr() % 16 == 0,
                        "tap kernel: bump normals and field tables must be "
@@ -251,7 +249,7 @@ def tap_cuda(gbuf: Tensor, scalars: Tensor, bumpn: Tensor, campos: Tensor,
     cone_dirs, cone_w, basis = _cones(cones_static)
     _build.require(basis.shape == (nb, 3) and nb in (6, 26)
                    and len(cone_dirs) <= 8,
-                   f"tap kernel: basis of 6 or 26 and <= 8 cones, got {nb}")
+                   "tap kernel: basis of 6 or 26 and <= 8 cones, got {}", nb)
     consts = torch.as_tensor(np.concatenate(
         [basis.reshape(-1), cone_dirs.reshape(-1), cone_w]),
         device=gbuf.device)
@@ -259,42 +257,21 @@ def tap_cuda(gbuf: Tensor, scalars: Tensor, bumpn: Tensor, campos: Tensor,
     def f32(x):     # Python constants rounded to float32 once
         return float(np.float32(x))
 
-    status = _build.library().vct_tap(
-        gbuf.data_ptr(), ntiles, gcols, scalars.data_ptr(), bumpn.data_ptr(),
-        campos.data_ptr(), light_mips[0].data_ptr(), ld0,
-        field_mips[0].data_ptr(), fd0, cfield, consts.data_ptr(), nb,
-        len(cone_dirs), f32(world_size * 0.5), f32(voxel),
-        f32(voxel * shadow_offset), out.data_ptr(), _build.stream())
-    _build.check(status, "vct_tap")
-    LAUNCHES += 1
+    _build.launch("vct_tap", gbuf.data_ptr(), ntiles, gcols,
+                  scalars.data_ptr(), bumpn.data_ptr(), campos.data_ptr(),
+                  light_mips[0].data_ptr(), ld0, field_mips[0].data_ptr(),
+                  fd0, cfield, consts.data_ptr(), nb, len(cone_dirs),
+                  f32(world_size * 0.5), f32(voxel),
+                  f32(voxel * shadow_offset), out.data_ptr())
     return out
 
 
-class Tap(torch.autograd.Function):
-    """tap_tiles by `fwd` (the kernel on the card; the tests inject
-    tap_plain on the CPU), differentiated by replaying tap_plain under
-    autograd with respect to the G-buffer, the bump normals, the camera
-    position and every light and field level (tap_pallas.py:643-660).
-    The levels are views into one pack_mips buffer, so their gradients
-    reach the float32 mips through its bfloat16 cast."""
-
-    @staticmethod
-    def forward(ctx, kw, nlight, fwd, gbuf, scalars, bumpn, campos, *levels):
-        ctx.save_for_backward(gbuf, scalars, bumpn, campos, *levels)
-        ctx.kw, ctx.nlight = kw, nlight
-        return fwd(gbuf, scalars, bumpn, campos, levels[:nlight],
-                   levels[nlight:], **kw)
-
-    @staticmethod
-    def backward(ctx, gout):
-        nl = ctx.nlight
-
-        def plain(g, sc, bn, cp, *lv):
-            return tap_plain(g, sc, bn, cp, lv[:nl], lv[nl:], **ctx.kw)
-
-        grads = _build.replay_grads(plain, ctx.saved_tensors,
-                                    ctx.needs_input_grad[3:], gout)
-        return (None, None, None) + grads[:1] + (None,) + grads[2:]
+def flat(fn, nlight: int, **kw):
+    """fn (tap_plain or tap_cuda) over its tensors in one row, as
+    _build.Replay passes them: gbuf, scalars, bumpn, campos, then the
+    nlight light levels and the field levels."""
+    return lambda g, sc, bn, cp, *lv: fn(g, sc, bn, cp, lv[:nlight],
+                                         lv[nlight:], **kw)
 
 
 def tap_tiles(gbuf: Tensor,                 # (ntiles*tile, >=15) tile-major
@@ -308,7 +285,10 @@ def tap_tiles(gbuf: Tensor,                 # (ntiles*tile, >=15) tile-major
     basis)."""
     if _build.uses_kernel(gbuf, scalars, bumpn, campos, *light_mips,
                           *field_mips):
-        return Tap.apply(kw, len(light_mips), tap_cuda, gbuf, scalars,
-                         bumpn, campos, *light_mips, *field_mips)
+        nl = len(light_mips)
+        return _build.Replay.apply(flat(tap_cuda, nl, **kw),
+                                   flat(tap_plain, nl, **kw), (), gbuf,
+                                   scalars, bumpn, campos, *light_mips,
+                                   *field_mips)
     return tap_plain(gbuf, scalars, bumpn, campos, light_mips, field_mips,
                      **kw)
