@@ -1007,6 +1007,8 @@ def measure(h, cfg, q, what, chunks=None):
 
 
 DENSE_REPS = 5            # the dense march's timing samples, one launch each
+TAP_SUNS = 64             # suns of the relight traffic's path for the taps
+TAP_SUN_SEED = 2_700_000_027
 
 
 def dense_path(h, cfg, voxels):
@@ -1023,13 +1025,16 @@ def dense_path(h, cfg, voxels):
     dense_kernel_pack launches, one a march and none where every level is
     already packed, its bytes, and the copy equal to pack_levels_plain's),
     the kernel's time (CUDA events around one launch, the pack included),
-    the plain version's, and the bound from ops/dense.march_work.  Then
+    the plain version's, and the bound from ops/dense.march_work; and the
+    plan (march_plan: the direction-free half from core/dense.py's memo,
+    the tap table from one dense_kernel_taps launch) equal field for field
+    to the host build (direction_taps through ops/dense.make_plan).  Then
     the same checks on the three marches over the pyramids in bfloat16
     (bfloat16 compute: the fields read their levels as they are) and on
     sponza256_aniso's two field marches over the 6-direction pyramid of
     the build's level 0 (ops/aniso), in bfloat16, float32 and over
     bfloat16 levels.  The kernels line's row is the bfloat16 build's three
-    marches together."""
+    marches together.  Last the tap table alone (tap_path)."""
     from vct_tpu_torch import bench
     from vct_tpu_torch.core import dense as D
     from vct_tpu_torch.ops import aniso as OA
@@ -1070,6 +1075,7 @@ def dense_path(h, cfg, voxels):
         (mips, plan, bytes, ops)."""
         plan = D.march_plan(mips, dirs, sched, ws, compute_dtype=compute,
                             **kw)
+        same_plan = plan_equal(plan, mips, dirs, sched, kw, compute, ws)
         wk = torch.empty(plan.shape + (plan.nb,), dtype=torch.int32,
                          device=mips[0].device)
         wp = torch.empty_like(wk)
@@ -1110,7 +1116,8 @@ def dense_path(h, cfg, voxels):
               f"{plan.idx.shape[1]} taps a direction), "
               f"{int(wk.sum())} steps taken before the early-outs (the "
               f"kernel's count equal to the plain version's "
-              f"{same_walk}); max_abs_err {e:.3e}, {unequal} elements not "
+              f"{same_walk}); the plan (card-built taps) equal to the host "
+              f"build's {same_plan}; max_abs_err {e:.3e}, {unequal} elements not "
               f"bit-equal of {out_k.numel()}; the build's output equal "
               f"{same_built} (None: not the build's march); pack "
               f"launches {packs} (expected {want_packs}), packed bytes "
@@ -1120,7 +1127,7 @@ def dense_path(h, cfg, voxels):
               f"bound {bms:.4f} ms "
               f"({by}: {b:.4g} B, {o:.4g} ops at {FP32_RN_OPS_PER_S:.4g}/s)")
         if not (unequal == 0 and same_walk and same_built is not False
-                and same_pack and packs == want_packs):
+                and same_pack and packs == want_packs and same_plan):
             fail(f"the dense-march kernel disagrees with its plain "
                  f"version on the {what}{tag} ({compute})")
         return mips, plan, b, o
@@ -1166,6 +1173,142 @@ def dense_path(h, cfg, voxels):
                  elapsed_ms(all_kernel, DENSE_REPS),
                  elapsed_ms(all_plain, PLAIN_REPS), nbytes, ops,
                  rate=FP32_RN_OPS_PER_S)
+    tap_path(h, cfg, voxels, marches(voxels.unlit_mips,
+                                     voxels.radiance_mips))
+
+
+def plan_equal(plan, mips, dirs, sched, kw, compute, ws) -> bool:
+    """A march_plan Plan against the host build of the same march: every
+    table from direction_taps and step_table through ops/dense.make_plan,
+    on the same device; field for field, bit for bit."""
+    from vct_tpu_torch.core import dense as D
+    from vct_tpu_torch.ops import dense as OD
+    dims = [m.shape[0] for m in mips]
+    df = kw["field_dim"]
+    lod_plan, groups = D.plan_groups(sched.lods, len(dims))
+    idx, w = D.direction_taps(np.asarray(dirs, np.float64), sched, groups,
+                              dims, df, ws, compute)
+    host = OD.make_plan(
+        [(idx[:, :, a], w[:, :, a]) for a in range(3)], D.tap_levels(groups),
+        D.step_table(sched, lod_plan, groups,
+                     kw.get("occlusion_falloff", 0.03)), dirs, (df,) * 3,
+        mips[0].device, compute, sched.step_factor,
+        kw.get("max_alpha", 0.95), kw.get("opacity_gain", 1.0),
+        kw.get("transmittance_only", False))
+    for f in dataclasses.fields(OD.Plan):
+        a, b = getattr(plan, f.name), getattr(host, f.name)
+        if not (torch.equal(a, b) if isinstance(b, torch.Tensor)
+                else a == b):
+            return False
+    return True
+
+
+def tap_path(h, cfg, voxels, marches):
+    """The march's tap table on the card (csrc/dense.cu dense_kernel_taps,
+    core/dense.py march_plan).  The light volume's plan under TAP_SUNS
+    suns of the relight traffic's path (vctbench/traffic/relight.json) in
+    bfloat16 and float32, each equal to the host build (plan_equal); the
+    taps kernel's device time for the build's three marches (a CUDA graph
+    of launches) beside the host's direction_taps; march_plan's host time
+    a call once its direction-free half is in the memo; then two relight
+    steps' marches as build_voxel_state makes them under a new sun: the
+    second finds all three halves in the memo (3 hits, 0 misses) and
+    launches dense_kernel_taps 3 times, and march_plan syncs with the
+    card 0 times (torch's sync debug mode)."""
+    from vct_tpu_torch.core import dense as D
+    from vct_tpu_torch.ops import dense as OD
+    from vct_tpu_torch.profile_stages import count_syncs
+    from vct_tpu_torch.render import shading
+    from vctbench.inputs import traffic
+
+    ws = cfg.grid.world_size
+    mix = json.loads(pathlib.Path("vctbench/traffic/relight.json")
+                     .read_text())
+    suns = traffic.make_paths(mix, TAP_SUN_SEED, TAP_SUNS).light
+    _, unlit, _, light_sched, light_kw, _ = marches[0]
+    equal = 0
+    for sun in suns:
+        d = (np.asarray(sun, np.float64) / np.linalg.norm(sun))[None]
+        for compute in (torch.bfloat16, torch.float32):
+            plan = D.march_plan(unlit, d, light_sched, ws,
+                                compute_dtype=compute, **light_kw)
+            equal += plan_equal(plan, unlit, d, light_sched, light_kw,
+                                compute, ws)
+    h.say(f"dense taps: the light volume's plan under {TAP_SUNS} suns of "
+          f"the relight traffic's path (seed {TAP_SUN_SEED}), bfloat16 and "
+          f"float32: {equal} of {2 * TAP_SUNS} equal to the host build's, "
+          f"tap table bit for bit")
+    if equal != 2 * TAP_SUNS:
+        fail("the card-built tap table differs from direction_taps under "
+             "the relight traffic's suns")
+
+    compute = shading.march_compute_dtype(cfg)
+    for what, mips, dirs, sched, kw, _ in marches:
+        plan_kw = dict(kw, compute_dtype=compute)
+        D.march_plan(mips, dirs, sched, ws, **plan_kw)
+        half = D.march_half(mips, sched, ws, **plan_kw)
+        ms = graph_ms(lambda: OD.taps_cuda(
+            dirs, half.tap_dist, half.tap_dl, kw["field_dim"], ws, compute),
+            KERNEL_REPS, KERNEL_BATCH)
+        host = []
+        for _ in range(20):
+            sync()
+            t0 = time.perf_counter()
+            D.march_plan(mips, dirs, sched, ws, **plan_kw)
+            host.append((time.perf_counter() - t0) * 1e3)
+        plain = []
+        for _ in range(3):
+            _, groups = D.plan_groups(sched.lods, len(mips))
+            t0 = time.perf_counter()
+            D.direction_taps(np.asarray(dirs, np.float64), sched, groups,
+                             [m.shape[0] for m in mips], kw["field_dim"],
+                             ws, compute)
+            plain.append((time.perf_counter() - t0) * 1e3)
+        entries = 3 * dirs.shape[0] * len(half.levels) * kw["field_dim"]
+        h.say(f"dense taps, {what}: {dirs.shape[0]} directions x "
+              f"{len(half.levels)} taps x 3 axes x {kw['field_dim']} cells "
+              f"({entries} entries, {8 * 2 * entries} bytes written); "
+              f"kernel {statistics.median(ms):.4f} ms (median of a graph "
+              f"over {ms}), host direction_taps "
+              f"{statistics.median(plain):.3f} ms; march_plan on the host "
+              f"{statistics.median(host):.3f} ms a call (median of 20, "
+              f"min {min(host):.3f}, max {max(host):.3f})")
+
+    def relight_marches(sun):
+        scfg = dataclasses.replace(cfg, light=dataclasses.replace(
+            cfg.light, direction=tuple(float(x) for x in sun)))
+        shading.build_light_volume(scfg, voxels.unlit_mips)
+        shading.build_cone_field(scfg, voxels.radiance_mips,
+                                 shading.diffuse_schedule(scfg))
+        shading.build_cone_field(scfg, voxels.radiance_mips,
+                                 shading.specular_field_schedule(scfg))
+
+    relight_marches(suns[0])
+    sync()
+    info0, n0 = D.plan_memo_info(), _build.launches()
+    relight_marches(suns[1])
+    sync()
+    info1, n1 = D.plan_memo_info(), _build.launches()
+    hits, misses = info1.hits - info0.hits, info1.misses - info0.misses
+    taps = n1["dense_taps"] - n0["dense_taps"]
+    marched = n1["dense_march"] - n0["dense_march"]
+
+    def plans():
+        d = np.asarray(suns[2], np.float64)
+        for what, mips, dirs, sched, kw, _ in marches:
+            D.march_plan(mips, (d / np.linalg.norm(d))[None]
+                         if what == "light volume" else dirs, sched, ws,
+                         compute_dtype=compute, **kw)
+
+    syncs = count_syncs(plans)
+    h.say(f"dense taps in a relight step's marches (the second of two "
+          f"suns): memo hits {hits}, misses {misses} (expected 3, 0), "
+          f"dense_taps launches {taps} (expected 3), dense_march {marched}; "
+          f"host syncs in the three march_plan calls {syncs} (expected 0); "
+          f"memo {D.plan_memo_info()}")
+    if (hits, misses, taps, marched, syncs) != (3, 0, 3, 3, 0):
+        fail("a relight step's marches built a tap table on the host, "
+             "missed the memo or synchronised with the card")
 
 
 def mip_check(h, chains, what, aniso=()):
@@ -1362,7 +1505,7 @@ def map_aniso_path(h, dev):
         fail(f"7b: anisotropic pyramid launches {build_b['aniso']} in the "
              f"build, expected {levels}")
     h.expect(build_b, (), tuple(k for k in only_mip if k not in (
-        "dense_march", "dense_pack", "aniso")), "7b build")
+        "dense_march", "dense_pack", "dense_taps", "aniso")), "7b build")
     h.expect(frame_b, (), only_mip, "7b frame")
     rad = qb["voxels"].radiance_mips
     if not A.is_aniso_stack(rad):
@@ -1588,7 +1731,7 @@ def rank_8b(dev_type: str, dim: int, width: int, height: int) -> dict:
     out = dict(rank=rank, backend=str(dist.get_backend()),
                build_ms=(time.perf_counter() - t0) * 1e3,
                staged_bytes=comm.STAGED_BYTES, mip=n["mip"],
-               dense=n["dense_march"],
+               dense=n["dense_march"], taps=n["dense_taps"],
                samples=samples.positions.shape[0],
                halos=halos, sharded=sharded)
     if rank == 0:
@@ -1636,6 +1779,7 @@ def rank_8c(dev_type: str, dim: int, width: int, height: int) -> dict:
     build_ms = (time.perf_counter() - t0) * 1e3
     n = _build.launches()
     staged, mips, marches = comm.STAGED_BYTES, n["mip"], n["dense_march"]
+    taps = n["dense_taps"]
     levels = len(state.radiance_mips) - 1
     camera = tile_dp.shardmap_camera_fn(cfg, ds, mesh, chunk_size=CHUNK)
     t0 = time.perf_counter()
@@ -1647,7 +1791,8 @@ def rank_8c(dev_type: str, dim: int, width: int, height: int) -> dict:
     out = dict(rank=rank, coord=(mesh.get_local_rank("data"),
                                  mesh.get_local_rank("model")),
                build_ms=build_ms, staged_bytes=staged, mip=mips,
-               dense=marches, levels=levels, camera_ms=camera_ms, camera_calls=dict(calls),
+               dense=marches, taps=taps, levels=levels, camera_ms=camera_ms,
+               camera_calls=dict(calls),
                rows=tuple(rows.shape))
     del state, rows
     if rank == 0:
@@ -1712,9 +1857,8 @@ def multihost_path(h, dev, dim_a=512, dim_c=DIM_8C, size=(WIDTH, HEIGHT)):
     if build_a["dense_march"] != 1:
         fail(f"8a: dense-march launches {build_a['dense_march']} in the "
              f"build, expected 1 (the light volume)")
-    h.expect(build_a, (), tuple(k for k in only_mip
-                                if k not in ("dense_march", "dense_pack")),
-             "8a build")
+    h.expect(build_a, (), tuple(k for k in only_mip if k not in (
+        "dense_march", "dense_pack", "dense_taps")), "8a build")
     h.expect(frame_a, (), only_mip, "8a frame")
     mip_check(h, ((qa["voxels"].unlit_mips, "max"),
                   (qa["voxels"].radiance_mips, "mean")), "8a")
@@ -1739,8 +1883,8 @@ def multihost_path(h, dev, dim_a=512, dim_c=DIM_8C, size=(WIDTH, HEIGHT)):
           f"{[round(r['build_ms'], 3) for r in ranks]}, bytes staged "
           f"through the host {[r['staged_bytes'] for r in ranks]}, mip "
           f"launches {[r['mip'] for r in ranks]}, dense-march launches "
-          f"(the brick-sharded light volume) {[r['dense'] for r in ranks]}; "
-          f"path 8b "
+          f"(the brick-sharded light volume) {[r['dense'] for r in ranks]}, "
+          f"dense-taps launches {[r['taps'] for r in ranks]}; path 8b "
           f"{time.perf_counter() - t0:.1f} s")
     h.say("8b sharded against unsharded on rank 0: light volume "
           + json.dumps(r0["light_volume"]) + f" (rtol/atol {LIGHT_TOL}), "
@@ -1755,6 +1899,9 @@ def multihost_path(h, dev, dim_a=512, dim_c=DIM_8C, size=(WIDTH, HEIGHT)):
     if any(r["dense"] != 1 for r in ranks):
         fail("8b: a rank did not march its light-volume slab through the "
              "dense-march kernel once")
+    if any(r["taps"] != 1 for r in ranks):
+        fail("8b: a rank did not write its slab's tap table on the card "
+             "(dense_kernel_taps) once")
     result["8b"] = dict(build_ms=[r["build_ms"] for r in ranks],
                         staged_bytes=[r["staged_bytes"] for r in ranks],
                         light=r0["light_volume"], radiance=r0["radiance"])
@@ -1769,7 +1916,8 @@ def multihost_path(h, dev, dim_a=512, dim_c=DIM_8C, size=(WIDTH, HEIGHT)):
           f"{[round(r['build_ms'], 1) for r in ranks]}, bytes staged "
           f"{[r['staged_bytes'] for r in ranks]}, mip launches "
           f"{[r['mip'] for r in ranks]}, dense-march launches "
-          f"{[r['dense'] for r in ranks]}, camera pass ms "
+          f"{[r['dense'] for r in ranks]}, dense-taps launches "
+          f"{[r['taps'] for r in ranks]}, camera pass ms "
           f"{[round(r['camera_ms'], 1) for r in ranks]} for rows "
           f"{ranks[0]['rows']}, torch.distributed calls in the camera pass "
           f"{[r['camera_calls'] for r in ranks]}")
@@ -1788,6 +1936,9 @@ def multihost_path(h, dev, dim_a=512, dim_c=DIM_8C, size=(WIDTH, HEIGHT)):
     if any(r["dense"] != 1 for r in ranks):
         fail("8c: a rank did not march its light-volume slab through the "
              "dense-march kernel once")
+    if any(r["taps"] != 1 for r in ranks):
+        fail("8c: a rank did not write its slab's tap table on the card "
+             "(dense_kernel_taps) once")
     # each step builds both pyramids and differentiates the radiance
     # one; the field build after the steps builds both again
     dry = (2 * DRYRUN_LEVELS * (DRYRUN_STEPS + 1),
@@ -2340,6 +2491,7 @@ def scaling_path(h, dev, settings=None, counts=None):
     from vct_tpu_torch import bench_scaling as BS
     from vct_tpu_torch import entry as E
     from vct_tpu_torch.core import dense as D
+    from vct_tpu_torch.ops import dense as OD
     from vct_tpu_torch.render import shading
 
     t12 = time.perf_counter()
@@ -2374,7 +2526,8 @@ def scaling_path(h, dev, settings=None, counts=None):
                      f"{rec['mip_launches']}, expected {2 * levels} (2 x "
                      f"{levels} levels)")
             others = {k: v for k, v in rec["launches"].items()
-                      if k not in ("mip", "dense_march", "dense_pack") and v}
+                      if k not in ("mip", "dense_march", "dense_pack",
+                                   "dense_taps") and v}
             if others:
                 fail(f"12 {mode} n={n}: the ranks launched {others}")
             # the dense march: 3 a rank's build, one a timed march call
@@ -2385,6 +2538,14 @@ def scaling_path(h, dev, settings=None, counts=None):
             if rec["launches"]["dense_march"] != marches:
                 fail(f"12 {mode} n={n}: dense-march launches "
                      f"{rec['launches']['dense_march']}, expected {marches}")
+            # each march's tap table written on the card, sharded or not:
+            # one launch for each of a build's 3 marches, one for each
+            # MAX_TAP_DIRECTIONS of the timed and checked marches' dirs
+            taps = 3 * n + -(-dirs // OD.MAX_TAP_DIRECTIONS) * (marches
+                                                                - 3 * n)
+            if rec["launches"]["dense_taps"] != taps:
+                fail(f"12 {mode} n={n}: dense-taps launches "
+                     f"{rec['launches']['dense_taps']}, expected {taps}")
             if not all(0 < rec[k] < float("inf") for k in (
                     "rays_per_s", "cone_samples_per_s")):
                 fail(f"12 {mode} n={n}: a throughput is not finite")
@@ -2418,7 +2579,7 @@ def scaling_path(h, dev, settings=None, counts=None):
     if entry_launches["mip"] != 2 * entry_levels or entry_launches[
             "dense_march"] != 1 or any(
             v for k, v in entry_launches.items()
-            if k not in ("mip", "dense_march", "dense_pack")):
+            if k not in ("mip", "dense_march", "dense_pack", "dense_taps")):
         fail(f"12 entry(): launches {entry_launches}, expected mip "
              f"{2 * entry_levels}, dense_march 1 (the light volume) and no "
              f"other kernel")

@@ -24,7 +24,12 @@ Bounds:
     over it equal to the bit to the plain march over the levels; the
     wrapper's host side (level_slots, pack_levels_cuda with the library
     stood in for, level_table) packing exactly the levels the kernel
-    cannot read as they are, into aligned, disjoint slots of one buffer.
+    cannot read as they are, into aligned, disjoint slots of one buffer;
+  * the plan's two halves (core/dense.py march_plan): the memoised route
+    equal field for field to the host build, on a hit and on a miss; a
+    hit on a repeat under another direction and a miss on a change of
+    every value the direction-free half is keyed on; the extent from each
+    row's last cell equal to make_plan's from the whole table.
 """
 
 import ctypes
@@ -176,17 +181,27 @@ def test_plain_matches_jax(compute, transmittance, stack, sf):
     assert float(a.abs().max()) > 0
 
 
-def _plan(mips, dirs, sched, df, transmittance=False, compute=None):
-    wd = compute or torch.float32
+def _host_plan(mips, dirs, sched, compute, field_dim, max_alpha=0.95,
+               occlusion_falloff=0.03, opacity_gain=1.0,
+               transmittance_only=False, world_size=WS):
+    """The Plan as the port built it before the memo: every table on the
+    host (direction_taps, step_table) through ops/dense.make_plan."""
     dims = [m.shape[0] for m in mips]
     lod_plan, groups = D.plan_groups(sched.lods, len(dims))
     idx, w = D.direction_taps(np.asarray(dirs, np.float64), sched, groups,
-                              dims, df, WS, wd)
+                              dims, field_dim, world_size, compute)
     return OD.make_plan([(idx[:, :, a], w[:, :, a]) for a in range(3)],
                         D.tap_levels(groups),
-                        D.step_table(sched, lod_plan, groups, 0.03), dirs,
-                        (df, df, df), mips[0].device, wd, sched.step_factor,
-                        0.95, 1.0, transmittance)
+                        D.step_table(sched, lod_plan, groups,
+                                     occlusion_falloff), dirs,
+                        (field_dim,) * 3, mips[0].device, compute,
+                        sched.step_factor, max_alpha, opacity_gain,
+                        transmittance_only)
+
+
+def _plan(mips, dirs, sched, df, transmittance=False, compute=None):
+    return _host_plan(mips, dirs, sched, compute or torch.float32, df,
+                      transmittance_only=transmittance)
 
 
 def test_plan_layout_and_extent():
@@ -547,3 +562,205 @@ def test_pack_levels_cuda_host_side(stack, transmittance, compute,
         assert nd[i] == (6 if A.is_aniso_level(t) else 1)
         # z's stride is the voxel's nd * C values, as the kernel assumes
         assert t.stride(2) == nd[i] * plan.channels
+
+
+# ---------------------------------------------------------------------------
+# the plan's two halves: the direction-free memo and the tap table
+# ---------------------------------------------------------------------------
+
+def _levels_32(stack):
+    """sponza256's pyramid cut to 32^3, as shapes: zeros, 6-direction
+    above level 0 for the anisotropic stack."""
+    return [torch.zeros((32 >> i,) * 3 + ((6, 4) if stack == "aniso" and i
+                                          else (4,)))
+            for i in range(6)]
+
+
+def _march_32(which):
+    """(schedule, directions, march_plan keywords) of one of sponza256's
+    three marches at 32^3: the light volume, or a field over its basis."""
+    cfg = sponza32()
+    _, sched, light, df = {s[0]: s for s in schedules_32()}[which]
+    if which == "light":
+        return sched, light, dict(field_dim=df, transmittance_only=True,
+                                  opacity_gain=cfg.shadow.opacity_gain)
+    return sched, D.direction_basis(cfg.cones.field_basis), dict(
+        field_dim=df, max_alpha=cfg.cones.max_alpha,
+        occlusion_falloff=cfg.cones.occlusion_falloff)
+
+
+def _assert_plans_equal(got, want):
+    for f in dataclasses.fields(OD.Plan):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(b, torch.Tensor):
+            assert a.dtype == b.dtype and torch.equal(a, b), f.name
+        else:
+            assert a == b, f.name
+
+
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stack", ["iso", "aniso"])
+@pytest.mark.parametrize("which", ["light", "diffuse", "specular"])
+def test_memoised_plan_equals_the_host_build(which, stack, compute):
+    """march_plan (the direction-free half from the memo, the tap table
+    from direction_taps on the CPU, extent from the last cells) gives the
+    host build's Plan field for field, on a miss and on a hit."""
+    mips = _levels_32(stack)
+    sched, dirs, kw = _march_32(which)
+    want = _host_plan(mips, dirs, sched, compute, **kw)
+    for _ in range(2):
+        _assert_plans_equal(D.march_plan(mips, dirs, sched, WS,
+                                         compute_dtype=compute, **kw), want)
+
+
+@pytest.fixture
+def fresh_memo():
+    """plan_half's memo emptied, so that a miss counted in the test is the
+    test's own and not an earlier test's entry."""
+    D.plan_half.cache_clear()
+    yield
+    D.plan_half.cache_clear()
+
+
+def _memo_delta(call):
+    before = D.plan_memo_info()
+    out = call()
+    after = D.plan_memo_info()
+    return out, (after.hits - before.hits, after.misses - before.misses)
+
+
+MEMO_CHANGES = {
+    "schedule": lambda a: dict(a, sched=M.march_schedule(0.2, WS / 32,
+                                                         75.0)),
+    "level sizes": lambda a: dict(a, mips=a["mips"][:-1]),
+    "field shape": lambda a: dict(a, field_dim=8),
+    "dtype": lambda a: dict(a, compute=torch.bfloat16),
+    "falloff": lambda a: dict(a, occlusion_falloff=0.05),
+    "max alpha": lambda a: dict(a, max_alpha=0.9),
+    "gain": lambda a: dict(a, opacity_gain=2.0),
+    "transmittance": lambda a: dict(a, transmittance_only=True),
+    "world size": lambda a: dict(a, world_size=WS / 2),
+}
+
+
+def _memo_args():
+    return dict(mips=_levels_32("iso"), sched=M.march_schedule(
+        0.3, WS / 32, 75.0), field_dim=16, compute=torch.float32,
+        occlusion_falloff=0.03, max_alpha=0.95, opacity_gain=1.0,
+        transmittance_only=False, world_size=WS)
+
+
+def _memo_plan(a, dirs):
+    return D.march_plan(a["mips"], dirs, a["sched"], a["world_size"],
+                        field_dim=a["field_dim"], max_alpha=a["max_alpha"],
+                        occlusion_falloff=a["occlusion_falloff"],
+                        opacity_gain=a["opacity_gain"],
+                        transmittance_only=a["transmittance_only"],
+                        compute_dtype=a["compute"])
+
+
+@pytest.mark.parametrize("change", sorted(MEMO_CHANGES))
+def test_plan_memo_hits_on_a_repeat_and_misses_on_a_change(change,
+                                                          fresh_memo):
+    """A repeated call, under another direction, finds the direction-free
+    half in the memo (the same step tables, no copy); a change of any
+    value it depends on misses, and the plan then equals the host
+    build's."""
+    a = _memo_args()
+    dirs = D.direction_basis(6)[:2].astype(np.float64)
+    _memo_delta(lambda: _memo_plan(a, dirs))
+    first, seen = _memo_delta(lambda: _memo_plan(a, dirs[::-1]))
+    assert seen == (1, 0)
+    again, seen = _memo_delta(lambda: _memo_plan(a, dirs))
+    assert seen == (1, 0) and again.step_i is first.step_i
+    b = MEMO_CHANGES[change](a)
+    got, seen = _memo_delta(lambda: _memo_plan(b, dirs))
+    assert seen == (0, 1) and got.step_i is not first.step_i
+    _assert_plans_equal(got, _host_plan(
+        b["mips"], dirs, b["sched"], b["compute"], b["field_dim"],
+        b["max_alpha"], b["occlusion_falloff"], b["opacity_gain"],
+        b["transmittance_only"], b["world_size"]))
+
+
+def test_plan_memo_misses_on_another_device(fresh_memo):
+    """The device is part of the key: the same values on another device
+    build their own half there (a meta tensor stands in for the card)."""
+    a = _memo_args()
+    key = (a["sched"], tuple(m.shape[0] for m in a["mips"]), 16, WS,
+           torch.float32, 0.03, 0.95, 1.0, False)
+    cpu, _ = _memo_delta(lambda: D.plan_half(*key, torch.device("cpu")))
+    again, seen = _memo_delta(lambda: D.plan_half(*key, torch.device("cpu")))
+    assert seen == (1, 0) and again is cpu
+    meta, seen = _memo_delta(lambda: D.plan_half(*key, torch.device("meta")))
+    assert seen == (0, 1) and meta.step_i.device.type == "meta"
+    assert meta.tap_dist.device.type == "meta"
+    assert meta.steps == cpu.steps and meta.levels == cpu.levels
+    # the held arrays are read-only
+    assert not cpu.dist.flags.writeable and not cpu.dl.flags.writeable
+
+
+def _directions(kind, n=12, seed=29):
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    if kind == "axis":
+        return D.direction_basis(6).astype(np.float64)
+    if kind == "negative":
+        return -np.abs(d)
+    return d
+
+
+@pytest.mark.parametrize("which", ["light", "diffuse", "specular"])
+@pytest.mark.parametrize("kind", ["random", "axis", "negative", "clamp"])
+def test_last_cell_extent_equals_the_table_extent(kind, which):
+    """tap_extent reads each (direction, tap, axis)'s last cell alone;
+    make_plan reduces the whole table: the same extent.  "clamp" marches
+    in a world of 1/20 the size, so shifts run past both edges."""
+    mips = _levels_32("iso")
+    sched, _, kw = _march_32(which)
+    dirs = _directions(kind)
+    ws = WS / 20 if kind == "clamp" else WS
+    dims = tuple(m.shape[0] for m in mips)
+    df = kw["field_dim"]
+    half = D.plan_half(sched, dims, df, ws, torch.float32, 0.03, 0.95, 1.0,
+                       False, torch.device("cpu"))
+    lod_plan, groups = D.plan_groups(sched.lods, len(dims))
+    idx, w = D.direction_taps(dirs, sched, groups, dims, df, ws,
+                              torch.float32)
+    want = OD.make_plan([(idx[:, :, a], w[:, :, a]) for a in range(3)],
+                        D.tap_levels(groups), [], dirs, (df,) * 3, "cpu",
+                        torch.float32, 1.0, 0.95, 1.0, False).extent
+    assert D.tap_extent(dirs, half) == want
+    if kind == "clamp":
+        top = np.asarray(dims)[list(half.levels)][None, :, None, None, None]
+        assert bool((idx == 0).any()) and bool((idx == top - 1).any())
+
+
+def _weight_directions(kind):
+    """Directions for direction_weights: 64 suns of the relight traffic's
+    path (vctbench/traffic/relight.json), the 26-direction basis, or 4096
+    random ones with zero, negative-zero and axis components among them."""
+    if kind == "relight suns":
+        import json
+        import pathlib
+        from vctbench.inputs import traffic
+        mix = json.loads((pathlib.Path(__file__).parents[1] / "vctbench"
+                          / "traffic" / "relight.json").read_text())
+        return traffic.make_paths(mix, 2 ** 31 + 27, 64).light
+    if kind == "basis":
+        return D.direction_basis(26).astype(np.float64)
+    d = np.random.default_rng(27).normal(size=(4096, 3))
+    d[:64, 0], d[64:128, 1] = 0.0, -0.0
+    d[128:192, 1:] = 0.0
+    return d
+
+
+@pytest.mark.parametrize("kind", ["relight suns", "basis", "random"])
+def test_direction_weights_equal_aniso_weights_static(kind):
+    """Plan.w6 over every direction at once equals aniso_weights_static a
+    direction at a time, bit for bit."""
+    dirs = _weight_directions(kind)
+    want = np.stack([A.aniso_weights_static(d) for d in dirs])
+    got = OD.direction_weights(dirs)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))

@@ -30,7 +30,8 @@ LAUNCHERS = [("vct_mip_downsample", "mip", 1),
              ("vct_bin_table", "binning", 3),
              ("vct_specmarch", "specmarch", 1),
              ("vct_dense_march", "dense_march", 1),
-             ("vct_dense_pack", "dense_pack", 1)]
+             ("vct_dense_pack", "dense_pack", 1),
+             ("vct_dense_taps", "dense_taps", 1)]
 
 
 class _FakeLibrary:

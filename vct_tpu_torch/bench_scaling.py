@@ -62,8 +62,9 @@ and beside them rays and cone_samples (the work), t_camera_ms,
 t_march_ms, the weak controls, collective_calls (summed over the ranks),
 staged_bytes and mip_launches (a list, a rank each: each rank's build),
 launches (every kernel's launches, summed over the ranks: the builds'
-mip and dense-march launches and one dense-march launch a timed march;
-the camera pass launches none), card (nvidia-smi's name and power
+mip and dense-march launches and one dense-march launch a timed march,
+each march with the dense-taps launch that writes its tap table; the
+camera pass launches none), card (nvidia-smi's name and power
 limit) and ranks_share_one_card; then a summary line.
 Where the ranks share one card, the efficiencies measure that card's
 ranks over gloo, not more cards: weak_overhead_efficiency, t(n-fold work

@@ -38,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_L = ctypes.c_longlong
+_L, _D = ctypes.c_longlong, ctypes.c_double
 
 # launcher name -> (the launch counter's row, the kernels one call starts,
 # the argument types); every launcher takes the stream last and returns
@@ -103,6 +103,10 @@ SIGNATURES = {
     # level_bf16, compute_bf16, stream
     "vct_dense_pack": ("dense_pack", 1, (_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                          _P)),
+    # dirs (host array), nb, dist, dl, ntaps, n, world_size, compute_bf16,
+    # idx, w, stream
+    "vct_dense_taps": ("dense_taps", 1, (_P, _I, _P, _P, _I, _I, _D, _I, _P,
+                                         _P, _P)),
     # kernel reports: (nb, cfield,) info -> info[0:4] = registers, spill
     # bytes a thread, shared bytes a block, resident warps per SM
     "vct_tap_occupancy": (None, 0, (_I, _I, _P)),

@@ -393,6 +393,96 @@ VCT_EXPORT int vct_dense_pack(const long long* src_ptr,
     return launch_status();
 }
 
+// ---- the tap table -------------------------------------------------------
+//
+// The march's tap table, written on the card (core/dense.py march_plan):
+// for every direction b, tap j, axis and output cell i along it, the two
+// nonzeros of the reference's interpolation-matrix row, in core/dense.py
+// direction_taps' arithmetic, operation for operation: in float64 the
+// shift s = (d * dist) / (ws / dl) and t = ((i + 0.5) * (dl / n) + s) -
+// 0.5; i0 = floor(t), f = t - i0 rounded to float32; clamp-to-edge
+// indices; w0 = 1 - f, w1 = f in float32, merged where both indices clamp
+// to one cell; each weight rounded to the compute dtype.  The *_rn
+// intrinsics keep nvcc from contracting a multiply and an add into one
+// fused operation, so the table equals the host's bit for bit.
+
+constexpr int kTapThreads = 256;
+constexpr int kMaxTapDirs = 64;
+
+// the directions, by value: no copy to the card before the launch
+struct TapDirs {
+    double d[kMaxTapDirs][3];
+};
+
+// one thread a (direction, tap, axis, cell) entry; rows of the output as
+// the march reads them, (nb, ntaps, 6n): [x i0 | x i1 | y i0 | y i1 | z
+// i0 | z i1], n cells an axis
+template <bool BF>
+__global__ void __launch_bounds__(kTapThreads) dense_kernel_taps(
+    TapDirs D, const double* __restrict__ dist, const int* __restrict__ dl,
+    int ntaps, int n, double world_size, int* __restrict__ idx,
+    float* __restrict__ w) {
+    const long long per = 3LL * ntaps * n;
+    const long long e = static_cast<long long>(blockIdx.x) * blockDim.x
+                        + threadIdx.x;
+    if (e >= per) return;
+    const int b = blockIdx.y;
+    const int i = static_cast<int>(e % n);
+    const int ax = static_cast<int>((e / n) % 3);
+    const int j = static_cast<int>(e / (3LL * n));
+    const int L = dl[j];
+    const double ld = static_cast<double>(L);
+    const double shift = __ddiv_rn(__dmul_rn(D.d[b][ax], dist[j]),
+                                   __ddiv_rn(world_size, ld));
+    const double t = __dadd_rn(
+        __dadd_rn(__dmul_rn(__dadd_rn(static_cast<double>(i), 0.5),
+                            __ddiv_rn(ld, static_cast<double>(n))),
+                  shift),
+        -0.5);
+    const double fl = floor(t);
+    const float f = __double2float_rn(__dadd_rn(t, -fl));
+    const long long i0 = static_cast<long long>(fl);
+    const int i0c = static_cast<int>(min(max(i0, 0LL),
+                                         static_cast<long long>(L - 1)));
+    const int i1 = static_cast<int>(min(max(i0 + 1, 0LL),
+                                        static_cast<long long>(L - 1)));
+    const float one_m = __fsub_rn(1.0f, f);
+    const bool same = i0c == i1;
+    const float w0 = to_compute<BF>(same ? __fadd_rn(one_m, f) : one_m);
+    const float w1 = to_compute<BF>(same ? 0.0f : f);
+    const long long row = (static_cast<long long>(b) * ntaps + j) * 6LL * n
+                          + 2LL * ax * n;
+    idx[row + i] = i0c;
+    idx[row + n + i] = i1;
+    w[row + i] = w0;
+    w[row + n + i] = w1;
+}
+
+// dirs (nb x 3 float64) is a host array, at most kMaxTapDirs directions;
+// dist (ntaps float64: each tap's distance along the cone) and dl (ntaps
+// int32: the size of each tap's level) are on the card, as are idx
+// (int32) and w (float32), each (nb, ntaps, 6n).
+VCT_EXPORT int vct_dense_taps(const double* dirs, int nb, const double* dist,
+                              const int* dl, int ntaps, int n,
+                              double world_size, int compute_bf16, int* idx,
+                              float* w, cudaStream_t stream) {
+    const long long blocks = (3LL * ntaps * n + kTapThreads - 1) / kTapThreads;
+    if (nb < 1 || nb > kMaxTapDirs || ntaps < 1 || n < 1
+        || blocks >= (1LL << 31))
+        return static_cast<int>(cudaErrorInvalidValue);
+    TapDirs D;
+    for (int b = 0; b < nb; ++b)
+        for (int a = 0; a < 3; ++a) D.d[b][a] = dirs[3 * b + a];
+    const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(nb));
+    if (compute_bf16)
+        dense_kernel_taps<true><<<grid, kTapThreads, 0, stream>>>(
+            D, dist, dl, ntaps, n, world_size, idx, w);
+    else
+        dense_kernel_taps<false><<<grid, kTapThreads, 0, stream>>>(
+            D, dist, dl, ntaps, n, world_size, idx, w);
+    return launch_status();
+}
+
 template <typename CT, int NC, bool TRANS>
 static void launch(const Levels& L, const int* tidx, const float* tw,
                    int ntaps, const int* step_i, const float* step_f,

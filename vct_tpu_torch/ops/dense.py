@@ -3,10 +3,12 @@ vct_tpu/core/dense.py:134 directional_march_multi).
 
 `dense_march` launches `csrc/dense.cu` for CUDA tensors, once a call for
 every direction and cell, and runs the plain PyTorch version for CPU
-tensors.  Both read one `Plan`, built on the host by core/dense.py
-`march_plan` (or parallel/brick.py for a brick's x-slab): the tap table
-of every direction (int32 indices, float32 weights already rounded to
-the compute dtype), copied to the card once, and the step table.
+tensors.  Both read one `Plan`, made by core/dense.py `march_plan` (or
+parallel/brick.py for a brick's x-slab): the tap table of every
+direction (int32 indices, float32 weights already rounded to the compute
+dtype) and the step table.  For CUDA levels march_plan has the tap table
+written on the card by one `dense_kernel_taps` launch (`taps_cuda`); on
+the CPU it is core/dense.py direction_taps' host table.
 
 The plain version is the eager march the port ran before the kernel: per
 direction, each tap two `index_select`s and a lerp per axis (`_take3`),
@@ -38,6 +40,7 @@ from vct_tpu_torch.ops import _build
 Tensor = torch.Tensor
 
 MAX_LEVELS = 16    # csrc/dense.cu kMaxLevels
+MAX_TAP_DIRECTIONS = 64    # csrc/dense.cu kMaxTapDirs: one taps launch
 PACK_ALIGN = 16    # bytes: each packed level starts here (the widest load)
 # keep = (1 - a) ** sf as at::pow(Tensor, Scalar) evaluates it
 POW_MODES = {1.0: 0, 0.5: 1, 2.0: 2, 3.0: 3}
@@ -45,9 +48,9 @@ POW_MODES = {1.0: 0, 0.5: 1, 2.0: 2, 3.0: 3}
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """One march call, built on the host.  Output cells (nx, ny, nz) =
-    `shape`; `idx`/`w` (nb, ntaps, 2 (nx + ny + nz)) rows [x i0 | x i1 |
-    y i0 | y i1 | z i0 | z i1] on the march's device; `steps` per step
+    """One march call.  Output cells (nx, ny, nz) = `shape`; `idx`/`w`
+    (nb, ntaps, 2 (nx + ny + nz)) rows [x i0 | x i1 | y i0 | y i1 | z i0 |
+    z i1] on the march's device; `steps` per step
     (tap, level, second tap or -1, its level, w, 1 - w, attenuation), the
     floats float32 values as Python floats; `step_i`/`step_f` the same on
     the device for the kernel (step_f holds the attenuation's float32
@@ -87,32 +90,92 @@ def make_plan(axes, tap_levels: Sequence[int], steps, directions,
     the output's cells along that axis), each tap's level, the steps as
     (tap, level, second tap or -1, its level, w, 1 - w, attenuation) and
     the (nb, 3) directions.  Every table goes to `device` in one copy
-    through pinned memory (core/grid.constant)."""
+    through pinned memory (core/grid.constant).
+
+    The host build, every table reduced and the blend weights taken a
+    direction at a time: the oracle that tests and chip_smoke.py hold
+    core/dense.py march_plan's memo and card-built table to."""
     idx = np.concatenate([np.asarray(i).reshape(i.shape[:2] + (-1,))
                           for i, _ in axes], axis=2).astype(np.int32)
     w = np.concatenate([np.asarray(v).reshape(v.shape[:2] + (-1,))
                         for _, v in axes], axis=2).astype(np.float32)
-    # per tap the highest index + 1 along x, y, z; per level their maximum
+    # per tap the highest index + 1 along x, y, z
     reach = np.stack([np.asarray(i).max(axis=(0, 2, 3)) + 1 for i, _ in axes],
                      axis=1)
-    extent = {}
-    for j, lvl in enumerate(tap_levels):
-        extent[lvl] = np.maximum(extent.get(lvl, 0), reach[j])
+    step_i, step_f = step_tables(steps, device)
+    return Plan(shape=tuple(shape), idx=G.constant(idx, device, torch.int32),
+                w=G.constant(w, device), steps=tuple(steps), step_i=step_i,
+                step_f=step_f,
+                w6=G.constant(np.stack([A.aniso_weights_static(d)
+                                        for d in directions]), device),
+                extent=level_extent(reach, tap_levels), compute=compute,
+                step_factor=float(step_factor), max_alpha=float(max_alpha),
+                opacity_gain=float(opacity_gain),
+                transmittance=bool(transmittance))
+
+
+def step_tables(steps, device) -> Tuple[Tensor, Tensor]:
+    """The steps on `device` for the kernel: step_i int32 (nsteps, 4) and
+    step_f float32 (nsteps, 3), the attenuation as its float32
+    reciprocal."""
     step_i = np.array([s[:4] for s in steps], np.int32).reshape(-1, 4)
     step_f = np.array([(s[4], s[5], np.float32(1.0) / np.float32(s[6]))
                        for s in steps], np.float32).reshape(-1, 3)
-    w6 = np.stack([A.aniso_weights_static(d) for d in directions])
-    return Plan(shape=tuple(shape), idx=G.constant(idx, device, torch.int32),
-                w=G.constant(w, device), steps=tuple(steps),
-                step_i=G.constant(step_i, device, torch.int32),
-                step_f=G.constant(step_f, device),
-                w6=G.constant(w6, device),
-                extent={k: tuple(int(e) for e in v)
-                        for k, v in extent.items()},
-                compute=compute, step_factor=float(step_factor),
-                max_alpha=float(max_alpha),
-                opacity_gain=float(opacity_gain),
-                transmittance=bool(transmittance))
+    return (G.constant(step_i, device, torch.int32),
+            G.constant(step_f, device))
+
+
+def level_extent(reach, tap_levels: Sequence[int]) -> dict:
+    """Plan.extent from each tap's highest index + 1 along x, y, z (ntaps,
+    3): per level the maximum over its taps."""
+    levels = np.asarray(tap_levels)
+    order = np.argsort(levels, kind="stable")
+    keys, starts = np.unique(levels[order], return_index=True)
+    top = np.maximum.reduceat(np.asarray(reach)[order], starts, axis=0)
+    return {int(k): tuple(int(e) for e in t) for k, t in zip(keys, top)}
+
+
+def direction_weights(directions) -> np.ndarray:
+    """Plan.w6 on the host: (nb, 6) float32, each direction's static
+    anisotropic blend weights, core/aniso.py aniso_weights_static over
+    every direction at once.  The norm is summed in another order than
+    aniso_weights_static's dot; the float32 weights absorb that, and
+    tests/test_torch_dense.py holds them equal to its own."""
+    d = np.asarray(directions, np.float64).reshape(-1, 3)
+    d = d / np.sqrt(np.sum(d * d, axis=1, keepdims=True))
+    sq, neg = d * d, d < 0
+    return np.stack([np.where(neg, 0.0, sq), np.where(neg, sq, 0.0)],
+                    axis=2).reshape(-1, 6).astype(np.float32)
+
+
+def taps_cuda(dirs: np.ndarray, dist: Tensor, dl: Tensor, n: int,
+              world_size: float, compute: torch.dtype
+              ) -> Tuple[Tensor, Tensor]:
+    """The tap table on the card, in Plan's layout: idx int32 and w
+    float32 (nb, ntaps, 6n) for the (nb, 3) float64 host directions `dirs`
+    and each tap's distance `dist` (float64) and level size `dl` (int32),
+    both on the card; n cells along each axis.  One dense_kernel_taps
+    launch per MAX_TAP_DIRECTIONS directions, which it takes by value: no
+    copy, no host read.  Equal to core/dense.py direction_taps bit for
+    bit."""
+    nb, ntaps = dirs.shape[0], dist.shape[0]
+    _build.operand(dist, torch.float64, (ntaps,), "dense march taps: dist")
+    _build.operand(dl, torch.int32, (ntaps,), "dense march taps: dl")
+    _build.require(compute in (torch.float32, torch.bfloat16),
+                   "dense march taps: compute dtype {}, expected float32 or "
+                   "bfloat16", compute)
+    idx = torch.empty((nb, ntaps, 6 * n), dtype=torch.int32,
+                      device=dist.device)
+    w = torch.empty((nb, ntaps, 6 * n), dtype=torch.float32,
+                    device=dist.device)
+    d = np.ascontiguousarray(dirs, np.float64)
+    for b0 in range(0, nb, MAX_TAP_DIRECTIONS):
+        b1 = min(nb, b0 + MAX_TAP_DIRECTIONS)
+        _build.launch("vct_dense_taps", d[b0:b1].ctypes.data, b1 - b0,
+                      dist.data_ptr(), dl.data_ptr(), ntaps, n,
+                      float(world_size), int(compute == torch.bfloat16),
+                      idx[b0].data_ptr(), w[b0].data_ptr())
+    return idx, w
 
 
 # ---------------------------------------------------------------------------

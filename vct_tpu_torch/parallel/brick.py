@@ -14,9 +14,10 @@ whole.
 
 The march is one ops/dense.dense_march call on the rank's x-slab (one
 kernel launch on the card), its tap table holding x rows of the slab's
-length, rebased into the halo block, beside full y and z rows; the taps
-and the composite are the unsharded march's, so each cell gets the same
-arithmetic.  Like the JAX package, the sharded march runs in the
+length, rebased into the halo block, beside full y and z rows
+(slab_plan: the unsharded march's table, written on the card for CUDA
+levels, cut on the levels' device); the taps and the composite are the
+unsharded march's, so each cell gets the same arithmetic.  Like the JAX package, the sharded march runs in the
 pyramid's dtype and ignores grid.compute.  Gradients flow through the
 exchange (its backward returns the halo rows' gradients to their
 owners).
@@ -24,13 +25,14 @@ owners).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from vct_tpu_torch.core import aniso as A
 from vct_tpu_torch.core import dense as D
+from vct_tpu_torch.core import grid as G
 from vct_tpu_torch.core import march as M
 from vct_tpu_torch.ops import dense as OD
 from vct_tpu_torch.parallel import comm
@@ -95,7 +97,6 @@ def sharded_directional_march_multi(
     ax = comm.axis(mesh, axis_name)
     n, row0 = ax.size, ax.index
     df = field_dim or mips[0].shape[0]
-    dev, dtype = mips[0].device, mips[0].dtype
     dirs = np.asarray(directions, np.float64)
     if dirs.ndim == 1:
         dirs = dirs[None]
@@ -117,25 +118,46 @@ def sharded_directional_march_multi(
                                           halos[lvl], ax))
         else:
             blocks.append(m)
-    # every direction's taps; the x taps sliced to the slab's rows and,
-    # on a sharded level, rebased into its halo block
-    lod_plan, groups = D.plan_groups(schedule.lods, len(mips))
-    levels = D.tap_levels(groups)
-    idx, w = D.direction_taps(dirs, schedule, groups, dims, df, world_size,
-                              dtype)
-    xs = slice(row0 * ldf, (row0 + 1) * ldf)
-    ix = idx[:, :, 0, :, xs].copy()
-    for j, lvl in enumerate(levels):
-        if sharded[lvl]:
-            base = row0 * (dims[lvl] // n) - halos[lvl]
-            ix[:, j] = np.clip(ix[:, j] - base, 0, blocks[lvl].shape[0] - 1)
-    plan = OD.make_plan(
-        [(ix, w[:, :, 0, :, xs]), (idx[:, :, 1], w[:, :, 1]),
-         (idx[:, :, 2], w[:, :, 2])], levels,
-        D.step_table(schedule, lod_plan, groups, occlusion_falloff), dirs,
-        (ldf, df, df), dev, dtype, schedule.step_factor, max_alpha,
-        opacity_gain, transmittance_only)
+    plan = slab_plan(mips, blocks, dirs, schedule, world_size, df,
+                     (row0 * ldf, (row0 + 1) * ldf),
+                     [row0 * (dl // n) - halos[lvl] if sharded[lvl] else 0
+                      for lvl, dl in enumerate(dims)],
+                     max_alpha=max_alpha,
+                     occlusion_falloff=occlusion_falloff,
+                     opacity_gain=opacity_gain,
+                     transmittance_only=transmittance_only)
     return OD.dense_march(blocks, plan)
+
+
+def slab_plan(mips: Sequence[Tensor], blocks: Sequence[Tensor], dirs,
+              schedule: M.MarchSchedule, world_size: float, df: int,
+              xs: Tuple[int, int], base: Sequence[int], **kw) -> OD.Plan:
+    """The Plan of the field's x rows [xs[0], xs[1]) over each level's
+    block (`blocks`, whose first row is the level's row base[level]): the
+    whole field's tap table (core/dense.py tap_rows: one dense_kernel_taps
+    launch for CUDA levels, tap_table on the host for CPU levels), its x
+    rows sliced to the slab's and rebased into the blocks on the levels'
+    device, and the extent from the slab's last rows (tap_reach).  `kw`
+    are march_plan's keywords; the compute dtype is the pyramid's."""
+    half = D.march_half(mips, schedule, world_size, field_dim=df,
+                        compute_dtype=mips[0].dtype, **kw)
+    idx, w = D.tap_rows(dirs, half, mips)
+    lo, hi = xs
+    base = np.asarray(base, np.int64)[list(half.levels)]
+    top = np.asarray([blocks[lvl].shape[0] - 1 for lvl in half.levels])
+    bounds = G.constant(np.stack([base, top], axis=1), mips[0].device,
+                        torch.int32)                       # (ntaps, 2)
+
+    def x_rows(t):
+        return torch.cat([t[..., lo:hi], t[..., df + lo:df + hi]], dim=2)
+
+    ix = torch.minimum((x_rows(idx) - bounds[:, :1]).clamp_min(0),
+                       bounds[:, 1:])
+    reach = D.tap_reach(dirs, half, (hi - 1, df - 1, df - 1))
+    reach[:, 0] = np.clip(reach[:, 0] - 1 - base, 0, top) + 1
+    return D.half_plan(half, dirs, torch.cat([ix, idx[..., 2 * df:]], dim=2),
+                       torch.cat([x_rows(w), w[..., 2 * df:]], dim=2),
+                       OD.level_extent(reach, half.levels), (hi - lo, df, df))
 
 
 def sharded_directional_march(mips: Sequence[Tensor], direction,
