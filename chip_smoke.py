@@ -884,7 +884,7 @@ def inverse_path(h, base_cfg, dev):
 
 # ---- path 7: the shadow map and the anisotropic mips ------------------
 FLIP_SHARE = 1e-3         # PCF flips allowed, tests/test_torch_shadowmap.py
-CHUNK = 16384             # render_camera_pass's render_rays chunk
+CHUNK = 65536             # render_camera_pass's render_rays chunk
 SMALL_MAP = 256           # the card-vs-CPU render's map (32^3, 64x64)
 
 
@@ -3697,7 +3697,7 @@ def main() -> int:
     peak5 = torch.cuda.max_memory_allocated()
     say(f"cornell64_full build_voxel_state ms: median "
         f"{statistics.median(build5):.3f} over {build5}")
-    say(f"cornell64_full render_camera_pass (render_rays, chunks of 16384) "
+    say(f"cornell64_full render_camera_pass (render_rays, chunks of {CHUNK}) "
         f"ms: median {statistics.median(frame5_ms):.3f} over {frame5_ms}")
     say("cornell64_full frame stages, device ms (medians of 3, each summed "
         "over the frame's chunks):",
@@ -3766,7 +3766,7 @@ def main() -> int:
     fast5 = R.render_camera_pass(fcfg, p5["ds"], v5, p5["mats"],
                                  p5["origins"], p5["dirs"], p5["cam"])
     rays5 = R.render_rays(fcfg, p5["ds"], v5, p5["mats"], p5["origins"],
-                          p5["dirs"], p5["cam"], chunk_size=16384)
+                          p5["dirs"], p5["cam"], chunk_size=CHUNK)
     pairs = {}
     for what, a5, b5 in (("fast path vs render_rays, field mode", fast5,
                           rays5),

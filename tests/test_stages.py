@@ -5,8 +5,8 @@
     sponza256_exact_specular at 16^3 / 96x64, on the atrium (1,122
     triangles: the whole-table raycast) and on the atrium subdivided once
     (4,488 > raycast.MAX_TRIANGLES: the binned raycast), and of
-    render_rays in two chunks, pinned as the program marked them before
-    the marks became spans;
+    render_rays in two chunks, its shade split into the surface inputs
+    and the per-cone marches;
   * under a CPU torch.profiler every vct.* span is a host range at
     RecordScope.FUNCTION (scope 0, never the user scope 7 that the
     profiler mirrors onto the device's timeline), nested as the program
@@ -102,7 +102,9 @@ def test_mark_sequence(name, sub, atrium_scenes, clean, monkeypatch):
 
 
 def test_mark_sequence_render_rays(clean, monkeypatch):
-    """The oracle's per-chunk marks: raycast, alpha_recast, shade a chunk."""
+    """The oracle's per-chunk marks: raycast, alpha_recast, the surface
+    inputs, the per-cone diffuse march (cornell64 traces no specular
+    cone), shade a chunk."""
     from vct_tpu_torch.scene.cornell import cornell_box
     cfg = preset("cornell64")
     cfg = dataclasses.replace(
@@ -117,7 +119,8 @@ def test_mark_sequence_render_rays(clean, monkeypatch):
                                      32, 16, device=CPU)
     R.render_rays(cfg, ds, voxels, mats, origins, dirs,
                   G.constant((3.0, 2.0, 40.0), CPU), chunk_size=256)
-    assert names == (BUILD[:5] + ["raycast", "alpha_recast", "shade"] * 2)
+    assert names == (BUILD[:5] + ["raycast", "alpha_recast", "oracle_surface",
+                                  "percone_diffuse", "shade"] * 2)
 
 
 def _vct_events(prof):

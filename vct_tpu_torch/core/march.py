@@ -17,6 +17,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from vct_tpu_torch import stages
 from vct_tpu_torch.core import aniso as A
 from vct_tpu_torch.core import grid as G
 
@@ -120,10 +121,15 @@ def sample_schedule(mips: Sequence[Tensor], points: Tensor,
 
 def composite(colors: Tensor, alphas: Tensor, diameters: Sequence[float],
               max_alpha: float = 0.95, occlusion_falloff: float = 0.03,
-              step_factor: float = 1.0) -> Tuple[Tensor, Tensor, Tensor]:
+              step_factor: float = 1.0, count: bool = False
+              ) -> Tuple[Tensor, Tensor, Tensor]:
     """Front-to-back composite of colors (..., K, 3) and alphas (..., K)
     matching fs:100-103; step_factor != 1 applies the opacity correction
-    a' = 1 - (1 - a)^step_factor.  Returns (color, occlusion, alpha)."""
+    a' = 1 - (1 - a)^step_factor.  Returns (color, occlusion, alpha).
+
+    count: while stages.counting(), add the samples scheduled to the
+    device counter `percone.samples` and those the loop still runs
+    (alpha so far under max_alpha, fs:94) to `percone.active`."""
     if step_factor != 1.0:
         keep = (1.0 - alphas) ** step_factor
         scale = torch.where(
@@ -138,6 +144,11 @@ def composite(colors: Tensor, alphas: Tensor, diameters: Sequence[float],
                        dim=-1)
     # loop-top early-out: step k runs iff alpha-so-far < MAX_ALPHA (fs:94)
     active = (1.0 - t_excl) < max_alpha
+    if count and stages.counting():
+        stages.count("percone.samples",
+                     torch.full((), active.numel(), dtype=torch.int64,
+                                device=active.device))
+        stages.count("percone.active", active.sum())
     w = torch.where(active, t_excl, 0.0)
     color = torch.sum(w[..., None] * colors, dim=-2)
     atten = 1.0 + occlusion_falloff * G.constant(diameters, colors.device,
@@ -149,11 +160,13 @@ def composite(colors: Tensor, alphas: Tensor, diameters: Sequence[float],
 
 def cone_march(mips: Sequence[Tensor], start: Tensor, direction: Tensor,
                schedule: MarchSchedule, world_size: float,
-               max_alpha: float = 0.95, occlusion_falloff: float = 0.03
+               max_alpha: float = 0.95, occlusion_falloff: float = 0.03,
+               count: bool = False
                ) -> Tuple[Tensor, Tensor, Tensor]:
     """Voxel_Cone_Tracing(direction, tanHalfAngle) — fs:82-107.  `start`
     (..., 3) already carries the normal offset (fs:92); direction (..., 3)
-    is a unit vector.  Returns (color, occlusion, alpha)."""
+    is a unit vector; count as in composite.  Returns (color,
+    occlusion, alpha)."""
     if schedule.num_steps == 0:
         shp = start.shape[:-1]
         z = start.new_zeros(shp)
@@ -165,21 +178,23 @@ def cone_march(mips: Sequence[Tensor], start: Tensor, direction: Tensor,
     return composite(samples[..., :3], samples[..., 3], schedule.diameters,
                      max_alpha=max_alpha,
                      occlusion_falloff=occlusion_falloff,
-                     step_factor=schedule.step_factor)
+                     step_factor=schedule.step_factor, count=count)
 
 
 def cone_march_multi(mips: Sequence[Tensor], start: Tensor,
                      directions: Tensor, weights: Sequence[float],
                      schedule: MarchSchedule, world_size: float,
                      max_alpha: float = 0.95,
-                     occlusion_falloff: float = 0.03
+                     occlusion_falloff: float = 0.03,
+                     count: bool = False
                      ) -> Tuple[Tensor, Tensor]:
     """Weighted multi-cone gather sum_i w_i * ConeTrace(dir_i) — fs:196-199:
-    start (..., 3), directions (..., K, 3), K static weights.  Returns
-    (color (..., 3), occlusion (...))."""
+    start (..., 3), directions (..., K, 3), K static weights; count as
+    in composite.  Returns (color (..., 3), occlusion (...))."""
     color, occ, _ = cone_march(mips, start[..., None, :], directions,
                                schedule, world_size, max_alpha=max_alpha,
-                               occlusion_falloff=occlusion_falloff)
+                               occlusion_falloff=occlusion_falloff,
+                               count=count)
     w = G.constant(weights, color.device, color.dtype)
     return (torch.sum(w[:, None] * color, dim=-2),
             torch.sum(w * occ, dim=-1))

@@ -299,32 +299,40 @@ def _build_voxel_state(cfg, samples, mats, light_dir, light_color, mesh):
 def shade_gbuffer(cfg: VCTConfig, voxels: VoxelState, gbuf: GBuffer,
                   mats: MaterialTable, camera_position: Tensor,
                   light_dir: Optional[Tensor] = None) -> Tensor:
-    """The fragment stage: G-buffer -> linear RGB (..., 3)."""
+    """The fragment stage: G-buffer -> linear RGB (..., 3).
+
+    Marked spans split it: `oracle_surface` (material, bump normal, shadow
+    and eye), then, each only where its cone mode is "percone",
+    `percone_diffuse` and `percone_specular` (the cone marches; the stage
+    between two marks also holds the cone axes); the caller's span closes
+    with the combine."""
     if light_dir is None:
         light_dir = light_direction(cfg, gbuf.position.device)
-    albedo4 = mats.sample_albedo(gbuf.material, gbuf.uv)
-    spec = shading.spec_gray_fallback(
-        mats.sample_specular(gbuf.material, gbuf.uv))
-    # shading normal: bump-mapped when a texture atlas is present
-    # (N = CalcBumpNormal(TBN), fs:177); cone TBN keeps the vertex frame
-    if mats.atlas is not None:
-        shade_normal = TX.bump_normal(mats.atlas, gbuf.material, gbuf.uv,
-                                      gbuf.tangent, gbuf.bitangent,
-                                      gbuf.normal)
-    else:
-        shade_normal = gbuf.normal
+    with span("oracle_surface"):
+        albedo4 = mats.sample_albedo(gbuf.material, gbuf.uv)
+        spec = shading.spec_gray_fallback(
+            mats.sample_specular(gbuf.material, gbuf.uv))
+        # shading normal: bump-mapped when a texture atlas is present
+        # (N = CalcBumpNormal(TBN), fs:177); cone TBN keeps the vertex frame
+        if mats.atlas is not None:
+            shade_normal = TX.bump_normal(mats.atlas, gbuf.material, gbuf.uv,
+                                          gbuf.tangent, gbuf.bitangent,
+                                          gbuf.normal)
+        else:
+            shade_normal = gbuf.normal
 
-    if cfg.shadow.mode == "volume":
-        shadow = shading.shadow_volume_tap(cfg, voxels.light_volume,
-                                           gbuf.position, gbuf.geo_normal)
-    elif cfg.shadow.mode == "map":
-        # the main pass's PCF: the /9 quirk under "reference" (fs:158)
-        shadow = SM.pcf_shadow(cfg, voxels.shadow_map, gbuf.position,
-                               normalization="main")
-    else:
-        shadow = shading.shadow_cone_value(
-            voxels.unlit_mips, gbuf.position, gbuf.geo_normal, light_dir,
-            shading.shadow_schedule(cfg), cfg)
+        if cfg.shadow.mode == "volume":
+            shadow = shading.shadow_volume_tap(cfg, voxels.light_volume,
+                                               gbuf.position, gbuf.geo_normal)
+        elif cfg.shadow.mode == "map":
+            # the main pass's PCF: the /9 quirk under "reference" (fs:158)
+            shadow = SM.pcf_shadow(cfg, voxels.shadow_map, gbuf.position,
+                                   normalization="main")
+        else:
+            shadow = shading.shadow_cone_value(
+                voxels.unlit_mips, gbuf.position, gbuf.geo_normal, light_dir,
+                shading.shadow_schedule(cfg), cfg)
+        eye = C.normalize(camera_position - gbuf.position)      # fs:183
 
     cone_dirs = shading.pixel_cone_dirs(cfg, gbuf.normal, gbuf.tangent,
                                         gbuf.bitangent)
@@ -332,18 +340,21 @@ def shade_gbuffer(cfg: VCTConfig, voxels: VoxelState, gbuf: GBuffer,
         ind_d_rgb, ind_d_occ = shading.indirect_diffuse_field(
             cfg, voxels.diffuse_field, gbuf.position, gbuf.normal, cone_dirs)
     else:
-        ind_d_rgb, ind_d_occ = shading.indirect_diffuse_percone(
-            cfg, voxels.radiance_mips, gbuf.position, gbuf.normal, cone_dirs)
+        with span("percone_diffuse"):
+            ind_d_rgb, ind_d_occ = shading.indirect_diffuse_percone(
+                cfg, voxels.radiance_mips, gbuf.position, gbuf.normal,
+                cone_dirs)
 
-    eye = C.normalize(camera_position - gbuf.position)          # fs:183
     if cfg.cones.trace_specular:
         refl = shading.reflect_eye(shade_normal, eye)   # reflect(-E, N)
         if cfg.cones.specular_mode == "field":
             ind_s_rgb, ind_s_occ = shading.indirect_specular_field(
                 cfg, voxels.specular_field, gbuf.position, gbuf.normal, refl)
         else:
-            ind_s_rgb, ind_s_occ = shading.indirect_specular_percone(
-                cfg, voxels.radiance_mips, gbuf.position, gbuf.normal, refl)
+            with span("percone_specular"):
+                ind_s_rgb, ind_s_occ = shading.indirect_specular_percone(
+                    cfg, voxels.radiance_mips, gbuf.position, gbuf.normal,
+                    refl)
     else:
         ind_s_rgb = torch.zeros_like(ind_d_rgb)
         ind_s_occ = torch.zeros_like(ind_d_occ)
@@ -439,6 +450,14 @@ def use_fast_path(cfg: VCTConfig) -> bool:
     return cfg.use_pallas and F.supported(cfg)
 
 
+# camera rays a render_rays chunk: a chunk's work is a few thousand
+# kernel launches whatever its size, so the per-cone frame at 512x512
+# (262,144 rays) is host-bound in chunks of 16,384 (66-75% of the device
+# idle on an H100) and its time follows the host's load; in chunks of
+# 65,536 the device has more work than the host has launches
+CAMERA_CHUNK = 65536
+
+
 def render_camera_pass(
     cfg: VCTConfig,
     ds: DeviceScene,
@@ -449,17 +468,19 @@ def render_camera_pass(
     camera_position: Tensor,
     light_dir: Optional[Tensor] = None,
     frame_tables=None,
-    chunk_size: int = 16384,
+    chunk_size: int = CAMERA_CHUNK,
 ) -> Tensor:
     """The per-frame camera pass -> (H, W, 3) linear RGB: the fast path
-    where use_fast_path allows, else render_rays in chunks of chunk_size.
+    where use_fast_path allows, else render_rays in chunks of chunk_size
+    rays, or of the frame's rays where it has fewer.
 
     frame_tables: pass fast.build_frame_tables(cfg, voxels, mats) to
     amortize the table build across frames; None builds them inline."""
     if not use_fast_path(cfg):
+        n = origins[..., 0].numel()
         return render_rays(cfg, ds, voxels, mats, origins, dirs,
                            camera_position, light_dir,
-                           chunk_size=chunk_size)
+                           chunk_size=min(chunk_size, n))
     from vct_tpu_torch.render import fast as F
     if frame_tables is None:
         frame_tables = F.build_frame_tables(cfg, voxels, mats)

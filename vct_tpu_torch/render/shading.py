@@ -23,7 +23,6 @@ from vct_tpu_torch.core import march as M
 
 Tensor = torch.Tensor
 
-
 # ---------------------------------------------------------------------------
 # schedules (all static from config)
 # ---------------------------------------------------------------------------
@@ -237,26 +236,29 @@ def pixel_cone_dirs(cfg: VCTConfig, normal: Tensor, tangent: Tensor,
 def indirect_diffuse_percone(cfg: VCTConfig, mips: Sequence[Tensor],
                              position: Tensor, normal: Tensor,
                              cone_dirs: Tensor) -> Tuple[Tensor, Tensor]:
-    """Exact per-pixel K-cone gather (fs:196-199) -> (rgb, occlusion)."""
+    """Exact per-pixel K-cone gather (fs:196-199) -> (rgb, occlusion).
+    Its samples count into the counters percone.samples and
+    percone.active (core/march.composite)."""
     ca = cfg.cones
     start = position + normal * cfg.grid.voxel_world_size    # fs:92
     weights = tuple(float(w) for w in C.CONE_WEIGHTS[:ca.num_diffuse_cones])
     return M.cone_march_multi(
         mips, start, cone_dirs, weights, diffuse_schedule(cfg),
         cfg.grid.world_size, max_alpha=ca.max_alpha,
-        occlusion_falloff=ca.occlusion_falloff)
+        occlusion_falloff=ca.occlusion_falloff, count=True)
 
 
 def indirect_specular_percone(cfg: VCTConfig, mips: Sequence[Tensor],
                               position: Tensor, normal: Tensor,
                               refl_dir: Tensor) -> Tuple[Tensor, Tensor]:
     """The mirror cone (tan 0.07, fs:218) marched per pixel ->
-    (rgb, occlusion)."""
+    (rgb, occlusion); counted as indirect_diffuse_percone is."""
     ca = cfg.cones
     start = position + normal * cfg.grid.voxel_world_size
     rgb, occ, _ = M.cone_march(
         mips, start, refl_dir, specular_schedule(cfg), cfg.grid.world_size,
-        max_alpha=ca.max_alpha, occlusion_falloff=ca.occlusion_falloff)
+        max_alpha=ca.max_alpha, occlusion_falloff=ca.occlusion_falloff,
+        count=True)
     return rgb, occ
 
 
