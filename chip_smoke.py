@@ -8,9 +8,9 @@ Run from the repository root, on a machine with one CUDA card and nvcc:
 Phases, each reported on its own lines:
   (a) the card (nvidia-smi name and power limit), the kernel build with
       ptxas's registers and spills, and for the tap, raycast, streamed
-      raycast, binned raycast, specular march, prepass, material and
-      dense-march kernels the registers, spill and shared bytes and
-      resident warps per SM the card reports;
+      raycast, binned raycast, specular march, prepass, material,
+      dense-march and per-cone march kernels the registers, spill and
+      shared bytes and resident warps per SM the card reports;
   (c) twelve paths at full width, each through prepare_scene ->
       build_voxel_state (-> build_frame_tables on the fast path) ->
       render_camera_pass with every kernel's launch count set to 0 just
@@ -34,7 +34,8 @@ Phases, each reported on its own lines:
            and 1 specular cone a pixel) on the Cornell box from (0, 0,
            140) through the per-cone oracle render_rays: the build
            launches the mip kernel and the dense march (its light
-           volume), the frame none; build and frame
+           volume), the frame the per-cone march kernel twice a chunk
+           (diffuse and specular) and nothing else; build and frame
            times, the stage split, host syncs, peak memory and the
            profiler's busy share; cornell64 and inverse forward and the
            atrium under cornell64_full, each timed; a 32^3 render on the
@@ -46,8 +47,10 @@ Phases, each reported on its own lines:
            6a preset("inverse") unchanged (64^3, 128x128) on the Cornell
            box from (0, 0, 140) through render_rays, 8 Adam steps each
            for albedo (from gray 0.4), light (from 0.2) and radiance
-           (from zero) at tests/test_inverse.py's learning rates: every
-           loss finite and the last below the first; per step the
+           (from zero) at tests/test_inverse.py's learning rates, the
+           per-cone march kernel under grad (its backward the twin's
+           replay): every loss finite and the last below the first; per
+           step the
            forward, backward and Adam ms by CUDA events (the first step
            apart), host syncs, peak memory and the mip forward and
            backward launches; 6b the fast pass at that size with
@@ -66,15 +69,24 @@ Phases, each reported on its own lines:
            build and after the frame: 7a preset("reference") unchanged
            (128^3, 1280x720, a 4096^2 map, 5x5 PCF with the /9 quirk) on
            the atrium from the bench camera through render_rays (mip 14
-           launches in the build, every other kernel 0), its map on the
+           launches in the build, every other kernel 0; the per-cone
+           march twice a chunk in the frame, nothing else), its map on the
            card against the CPU's from the same samples (bit for bit),
-           the per-sample PCF flips counted, and a 32^3, 64x64, map-256
+           the per-sample PCF flips counted, the per-cone march kernel on
+           the frame's first 65,536-ray chunk of the isotropic 128^3
+           pyramid against its twin (bit for bit) and core/march (atol
+           1e-5 away from early-out ties), and a 32^3, 64x64, map-256
            render against the CPU's plain run over the pixels whose PCF
            did not flip; 7b preset("aniso128") unchanged (128^3
            anisotropic mips, 512x512) on the Cornell box from (0, 0, 140)
            (mip 7, the unlit chain; the anisotropic pyramid kernel 7,
            the radiance pyramid; the dense march once, the light
-           volume), its pyramid against the CPU's bit for bit, the
+           volume; the per-cone march twice a chunk in the frame), its
+           pyramid against the CPU's bit for bit, the per-cone march
+           kernel on the frame's first 65,536-ray chunk against its twin
+           (bit for bit) and core/march (atol 1e-5 away from early-out
+           ties), timed beside its bound and the twin (the kernels
+           line's row, with the 7b frame's launches), the
            anisotropic pyramid kernel against its plain version on the
            path's pyramid and at 256^3 x 4 (bit for bit, and timed), the
            dense anisotropic march against cone_march at voxel centers
@@ -89,7 +101,8 @@ Phases, each reported on its own lines:
            on the atrium from the bench camera: 8a the preset on one rank
            (the mesh cut to 1 x 1) through render_rays, prepare ms, build
            and frame split, syncs, peak memory, mip 18 and the dense
-           march once in the build and nothing in the frame; 8b its
+           march once in the build and in the frame the per-cone march
+           twice a chunk, nothing else; 8b its
            model axis, 2 ranks on the card, the 512^3 build sharded
            (samples over 'model', the light volume brick-sharded, one
            dense-march launch a rank) against the unsharded one
@@ -149,11 +162,13 @@ Phases, each reported on its own lines:
            reps), each record's work held to bench_scaling.py's formulas,
            0 torch.distributed calls in the camera pass, 12 mip launches
            a rank's build, the dense march 3 times a rank's build and
-           once a timed march, no other kernel, the march slabs of 2 ranks
-           gathered bit-equal to one rank's march; then
+           once a timed march, no other kernel (the camera pass's cones
+           are field cones), the march slabs of 2 ranks gathered
+           bit-equal to one rank's march; then
            vct_tpu_torch.entry.entry()'s forward (cornell64_full at 32^3,
            64x64) on the card against its CPU run (test_torch_oracle.py's
-           render_rays bounds), mip 10, the dense march once;
+           render_rays bounds), mip 10, the dense march once, the
+           per-cone march twice a chunk;
       then per path: timings, a small render on the card against the
       plain PyTorch path on the CPU, and for Cornell a determinism check,
       the whole-table raycast against its plain version (hit, material id
@@ -614,7 +629,7 @@ def inverse_path(h, base_cfg, dev):
                               num_steps=INVERSE_STEPS)
         got = run_steps(base_cfg, s, inv, {name: leaf(starts[name])}, target,
                         INVERSE_STEPS, f"main path 6a ({name})",
-                        ("mip", "mip_bwd", "dense_march"))
+                        ("mip", "mip_bwd", "dense_march", "percone"))
         h.expect(got, (), nd, f"main path 6a ({name})")
         bwd_6a += got["mip_bwd"]
     unlit6, lit6 = s["voxels"].unlit_mips, s["voxels"].radiance_mips
@@ -893,6 +908,156 @@ def pcf_taps(cfg, value, normalization):
     if normalization == "main" and cfg.shadow.pcf_normalization == "reference":
         return torch.round(value.double() / 0.111)
     return torch.round(value.double() * (2 * cfg.shadow.pcf_radius + 1) ** 2)
+
+
+def percone_launches(cfg, rays: int) -> int:
+    """render_rays' launches of the per-cone march kernel over `rays`
+    camera rays in render_camera_pass's chunks: one a chunk for each cone
+    mode that is "percone"."""
+    from vct_tpu_torch.render import renderer as R
+    ca = cfg.cones
+    calls = int(ca.diffuse_mode == "percone") + int(
+        ca.trace_specular and ca.specular_mode == "percone")
+    return -(-rays // R.CAMERA_CHUNK) * calls
+
+
+def expect_oracle_frame(h, launches, cfg, what):
+    """A render_rays frame's launches: percone_launches of the per-cone
+    march kernel, no other kernel."""
+    want = percone_launches(cfg, cfg.render.width * cfg.render.height)
+    if launches["percone"] != want:
+        fail(f"{what}: per-cone march launches {launches['percone']}, "
+             f"expected {want} (diffuse and specular a chunk)")
+    h.expect(launches, (), tuple(k for k in launches if k != "percone"),
+             what)
+
+
+def percone_twin_check(h, cfg, q, what):
+    """The per-cone march kernel on the first 65,536-ray chunk of q's
+    frame (render_rays' G-buffer, cone axes and reflection axis), both
+    marches: against its twin bit for bit, against core/march within
+    atol 1e-5 on the rays whose alpha comes nowhere near max_alpha (1e-5;
+    at a tie the loop's exit and core/march's mask may stop a step
+    apart).  Returns the chunk's start, the marches' (dirs, call
+    arguments, tan half-angle), the samples scheduled, the steps run and
+    the largest error."""
+    from vct_tpu_torch.core import cones as C
+    from vct_tpu_torch.core import grid as G
+    from vct_tpu_torch.core import march as M
+    from vct_tpu_torch.ops import percone as PC
+    from vct_tpu_torch.render import gbuffer as GB
+    from vct_tpu_torch.render import renderer as R
+    from vct_tpu_torch.render import shading
+
+    ca, ws = cfg.cones, cfg.grid.world_size
+    mips = q["voxels"].radiance_mips
+    o = q["origins"].reshape(-1, 3)[0]
+    d = q["dirs"].reshape(-1, 3)[:R.CAMERA_CHUNK]
+    pc = GB.pinhole_constants(q["ds"], o)
+    g = R.alpha_mask_recast(cfg, q["ds"], pc, o, d,
+                            GB.raycast_chunk_pinhole(q["ds"], pc, o, d),
+                            q["mats"])
+    start = (g.position + g.normal * cfg.grid.voxel_world_size).contiguous()
+    cone_dirs = shading.pixel_cone_dirs(cfg, g.normal, g.tangent,
+                                        g.bitangent).contiguous()
+    eye = C.normalize(q["cam"] - g.position)
+    refl = shading.reflect_eye(g.normal, eye).contiguous()
+    weights = tuple(float(w) for w in C.CONE_WEIGHTS[:ca.num_diffuse_cones])
+    marches = (("diffuse", shading.diffuse_schedule(cfg), cone_dirs, weights,
+                ca.diffuse_tan_half_angle),
+               ("specular", shading.specular_schedule(cfg), refl[:, None],
+                (1.0,), ca.specular_tan_half_angle))
+    n = start.shape[0]
+    calls, samples, walked_all, worst = [], 0, 0, 0.0
+    for march, sched, dirs, w, tan in marches:
+        table, levels = PC.read_levels(PC.step_table(sched, len(mips),
+                                                     ca.occlusion_falloff))
+        read = [mips[lv] for lv in levels]
+        kw = dict(table=table, weights=w, world_size=ws,
+                  max_alpha=ca.max_alpha)
+        walked = torch.zeros((), dtype=torch.int64, device=start.device)
+        kern = PC.gather_cuda(start, dirs, *read, walked=walked, **kw)
+        twin_walked = torch.zeros_like(walked)
+        twin = PC.gather_plain(start, dirs, *read, walked=twin_walked, **kw)
+        if march == "diffuse":
+            rgb, occ = M.cone_march_multi(mips, start, dirs, w, sched, ws,
+                                          ca.max_alpha, ca.occlusion_falloff)
+        else:
+            rgb, occ, _ = M.cone_march(mips, start, refl, sched, ws,
+                                       ca.max_alpha, ca.occlusion_falloff)
+        pts = start[:, None, None, :] + (G.constant(sched.dists, start.device)
+                                         [:, None] * dirs[:, :, None, :])
+        smp = M.sample_schedule(mips, pts, sched.lods, ws, direction=dirs)
+        alpha = 1.0 - torch.cumprod(1.0 - smp[..., 3], dim=-1)
+        tie = ((alpha - ca.max_alpha).abs() <= 1e-5).flatten(1).any(dim=1)
+        far = ~tie
+        err = max(float((kern[far, :3] - rgb[far]).abs().max()),
+                  float((kern[far, 3] - occ[far]).abs().max()))
+        same = torch.equal(kern, twin) and int(walked) == int(twin_walked)
+        h.say(f"percone kernel, {what}'s {march} march on its first chunk "
+              f"({n} rays, {dirs.shape[1]} cones, {len(table)} steps, "
+              f"levels {list(levels)} of {len(mips)}, "
+              f"{'6-direction' if mips[-1].dim() == 5 else 'isotropic'}): "
+              f"bit-equal to its twin {same} (steps run {int(walked)} of "
+              f"{n * dirs.shape[1] * len(table)}); against core/march max "
+              f"error {err:.3e} on {int(far.sum())} rays away from ties "
+              f"(tolerance 1e-5), {int(tie.sum())} rays near a tie")
+        if not same:
+            fail(f"percone kernel ({what}, {march}) differs from its twin")
+        if not err <= 1e-5:
+            fail(f"percone kernel ({what}, {march}) disagrees with "
+                 f"core/march")
+        worst = max(worst, err)
+        samples += n * dirs.shape[1] * len(table)
+        walked_all += int(walked)
+        calls.append((dirs, read, kw, tan))
+        del kern, twin, rgb, occ, pts, smp, alpha
+    return start, calls, samples, walked_all, worst
+
+
+def percone_check(h, cfg, q, frame_launches):
+    """The kernels line's `percone` row from path 7b (aniso128): the twin
+    check on the frame's first chunk (percone_twin_check), then the two
+    launches timed beside the twin and the bound: the least work of
+    vctbench/reference_oracle's march_work over the steps run (the
+    kernel's own count), operations at the rate of separately rounded
+    ones.  Its launches are the 7b frame's own (frame_launches)."""
+    from vct_tpu_torch.ops import percone as PC
+    from vct_tpu_torch.render import renderer as R
+    from vctbench.reference_oracle import march as RM
+
+    ca = cfg.cones
+    mips = q["voxels"].radiance_mips
+    start, calls, samples, walked_all, err = percone_twin_check(
+        h, cfg, q, "7b aniso128")
+
+    def kernel():
+        for dirs, read, kw, _ in calls:
+            PC.gather_cuda(start, dirs, *read, **kw)
+
+    def plain():
+        for dirs, read, kw, _ in calls:
+            PC.gather_plain(start, dirs, *read, **kw)
+
+    h.row_launches["percone"] = frame_launches
+    chunks = -(-cfg.render.width * cfg.render.height // R.CAMERA_CHUNK)
+    voxel = cfg.grid.voxel_world_size
+    cones = [RM.cone_steps(tan, voxel, ca.max_distance, ca.max_steps)
+             for dirs, _, _, tan in calls for _ in range(dirs.shape[1])]
+    nbytes, ops = RM.march_work(start.shape[0], cones,
+                                [tuple(m.shape) for m in mips],
+                                walked_all / samples)
+    occ = _build.occupancy("vct_percone_occupancy", ca.num_diffuse_cones)
+    h.say(f"percone kernel: {occ['registers']} registers, "
+          f"{occ['spill_bytes']} spill bytes a thread at "
+          f"{ca.num_diffuse_cones} cones; launches in 7b's frame "
+          f"{frame_launches} ({chunks} chunks, 2 a chunk); active share on "
+          f"the first chunk {walked_all / samples:.4f}")
+    h.kernel_row("percone", "vct_tpu_torch/ops/csrc/percone.cu",
+                 "(XLA) vct_tpu/core/march.py cone_march_multi, cone_march",
+                 err, 1e-5, elapsed_ms(kernel, KERNEL_REPS, KERNEL_BATCH),
+                 elapsed_ms(plain, PLAIN_REPS), nbytes, ops,
+                 rate=FP32_RN_OPS_PER_S)
 
 
 def drive(h, dev, cfg, scene, camera, what, fast=False):
@@ -1434,7 +1599,7 @@ def map_aniso_path(h, dev):
              f"{2 * levels}: unlit and lit chains) and {frame_a['mip']} in "
              f"the frame (expected 0)")
     h.expect(build_a, (), only_mip, "7a build")
-    h.expect(frame_a, (), only_mip, "7a frame")
+    expect_oracle_frame(h, frame_a, rcfg, "7a frame")
     mip_check(h, ((qa["voxels"].unlit_mips, "max"),
                (qa["voxels"].radiance_mips, "mean")), "7a")
     smap = qa["voxels"].shadow_map
@@ -1453,6 +1618,7 @@ def map_aniso_path(h, dev):
           SM.pcf_shadow(rcfg, smap_cpu, pos.cpu(), "voxelize"),
           "voxelize", "7a per-sample PCF, card vs CPU")
     result["7a"] = measure(h, rcfg, qa, "7a reference", chunks=2)
+    percone_twin_check(h, rcfg, qa, "7a reference")
     del qa, smap, smap_cpu, pos
 
     # a small render on the card against the CPU's plain run, the PCF
@@ -1506,7 +1672,7 @@ def map_aniso_path(h, dev):
              f"build, expected {levels}")
     h.expect(build_b, (), tuple(k for k in only_mip if k not in (
         "dense_march", "dense_pack", "dense_taps", "aniso")), "7b build")
-    h.expect(frame_b, (), only_mip, "7b frame")
+    expect_oracle_frame(h, frame_b, acfg, "7b frame")
     rad = qb["voxels"].radiance_mips
     if not A.is_aniso_stack(rad):
         fail("7b: the radiance pyramid is not anisotropic")
@@ -1527,6 +1693,7 @@ def map_aniso_path(h, dev):
               aniso=(rad, mips256))
     del grid256, mips256
     result["7b"] = measure(h, acfg, qb, "7b aniso128")
+    percone_check(h, acfg, qb, frame_b["percone"])
     del qb, rad
 
     # the dense anisotropic march against the per-point march at voxel
@@ -1859,7 +2026,7 @@ def multihost_path(h, dev, dim_a=512, dim_c=DIM_8C, size=(WIDTH, HEIGHT)):
              f"build, expected 1 (the light volume)")
     h.expect(build_a, (), tuple(k for k in only_mip if k not in (
         "dense_march", "dense_pack", "dense_taps")), "8a build")
-    h.expect(frame_a, (), only_mip, "8a frame")
+    expect_oracle_frame(h, frame_a, acfg, "8a frame")
     mip_check(h, ((qa["voxels"].unlit_mips, "max"),
                   (qa["voxels"].radiance_mips, "mean")), "8a")
     prepare_ms = host_ms(lambda: R.prepare_scene(acfg, scene, device=dev))
@@ -2576,12 +2743,15 @@ def scaling_path(h, dev, settings=None, counts=None):
           f"{float(err.max()):.3e} (bounds {ENTRY_BOUNDS}); launches "
           + json.dumps(entry_launches) + f"; {time.perf_counter() - t0:.1f} s")
     entry_levels = E.DIM.bit_length() - 1      # 32 -> 1: 5 downsamples
+    entry_cones = 2 * -(-E.WIDTH * E.HEIGHT // E.CHUNK)
     if entry_launches["mip"] != 2 * entry_levels or entry_launches[
-            "dense_march"] != 1 or any(
-            v for k, v in entry_launches.items()
-            if k not in ("mip", "dense_march", "dense_pack", "dense_taps")):
+            "dense_march"] != 1 or entry_launches["percone"] != entry_cones \
+            or any(v for k, v in entry_launches.items()
+                   if k not in ("mip", "dense_march", "dense_pack",
+                                "dense_taps", "percone")):
         fail(f"12 entry(): launches {entry_launches}, expected mip "
-             f"{2 * entry_levels}, dense_march 1 (the light volume) and no "
+             f"{2 * entry_levels}, dense_march 1 (the light volume), "
+             f"percone {entry_cones} (diffuse and specular a chunk) and no "
              f"other kernel")
     if not (img.shape == (E.HEIGHT, E.WIDTH, 3)
             and bool(torch.isfinite(img).all())
@@ -2645,7 +2815,9 @@ def main() -> int:
             ("prepass", "vct_prepass_occupancy", ()),
             ("material", "vct_material_occupancy", ()),
             ("dense march, field", "vct_dense_occupancy", (0,)),
-            ("dense march, transmittance", "vct_dense_occupancy", (1,))):
+            ("dense march, transmittance", "vct_dense_occupancy", (1,)),
+            ("per-cone march, 6 cones", "vct_percone_occupancy", (6,)),
+            ("per-cone march, 1 cone", "vct_percone_occupancy", (1,))):
         occ = _build.occupancy(reporter, *args)
         say(f"kernel {what}: {occ['registers']} registers, "
             f"{occ['spill_bytes']} spill bytes a thread, "
@@ -3619,8 +3791,8 @@ def main() -> int:
 
     # ---- (c5) the per-cone oracle renderer: preset cornell64_full -------
     # the percone cone modes take render_rays: the build launches the mip
-    # kernel and the frame none (its raycast and march are plain PyTorch,
-    # as they are XLA in the JAX package: the oracle checks the kernels)
+    # kernel, the frame the per-cone march kernel twice a chunk (its
+    # raycast is plain PyTorch, as it is XLA in the JAX package)
     del p4, t4, margs
     ocfg = preset("cornell64_full")
     osize = (ocfg.render.width, ocfg.render.height)
@@ -3639,7 +3811,13 @@ def main() -> int:
         say(f"launches in the {what} oracle run:", json.dumps(launches_))
         if R.use_fast_path(run_cfg):
             fail(f"{what} routes to the fast path")
-        expect(launches_, ("mip", "dense_march"), not_oracle, what)
+        expect(launches_, ("mip", "dense_march", "percone"), not_oracle,
+               what)
+        want = percone_launches(run_cfg, run_cfg.render.width
+                                * run_cfg.render.height)
+        if launches_["percone"] != want:
+            fail(f"{what}: per-cone march launches {launches_['percone']}, "
+                 f"expected {want}")
         check_image(q["img"], what, (run_cfg.render.width,
                                      run_cfg.render.height))
         return launches_, first, q
@@ -3799,8 +3977,8 @@ def main() -> int:
     # ---- (c7) the shadow map and the anisotropic mips -------------------
     r7 = map_aniso_path(types.SimpleNamespace(
         say=say, expect=expect, maxerr=maxerr, check_image=check_image,
-        sync=sync, raycast_equal=raycast_equal,
-        small_check=small_check), dev)
+        sync=sync, raycast_equal=raycast_equal, small_check=small_check,
+        kernel_row=kernel_row, row_launches=row_launches), dev)
 
     # ---- (c8) parallel/: preset multihost512 --------------------------
     hp8 = types.SimpleNamespace(

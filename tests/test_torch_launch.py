@@ -31,7 +31,8 @@ LAUNCHERS = [("vct_mip_downsample", "mip", 1),
              ("vct_specmarch", "specmarch", 1),
              ("vct_dense_march", "dense_march", 1),
              ("vct_dense_pack", "dense_pack", 1),
-             ("vct_dense_taps", "dense_taps", 1)]
+             ("vct_dense_taps", "dense_taps", 1),
+             ("vct_percone", "percone", 1)]
 
 
 class _FakeLibrary:

@@ -107,6 +107,11 @@ SIGNATURES = {
     # idx, w, stream
     "vct_dense_taps": ("dense_taps", 1, (_P, _I, _P, _P, _I, _I, _D, _I, _P,
                                          _P, _P)),
+    # start, dirs, n, k, level_ptr, level_shape (host arrays), nl, step_f,
+    # step_i (host arrays), nsteps, weights (host array), half_ws,
+    # max_alpha, out, walked (or null), stream
+    "vct_percone": ("percone", 1, (_P, _P, _I, _I, _P, _P, _I, _P, _P, _I,
+                                   _P, _F, _F, _P, _P, _P)),
     # kernel reports: (nb, cfield,) info -> info[0:4] = registers, spill
     # bytes a thread, shared bytes a block, resident warps per SM
     "vct_tap_occupancy": (None, 0, (_I, _I, _P)),
@@ -117,6 +122,7 @@ SIGNATURES = {
     "vct_prepass_occupancy": (None, 0, (_P,)),
     "vct_material_occupancy": (None, 0, (_P,)),
     "vct_dense_occupancy": (None, 0, (_I, _P)),
+    "vct_percone_occupancy": (None, 0, (_I, _P)),
 }
 
 # kernels launched since the last reset_launches, by row

@@ -4,8 +4,16 @@ VoxelConeTracing.fs:165-228 (port of vct_tpu/render/shading.py).
 
 The per-pixel providers serve the per-cone oracle renderer
 (renderer.render_rays) and the build's extra GI bounces: "percone" ones
-march each cone through the radiance pyramid (core/march.py), "field"
-ones tap the basis fields and weight them by basis_weights.
+march each cone through the radiance pyramid (one launch of
+ops/percone.py's kernel on CUDA tensors, core/march.py on CPU tensors),
+"field" ones tap the basis fields and weight them by basis_weights.
+
+The two routes of the "percone" providers composite differently: the
+kernel runs the shader's running sum and leaves the loop once alpha
+reaches max_alpha; core/march takes an exclusive cumulative product and
+masks the steps past it.  They agree to float32 rounding, except where a
+cone's alpha lands within rounding of max_alpha: there the two may stop
+a step apart, and a pixel differs by that step's contribution.
 """
 
 from __future__ import annotations
@@ -20,6 +28,8 @@ from vct_tpu_torch.core import cones as C
 from vct_tpu_torch.core import dense as D
 from vct_tpu_torch.core import grid as G
 from vct_tpu_torch.core import march as M
+from vct_tpu_torch.ops import _build
+from vct_tpu_torch.ops import percone as PC
 
 Tensor = torch.Tensor
 
@@ -238,10 +248,15 @@ def indirect_diffuse_percone(cfg: VCTConfig, mips: Sequence[Tensor],
                              cone_dirs: Tensor) -> Tuple[Tensor, Tensor]:
     """Exact per-pixel K-cone gather (fs:196-199) -> (rgb, occlusion).
     Its samples count into the counters percone.samples and
-    percone.active (core/march.composite)."""
+    percone.active (ops/percone.cone_gather, core/march.composite)."""
     ca = cfg.cones
     start = position + normal * cfg.grid.voxel_world_size    # fs:92
     weights = tuple(float(w) for w in C.CONE_WEIGHTS[:ca.num_diffuse_cones])
+    if _build.uses_kernel(start, cone_dirs, *mips):
+        return PC.cone_gather(
+            mips, start, cone_dirs, weights, diffuse_schedule(cfg),
+            cfg.grid.world_size, max_alpha=ca.max_alpha,
+            occlusion_falloff=ca.occlusion_falloff)
     return M.cone_march_multi(
         mips, start, cone_dirs, weights, diffuse_schedule(cfg),
         cfg.grid.world_size, max_alpha=ca.max_alpha,
@@ -255,6 +270,11 @@ def indirect_specular_percone(cfg: VCTConfig, mips: Sequence[Tensor],
     (rgb, occlusion); counted as indirect_diffuse_percone is."""
     ca = cfg.cones
     start = position + normal * cfg.grid.voxel_world_size
+    if _build.uses_kernel(start, refl_dir, *mips):
+        return PC.cone_gather(
+            mips, start, refl_dir[..., None, :], (1.0,),
+            specular_schedule(cfg), cfg.grid.world_size,
+            max_alpha=ca.max_alpha, occlusion_falloff=ca.occlusion_falloff)
     rgb, occ, _ = M.cone_march(
         mips, start, refl_dir, specular_schedule(cfg), cfg.grid.world_size,
         max_alpha=ca.max_alpha, occlusion_falloff=ca.occlusion_falloff,
